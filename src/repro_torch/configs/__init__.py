@@ -1,0 +1,40 @@
+"""Architecture registry of the port: the dense Llama-family configs it
+supports.  `get_config(name)` / `get_smoke_config(name)`.
+
+The other architectures of `repro/configs` (MoE, MLA, SSM, RG-LRU,
+encoder-decoder, VLM) arrive with the remaining-architectures slice;
+asking for one raises `KeyError`.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+# arch id -> module name
+_REGISTRY = {
+    "llama3.2-1b": "llama3_2_1b",
+    # the paper's own experiment models
+    "microllama-300m": "microllama_300m",
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "openllama-3b": "openllama_3b",
+}
+
+PAPER_ARCHS = ("microllama-300m", "tinyllama-1.1b", "openllama-3b")
+ALL_ARCHS = tuple(_REGISTRY)
+
+
+def _module(name: str):
+    if name not in _REGISTRY:
+        raise KeyError(f"arch {name!r} is not supported by the port; "
+                       f"supported: {sorted(_REGISTRY)}")
+    return importlib.import_module(f"repro_torch.configs.{_REGISTRY[name]}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).smoke_config()

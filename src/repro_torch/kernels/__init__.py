@@ -1,0 +1,99 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every kernel source is `csrc/<name>.cu`, a file with a plain C interface.
+It is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library under
+`build/` beside this file (listed in `.gitignore`) at first use, and loaded
+with `ctypes`.  The library's name carries a digest of the source and the
+flags, so an edited source is rebuilt and a stale library never loads.
+Nothing here runs at import: the CPU-only test machine has no `nvcc`.
+
+There is no fallback: a missing compiler or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler ($CUDA_HOME/bin, /usr/local/cuda/bin, PATH)."""
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        path = Path(cand, "bin", "nvcc")
+        if cand and path.is_file():
+            return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH); the CUDA kernels "
+                           "cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + repr(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start one nvcc for `name` (None when its library is already built)."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, out, cmd
+
+
+def _finish(started) -> str:
+    proc, tmp, out, cmd = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)       # atomic: a concurrent loader sees all or nothing
+    return log
+
+
+def build_all(names) -> dict:
+    """Build every named kernel library, one nvcc each, all started together.
+    Returns {name: compiler log} for the libraries built by this call."""
+    started = {n: _start(n) for n in names}
+    logs = {}
+    try:
+        for n, s in started.items():
+            if s is not None:
+                logs[n] = _finish(s)
+                started[n] = None
+    finally:
+        for s in started.values():   # a failed build: stop the others
+            if s is not None:
+                s[0].kill()
+                s[0].wait()
+                if os.path.exists(s[1]):
+                    os.unlink(s[1])
+    return logs
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library `name`, built first if needed (once per process)."""
+    build_all([name])
+    return ctypes.CDLL(str(library_path(name)))

@@ -1,0 +1,418 @@
+"""Training loop: adaptive / constant / stagewise batch-size pretraining
+(counterpart of `repro/launch/train.py`).
+
+Usable as a library (`run_training(TrainJob(...))`) and as a CLI:
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch microllama-300m --schedule adaptive --step-impl accum_norm \
+        --stats-impl flat --params-impl flat --steps 20 --seq-len 512
+
+The loop is Algorithm 1: for each step the controller's BatchPlan
+determines the (M, J*micro, seq) stacked batch; the step accumulates over
+M, computes the norm-test statistic and runs the AdamW update; the host
+controller consumes (var_l1, grad_sqnorm) and emits the next plan.
+
+Runs on the CUDA card unless the job asks for the CPU (`device="cpu"`,
+`--device cpu`).  With no device given and no card present it raises; it
+never falls back to the CPU.  On the card, float32 matmuls and
+convolutions stay float32 (TF32 off), as on the reference's CPU runs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.controller import (
+    ControllerConfig, init_controller, controller_update)
+from repro_torch.core.schedule import (
+    BatchPlan, ConstantSchedule, StagewiseSchedule, accum_free_plan,
+    bucket_ladder, parse_ladder, round_plan)
+from repro_torch.data.pipeline import (
+    MarkovTokens, UniformTokens, make_batch, pad_to_bucket)
+from repro_torch.distributed.engine import BucketedEngine
+from repro_torch.distributed.train_step import batch_to_device, make_accum_norm_step
+from repro_torch.models.model import build_model
+from repro_torch.optim.adamw import (
+    AdamWConfig, init_adamw, init_adamw_flat, warmup_cosine)
+
+
+@dataclass
+class TrainJob:
+    arch: str = "microllama-300m"
+    smoke: bool = True
+    schedule: str = "adaptive"            # adaptive | constant | stagewise
+    step_impl: str = "fsdp_norm"          # fsdp_norm (slice 2) | accum_norm
+    variance_impl: str = "scalar"         # scalar | paper (FSDP-Norm only)
+    stats_impl: str = "tree"              # tree | flat (DESIGN §9 buffers)
+    params_impl: str = "tree"             # tree | flat (DESIGN §10 resident)
+    eta: float = 0.2
+    steps: int = 200
+    total_samples: int | None = None      # stop criterion (paper trains by samples)
+    seq_len: int = 128
+    base_global_batch: int = 16
+    max_global_batch: int = 256
+    base_micro_batch: int = 2
+    max_micro_batch: int = 4
+    base_accum: int = 2
+    test_interval: int = 1
+    ema: float = 0.0
+    # predictive GNS companion (DESIGN §14): a pure observer — the batch
+    # trajectory is identical with predict on or off
+    predict: bool = False
+    gns_alpha: float = 0.9
+    slope_alpha: float = 0.5
+    predict_horizon: int = 5
+    # accumulation-free low rungs (DESIGN §14): rungs with global batch <=
+    # accum_free_below run as M=1 plans `M` times (0 = workers*max_micro)
+    accum_free: bool = False
+    accum_free_below: int = 0
+    stages: tuple = ((0.025, 16), (0.025, 64), (0.95, 256))
+    peak_lr: float = 4e-4
+    min_lr: float = 4e-5
+    warmup_frac: float = 0.01
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    data: str = "markov"                  # markov | uniform
+    data_seed: int = 0
+    seed: int = 0
+    mesh_data: int = 0                    # one device: 0 or 1
+    mesh_model: int = 1
+    seq_stages: tuple = ()
+    bucket_ladder: str = "auto"           # auto | off | 'micro:accum,...'
+    aot_warmup: bool = False
+    coord: str = "none"
+    coord_dir: str = ""
+    coord_rank: int = -1
+    coord_world: int = 0
+    coord_timeout: float = 120.0
+    compile_cache: str = ""
+    eval_every: int = 25
+    eval_batches: int = 4
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 0
+    resume: bool = False
+    log_path: str = ""
+    device: str = ""                      # "" = the CUDA card; or "cpu"
+
+
+def resolve_device(device: str) -> torch.device:
+    """The job's device: the CUDA card unless `device` names another.
+    Raises when no device is named and no card is present."""
+    if device:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "(--device cpu) to train on the CPU")
+    return torch.device("cuda")
+
+
+def _check_supported(job: TrainJob):
+    later = []
+    if job.step_impl != "accum_norm":
+        later.append(f"step_impl={job.step_impl!r} (FSDP-Norm on "
+                     "torch.distributed, slice 2)")
+    if job.mesh_data > 1 or job.mesh_model > 1:
+        later.append("multi-device meshes")
+    if job.checkpoint_dir or job.checkpoint_every or job.resume:
+        later.append("checkpoint/resume")
+    if job.coord != "none" or job.aot_warmup or job.compile_cache:
+        later.append("coordination, AOT warmup and the compile cache "
+                     "")
+    if later:
+        raise NotImplementedError("not ported yet: " + "; ".join(later))
+
+
+def _make_source(job: TrainJob, vocab: int):
+    if job.data == "markov":
+        return MarkovTokens(vocab_size=vocab, seed=job.data_seed)
+    return UniformTokens(vocab_size=vocab, seed=job.data_seed)
+
+
+def run_training(job: TrainJob) -> dict:
+    _check_supported(job)
+    device = resolve_device(job.device)
+    if device.type == "cuda":
+        # f32 stays f32 on the card: no TF32 in matmuls or convolutions
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = get_smoke_config(job.arch) if job.smoke else get_config(job.arch)
+    model = build_model(cfg)
+    params = model.init(job.seed, device)
+    workers = 1
+
+    opt_cfg = AdamWConfig(lr=job.peak_lr, weight_decay=job.weight_decay,
+                          grad_clip=job.grad_clip)
+    wrap = make_accum_norm_step(model, opt_cfg, stats_impl=job.stats_impl,
+                                params_impl=job.params_impl,
+                                params_like=params, device=device)
+    layout = wrap.flat_layout
+    opt_state = (init_adamw_flat(params, shard_divisor=workers, layout=layout,
+                                 device=device)
+                 if job.stats_impl == "flat" else init_adamw(params))
+    if job.params_impl == "flat":
+        # flat residency (DESIGN §10): the only pack of the run — from here
+        # on params are bucket buffers and the model runs on views of them
+        params = tuple(layout.flatten(params))
+
+    if job.bucket_ladder == "off":
+        ladder = None
+    elif job.bucket_ladder == "auto":
+        top = max(job.max_global_batch, job.base_global_batch,
+                  *([b for _, b in job.stages] if job.schedule == "stagewise"
+                    else [0]))
+        ladder = bucket_ladder(workers, job.base_micro_batch,
+                               job.max_micro_batch, job.base_accum,
+                               min(job.base_global_batch, top), top)
+    else:
+        ladder = parse_ladder(job.bucket_ladder, workers)
+
+    # accum-free low rungs need their (M=1, J·mb) shapes on the ladder
+    accum_free_below = job.accum_free_below or workers * job.max_micro_batch
+    if job.accum_free and ladder is not None:
+        have = {(p.accum_steps, p.micro_batch) for p in ladder}
+        extra = []
+        for mb in sorted({p.micro_batch for p in ladder}):
+            if (1, mb) not in have:
+                extra.append(BatchPlan(global_batch=workers * mb,
+                                       micro_batch=mb, accum_steps=1,
+                                       workers=workers))
+                have.add((1, mb))
+        ladder = ladder + tuple(extra)
+
+    ctrl_cfg = ControllerConfig(
+        eta=job.eta, workers=workers,
+        base_micro_batch=job.base_micro_batch,
+        max_micro_batch=job.max_micro_batch, base_accum=job.base_accum,
+        base_global_batch=job.base_global_batch,
+        max_global_batch=job.max_global_batch,
+        test_interval=job.test_interval, ema=job.ema, ladder=ladder,
+        predict=job.predict, gns_alpha=job.gns_alpha,
+        gns_groups="accum" if job.step_impl == "accum_norm" else "workers",
+        slope_alpha=job.slope_alpha, predict_horizon=job.predict_horizon)
+    ctrl = init_controller(ctrl_cfg)
+
+    if job.schedule == "constant":
+        schedule = ConstantSchedule(round_plan(
+            job.base_global_batch, workers, job.base_micro_batch,
+            job.max_micro_batch, job.base_accum, job.base_global_batch))
+    elif job.schedule == "stagewise":
+        schedule = StagewiseSchedule(tuple(job.stages), workers,
+                                     job.base_micro_batch, job.max_micro_batch,
+                                     job.base_accum, ladder=ladder)
+    else:
+        schedule = None
+
+    total_samples = job.total_samples or job.steps * job.max_global_batch
+    # the paper schedules the lr in SAMPLES (Table 5: warmup 1% of training
+    # samples) — the only fair basis when batch sizes differ across schemes
+    warmup_samples = max(1, int(job.warmup_frac * total_samples))
+
+    source = _make_source(job, cfg.vocab_size)
+    val_source = source          # disjoint step-id stream => unseen sequences
+    VAL_STEP_BASE = 1_000_000_000
+
+    engine = BucketedEngine(wrap, ladder) if ladder is not None else None
+
+    def lr_at(samples_done):
+        return warmup_cosine(samples_done, peak_lr=job.peak_lr,
+                             min_lr=job.min_lr, warmup_steps=warmup_samples,
+                             total_steps=total_samples)
+
+    def run_step(step_fn, params, opt_state, batch_np, samples_done):
+        return step_fn(params, opt_state, batch_to_device(batch_np, device),
+                       lr_at(samples_done))
+
+    def eval_loss(params):
+        bplan = BatchPlan(global_batch=workers * 2, micro_batch=2,
+                          accum_steps=1, workers=workers)
+        tree = layout.unflatten(list(params)) if job.params_impl == "flat" else params
+        losses = []
+        with torch.no_grad():
+            for i in range(job.eval_batches):
+                vb = make_batch(val_source, VAL_STEP_BASE + i, bplan,
+                                job.seq_len)
+                vb = batch_to_device({k: v[0] for k, v in vb.items()}, device)
+                losses.append(float(model.loss(tree, vb)[0]))
+        return float(np.mean(losses))
+
+    history = {"step": [], "loss": [], "val_loss": [], "global_batch": [],
+               "T": [], "var_l1": [], "grad_sqnorm": [], "samples": [],
+               "time": [], "accum_steps": [], "opt_steps": [],
+               "pred_rung": [], "pred_eta": []}
+    history["workers"] = workers
+    history["resumed_from"] = None
+    samples = 0
+    step = 0
+
+    t0 = time.time()
+    log_f = open(job.log_path, "w") if job.log_path else None
+    if log_f:
+        log_f.write("step,samples,global_batch,accum,micro,loss,val_loss,T,var_l1,grad_sqnorm,wall_s\n")
+
+    def seq_len_for(samples_done: int) -> int:
+        if not job.seq_stages:
+            return job.seq_len
+        frac = samples_done / max(total_samples, 1)
+        acc = 0.0
+        for f, sl in job.seq_stages:
+            acc += f
+            if frac < acc:
+                return sl
+        return job.seq_stages[-1][1]
+
+    try:
+        while samples < total_samples and step < job.steps:
+            plan = (schedule.plan_for(samples, total_samples)
+                    if schedule is not None else ctrl.plan)
+            batch_np = make_batch(source, step, plan, seq_len_for(samples))
+            bucket = engine.bucket_for(plan.global_batch) if engine else None
+
+            # accum-free low rungs (DESIGN §14): the same guards as the
+            # reference — the plan must BE its rung, and a tested adaptive
+            # step must keep a live variance signal (ACCUM-NORM's M=1
+            # variance is identically zero)
+            tested = (job.schedule == "adaptive" and not ctrl.at_max
+                      and (ctrl_cfg.test_interval <= 1
+                           or (ctrl.step + 1) % ctrl_cfg.test_interval == 0))
+            signal_alive = job.step_impl == "fsdp_norm" and workers > 1
+            use_af = (job.accum_free and plan.accum_steps > 1
+                      and plan.global_batch <= accum_free_below
+                      and (bucket is None or bucket == plan)
+                      and (job.schedule != "adaptive" or not tested
+                           or signal_alive))
+
+            if use_af:
+                sub_plan, repeats = accum_free_plan(plan)
+                sub_losses = []
+                for m in range(repeats):
+                    sub_np = {k: v[m:m + 1] for k, v in batch_np.items()}
+                    if engine is not None:
+                        # (1, J·mb) is on the ladder by construction
+                        step_fn = engine.get_step(sub_np)
+                        engine.observe(sub_plan, sub_plan)
+                    else:
+                        step_fn = wrap(sub_np)
+                    params, opt_state, metrics = run_step(
+                        step_fn, params, opt_state, sub_np, samples)
+                    samples += sub_plan.global_batch
+                    sub_losses.append(float(metrics["loss"]))
+                loss = float(np.mean(sub_losses))
+                # rescale the sub-batch var_l1 to the scheduled plan's batch
+                var_l1 = (float(metrics["var_l1"])
+                          * sub_plan.global_batch / plan.global_batch)
+                gsq = float(metrics["grad_sqnorm"])
+                exec_plan, opt_steps = sub_plan, repeats
+            else:
+                if engine is not None:
+                    batch_np = pad_to_bucket(batch_np, plan, bucket)
+                    step_fn = engine.get_step(batch_np)
+                    engine.observe(plan, bucket)
+                else:
+                    step_fn = wrap(batch_np)
+                params, opt_state, metrics = run_step(
+                    step_fn, params, opt_state, batch_np, samples)
+                var_l1 = float(metrics["var_l1"])
+                gsq = float(metrics["grad_sqnorm"])
+                loss = float(metrics["loss"])
+                samples += plan.global_batch
+                exec_plan, opt_steps = plan, 1
+            step += 1
+            if job.schedule == "adaptive":
+                ctrl = controller_update(ctrl_cfg, ctrl, var_l1, gsq)
+
+            val = math.nan
+            if job.eval_every and (step % job.eval_every == 0
+                                   or step == job.steps):
+                val = eval_loss(params)
+
+            t_stat = var_l1 / (job.eta**2 * gsq + 1e-30)
+            history["step"].append(step)
+            history["loss"].append(loss)
+            history["val_loss"].append(val)
+            history["global_batch"].append(plan.global_batch)
+            history["T"].append(t_stat)
+            history["var_l1"].append(var_l1)
+            history["grad_sqnorm"].append(gsq)
+            history["samples"].append(samples)
+            history["time"].append(time.time() - t0)
+            history["accum_steps"].append(exec_plan.accum_steps)
+            history["opt_steps"].append(opt_steps)
+            history["pred_rung"].append(
+                ctrl.pred_rung if job.schedule == "adaptive" else 0)
+            history["pred_eta"].append(
+                ctrl.pred_eta_steps if job.schedule == "adaptive" else -1.0)
+            if log_f:
+                log_f.write(
+                    f"{step},{samples},{plan.global_batch},"
+                    f"{exec_plan.accum_steps},{exec_plan.micro_batch},"
+                    f"{loss:.4f},"
+                    f"{val:.4f},{t_stat:.1f},{var_l1:.4g},{gsq:.4g},"
+                    f"{time.time()-t0:.1f}\n")
+                log_f.flush()
+    finally:
+        if log_f:
+            log_f.close()
+
+    if engine is not None:
+        history["engine"] = engine.stats.as_dict()
+    history["final_params"] = (layout.unflatten(list(params))
+                               if job.params_impl == "flat" else params)
+    return history
+
+
+def summarize(history: dict) -> dict:
+    losses = [l for l in history["loss"] if math.isfinite(l)]
+    vals = [v for v in history["val_loss"] if math.isfinite(v)]
+    out = {
+        "steps": history["step"][-1] if history["step"] else 0,
+        "avg_batch": float(np.mean(history["global_batch"])) if history["global_batch"] else 0,
+        "best_loss": min(losses) if losses else math.nan,
+        "best_val_loss": min(vals) if vals else math.nan,
+        "wall_s": history["time"][-1] if history["time"] else 0.0,
+    }
+    eng = history.get("engine")
+    if eng:
+        out["engine"] = {k: eng[k] for k in
+                         ("compiles", "hit_rate", "padding_waste", "warmups",
+                          "barrier_wait_s", "desyncs", "disk_cache_hits",
+                          "transitions", "transition_hits")}
+    return out
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    for f in dataclasses.fields(TrainJob):
+        name = "--" + f.name.replace("_", "-")
+        if f.type == "bool" or isinstance(f.default, bool):
+            p.add_argument(name, action="store_true", default=f.default)
+        elif f.name in ("stages", "seq_stages"):
+            p.add_argument(name, type=str, default=None,
+                           help="e.g. '0.025:16,0.025:64,0.95:256'")
+        else:
+            typ = type(f.default) if f.default is not None else int
+            p.add_argument(name, type=typ, default=f.default)
+    # --smoke is on by default; --full-size turns it off
+    p.add_argument("--full-size", dest="smoke", action="store_false")
+    args = p.parse_args(argv)
+    kw = vars(args)
+    for name in ("stages", "seq_stages"):
+        if isinstance(kw.get(name), str) and kw[name]:
+            kw[name] = tuple((float(a), int(b)) for a, b in
+                             (s.split(":") for s in kw[name].split(",")))
+        else:
+            kw[name] = getattr(TrainJob, name)
+    hist = run_training(TrainJob(**kw))
+    print(json.dumps(summarize(hist), indent=2))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,76 @@
+"""Carry parameters between the reference's pytree and the port's layout.
+
+The reference stacks the parameters of every position in the block
+pattern along a leading repeat axis (`params["blocks"][j]`, leaves of shape
+(L, ...), from its vmapped init) and keeps heterogeneous prefix layers in
+`params["prefix_blocks"]`.  The port keeps one dict per layer, in execution
+order, under `params["layers"]`.  Leaf shapes inside a layer are the same
+in both, so conversion is unstacking (and stacking back), nothing else.
+
+Both directions work on any tree with the parameter structure — gradients
+and optimizer moments too — and take / return numpy arrays on the
+reference side, so neither package imports the other.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_map
+
+
+def _to_torch(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # numpy has no native bf16
+        return torch.from_numpy(a.view(np.uint16).astype(np.int32) << 16) \
+            .view(torch.float32).to(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)      # a private copy
+
+
+def _to_numpy(t: torch.Tensor):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # the reference's bf16 numpy dtype
+        return t.float().numpy().astype(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def params_from_jax(np_tree: dict, cfg: ModelConfig, device="cpu") -> dict:
+    """The port's parameter tree from the reference's (numpy leaves)."""
+    pattern = cfg.block_pattern
+    layers = [tree_map(lambda a: _to_torch(a, device), p)
+              for p in np_tree.get("prefix_blocks", [])]
+    for r in range(cfg.num_repeats):
+        for j in range(len(pattern)):
+            layers.append(tree_map(lambda a: _to_torch(np.asarray(a)[r], device),
+                                   np_tree["blocks"][j]))
+    out = {"embed": tree_map(lambda a: _to_torch(a, device), np_tree["embed"]),
+           "layers": layers,
+           "final_norm": tree_map(lambda a: _to_torch(a, device),
+                                  np_tree["final_norm"])}
+    if "unembed" in np_tree:
+        out["unembed"] = tree_map(lambda a: _to_torch(a, device),
+                                  np_tree["unembed"])
+    return out
+
+
+def params_to_jax(params: dict, cfg: ModelConfig) -> dict:
+    """Inverse of `params_from_jax`: the reference's tree, numpy leaves."""
+    n_prefix = len(cfg.prefix_pattern)
+    layers = params["layers"]
+    out = {"embed": tree_map(_to_numpy, params["embed"]),
+           "final_norm": tree_map(_to_numpy, params["final_norm"])}
+    if n_prefix:
+        out["prefix_blocks"] = [tree_map(_to_numpy, p)
+                                for p in layers[:n_prefix]]
+    pattern = len(cfg.block_pattern)
+    scanned = layers[n_prefix:]
+    out["blocks"] = [
+        tree_map(lambda *xs: np.stack([_to_numpy(x) for x in xs]),
+                 *scanned[j::pattern])
+        for j in range(pattern)]
+    if "unembed" in params:
+        out["unembed"] = tree_map(_to_numpy, params["unembed"])
+    return out

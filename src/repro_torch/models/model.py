@@ -1,0 +1,45 @@
+"""Public model API: a thin functional wrapper around the transformer stack
+(counterpart of `repro/models/model.py`)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from repro_torch.models import transformer as tfm
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.common import count_params
+
+_SERVING = "decoding arrives with the serving slice"
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def init(self, seed: int = 0, device="cpu") -> dict:
+        return tfm.init_params(self.cfg, seed=seed, device=device)
+
+    def loss(self, params, batch):
+        return tfm.loss_fn(params, batch, self.cfg)
+
+    def logits(self, params, batch):
+        hidden, _ = tfm.forward(params, batch, self.cfg)
+        return tfm._logits(params, hidden, self.cfg)
+
+    def prefill(self, params, batch):
+        raise NotImplementedError(_SERVING)
+
+    def init_cache(self, batch: int, cache_len: int, ring: bool = False):
+        raise NotImplementedError(_SERVING)
+
+    def decode_step(self, params, cache, tokens, pos, ring: bool = False):
+        raise NotImplementedError(_SERVING)
+
+    def num_params(self, params=None) -> int:
+        if params is not None:
+            return count_params(params)
+        return self.cfg.param_count()
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

@@ -1,0 +1,34 @@
+"""RMSNorm / LayerNorm on plain parameter dicts (counterpart of
+`repro/models/norms.py`): statistics in f32, result cast back to x's dtype."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.common import ones_init, zeros_init
+
+
+def init_norm(d: int, kind: str, dtype, device):
+    if kind == "rmsnorm":
+        return {"scale": ones_init((d,), dtype, device)}
+    if kind == "layernorm":
+        return {"scale": ones_init((d,), dtype, device),
+                "bias": zeros_init((d,), dtype, device)}
+    raise ValueError(kind)
+
+
+def apply_norm(params, x, kind: str, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.float()
+    if kind == "rmsnorm":
+        var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+        y = x * (1.0 / torch.sqrt(var + eps))
+        y = y * params["scale"].float()
+    elif kind == "layernorm":
+        mu = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+        y = (x - mu) / torch.sqrt(var + eps)
+        y = y * params["scale"].float() + params["bias"].float()
+    else:
+        raise ValueError(kind)
+    return y.to(dtype)

@@ -1,19 +1,28 @@
-"""The paper's core contribution, the (approximate) norm test — the estimators
-the port has so far (counterpart of `repro/core/norm_test.py`).
+"""The paper's core contribution, the (approximate) norm test, eq. (3)/(5)
+(counterpart of `repro/core/norm_test.py`).  Each estimator returns the
+pair (var_l1, grad_sqnorm) from which the controller computes
+T_k = var_l1 / (η² · grad_sqnorm):
 
+* `worker_variance_stats` and its flat-buffer forms — eq. (5)
+  DDP-/FSDP-Norm: the variance of the J workers' minibatch gradients.  A
+  worker is a `torch.distributed` rank (`launch/mesh.py`); where the
+  reference reduces over the mesh's data axes (`psum`, `pmean`), the port
+  all-reduces over the default process group.  With one worker there is
+  no group and no collective.
 * `accum_variance_stats` — beyond-paper ACCUM-NORM: variance across the M
   gradient-accumulation microbatch gradients, rescaled onto the per-worker
   minibatch scale of eq. (5).
 
-The worker-variance family (eq. 5 DDP-/FSDP-Norm) arrives with the
-FSDP-Norm slice.  All reductions are float32 regardless of gradient dtype.
+The statistics stay 0-d tensors on the device: nothing here reads a value
+on the host.  All reductions are float32 regardless of gradient dtype.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.tree import tree_leaves
+from repro_torch.launch.mesh import pmean
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def tree_sqnorm(tree) -> torch.Tensor:
@@ -25,6 +34,80 @@ def tree_sqnorm(tree) -> torch.Tensor:
         total = total + torch.sum(torch.square(x.float()))
     return total
 
+
+def tree_sqdiff(tree_a, tree_b) -> torch.Tensor:
+    """Σ ‖a − b‖² over all leaves, in f32 (the plain form of the
+    `sqdiff_norm` kernel's statistic)."""
+    la, lb = tree_leaves(tree_a), tree_leaves(tree_b)
+    acc = torch.zeros((), dtype=torch.float32,
+                      device=la[0].device if la else "cpu")
+    for a, b in zip(la, lb):
+        acc = acc + torch.sum(torch.square(a.float() - b.float()))
+    return acc
+
+
+# ------------------------------------------- eq. (5) DDP-/FSDP-Norm ----
+
+def worker_variance_stats(local_grad, mean_grad, *, sqdiff_fn=None):
+    """Per-worker statistic from this worker's minibatch gradient g_j
+    (`local_grad`) and the workers' mean gradient g (`mean_grad`), trees.
+    Returns (var_l1, grad_sqnorm): ‖Var̂‖₁ = (1/J)Σ_j‖g_j − g‖² and ‖g‖².
+
+    The local ‖g_j − g‖² is reduced to ONE f32 scalar before the collective
+    — the beyond-paper wire-cost optimization (4 bytes vs O(d); DESIGN
+    §7.1).  `sqdiff_fn` computes that local sum (default `tree_sqdiff`;
+    `kernels.ops.sqdiff_norm_tree` runs the `sqdiff_norm` kernel)."""
+    sqdiff = sqdiff_fn or tree_sqdiff
+    var_l1 = pmean(sqdiff(local_grad, mean_grad))
+    return var_l1, tree_sqnorm(mean_grad)
+
+
+def worker_variance_stats_flat(local_grad, mean_grad, *, layout=None):
+    """Flat-buffer variant of `worker_variance_stats` (DESIGN §9): both trees
+    are packed into the layout's buckets and the fused-stats kernel computes
+    ‖g_j − g‖² AND ‖g‖² in ONE read of each bucket.  `layout` is the step's
+    shared `FlatLayout` (rebuilt here when omitted).  Returns (var_l1,
+    grad_sqnorm, mean_buffers): the packed mean gradient feeds the AdamW
+    tail, so it is packed exactly once per step."""
+    from repro_torch.distributed.flatbuf import FlatLayout
+    if layout is None:
+        layout = FlatLayout.from_tree(mean_grad)
+    local_b = layout.flatten(local_grad)
+    mean_b = layout.flatten(mean_grad)
+    var_l1, gsq = worker_variance_stats_buffers(local_b, mean_b)
+    return var_l1, gsq, mean_b
+
+
+def worker_variance_stats_buffers(local_buffers, mean_buffers):
+    """Born-flat variant (DESIGN §10): g_j and g already live as bucket
+    buffers, so this performs no pack — one `ops.stats_flat` per bucket (the
+    `fused_stats` kernel on the card).  Shard padding is zero in every
+    gradient buffer and adds nothing to either sum.  Returns (var_l1,
+    grad_sqnorm)."""
+    from repro_torch.kernels import ops
+    device = local_buffers[0].device if local_buffers else "cpu"
+    local_sq = torch.zeros((), dtype=torch.float32, device=device)
+    gsq = torch.zeros((), dtype=torch.float32, device=device)
+    for lb, mb in zip(local_buffers, mean_buffers):
+        d, q = ops.stats_flat(lb, mb)
+        local_sq = local_sq + d
+        gsq = gsq + q
+    return pmean(local_sq), gsq
+
+
+def paper_faithful_worker_variance(local_grad, mean_grad):
+    """The paper's literal formulation: all-reduce the full (g_j − g)² vector
+    (eq. 5 computes Var̂ as a d-vector, then takes ‖·‖₁).  Mathematically
+    identical to `worker_variance_stats`; kept as the baseline for the
+    collective-bytes comparison."""
+    diff_sq = tree_map(lambda a, b: torch.square(a.float() - b.float()),
+                       local_grad, mean_grad)
+    var_vec = tree_map(pmean, diff_sq)
+    var_l1 = tree_sqnorm(tree_map(torch.sqrt, var_vec))   # ‖Var̂‖₁ = Σ coords
+    return var_l1, tree_sqnorm(mean_grad)
+
+
+# --------------------------------------------- beyond-paper ACCUM-NORM ----
 
 def accum_variance_stats(micro_grads_sq_sum, mean_grad, num_micro,
                          workers: int, *, gsq=None):

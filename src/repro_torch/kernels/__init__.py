@@ -1,13 +1,19 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every kernel source is `csrc/<name>.cu`, a file with a plain C interface.
-It is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library under
-`build/` beside this file (listed in `.gitignore`) at first use, and loaded
-with `ctypes`.  The library's name carries a digest of the source and the
-flags, so an edited source is rebuilt and a stale library never loads.
-Nothing here runs at import: the CPU-only test machine has no `nvcc`.
+Every kernel source is `csrc/<name>.cu`, a file with a plain C interface
+that may include the shared headers `csrc/*.cuh`.  It is compiled by
+`nvcc` for Hopper (`sm_90a`) into a shared library under `build/` beside
+this file (listed in `.gitignore`) at first use, and loaded with `ctypes`.
+The library's name carries a digest of the source, every header and the
+flags, so an edited source or header is rebuilt and a stale library never
+loads.  Nothing here runs at import: the CPU-only test machine has no
+`nvcc`.
 
-There is no fallback: a missing compiler or a failed build raises.
+There is no fallback: a missing compiler, a failed build or a failed
+launch raises.
+
+Also here: the launch geometry and the argument checks the streaming
+kernels' wrappers share.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -42,8 +50,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + repr(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(repr(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -97,3 +107,45 @@ def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built first if needed (once per process)."""
     build_all([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+# ------------------------------------------------ streaming kernels ----
+
+_THREADS = 256                      # kThreads in csrc/common.cuh
+_PER_BLOCK = _THREADS * 4 * 4       # elements a block covers at full grid
+_MAX_GRID = 2048
+
+
+def grid_for(n: int) -> int:
+    """Blocks for an n-element buffer: ~4096 elements each, at most 2048
+    (about two waves of 8 resident 256-thread blocks on 132 SMs)."""
+    return max(1, min(-(-n // _PER_BLOCK), _MAX_GRID))
+
+
+def check_operands(kernel: str, device, float_args: dict, f32_args=None):
+    """Raise unless every tensor is contiguous and lies on the CUDA
+    `device`, every `float_args` tensor is float32 or bfloat16 and every
+    `f32_args` tensor float32."""
+    f32_args = f32_args or {}
+    for name, t in {**float_args, **f32_args}.items():
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(f"{kernel}: {name} must lie on the CUDA device "
+                             f"{device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+    for name, t in float_args.items():
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{kernel}: {name} must be float32 or bfloat16, "
+                            f"got {t.dtype}")
+    for name, t in f32_args.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{kernel}: {name} must be float32, got {t.dtype}")
+
+
+def check_launch(lib: ctypes.CDLL, err: int, kernel: str):
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        fn = lib.repro_cuda_error_string
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} "
+                           f"({fn(err).decode()})")

@@ -1,15 +1,19 @@
-"""CUDA kernel: fused flat-buffer AdamW + pre-clip Σg² (Algorithm 1's
-optimizer block, DESIGN §9).
+"""CUDA kernels: fused AdamW (Algorithm 1's optimizer block, DESIGN §9).
 
-Replaces the TPU kernel `fused_adamw_stats` of
-`repro/kernels/fused_adamw.py`.  The source, with its design and bound, is
-`csrc/fused_adamw.cu`; the plain version is `ref.adamw_stats_ref`.
+* `fused_adamw_stats` replaces the TPU kernel of the same name in
+  `repro/kernels/fused_adamw.py`: AdamW over one flat buffer with the
+  global-norm clip folded in and the pre-clip Σg² as a byproduct (plain
+  version `ref.adamw_stats_ref`).
+* `fused_adamw` replaces the TPU kernel `fused_adamw` there: the same
+  update on one tensor of any shape, no clip, no byproduct (plain version
+  `ref.adamw_ref`).
 
-The wrapper takes CUDA tensors only (`kernels.ops.adamw_flat` dispatches by
-device) and raises on anything the kernel does not take.  p, m and v are
-updated IN PLACE — the port's form of the reference step donating its
-buffers.  Each call launches the kernel once (plus its fixed-order partial
-sum) and adds one to `fused_adamw_stats.launches`.
+Both run the one element loop of `csrc/fused_adamw.cu`, whose header gives
+the design and the bound.  The wrappers take CUDA tensors only
+(`kernels.ops` dispatches by device) and raise on anything the kernel does
+not take.  p, m and v are updated IN PLACE — the port's form of the
+reference step donating its buffers.  Each call adds one to its wrapper's
+`launches`.
 """
 
 from __future__ import annotations
@@ -18,30 +22,22 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import load
+from repro_torch.kernels import check_launch, check_operands, grid_for, load
 
 SOURCE = "fused_adamw"
-_THREADS = 256
-_PER_BLOCK = _THREADS * 4 * 4        # elements a block covers at full grid
-_MAX_GRID = 2048
-
-
-def grid_for(n: int) -> int:
-    """Blocks for an n-element buffer: ~4096 elements each, at most 2048
-    (about two waves of 8 resident 256-thread blocks on 132 SMs)."""
-    return max(1, min(-(-n // _PER_BLOCK), _MAX_GRID))
 
 
 def _lib():
     lib = load(SOURCE)
-    fn = lib.repro_fused_adamw_stats
-    if fn.argtypes is None:
+    if lib.repro_fused_adamw.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, i, vp, i, vp, vp, vp, vp, vp, ctypes.c_longlong, i,
-                       f, f, f, f, f, f, vp]
-        fn.restype = ctypes.c_int
-        lib.repro_cuda_error_string.argtypes = [i]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        hyper = [f, f, f, f, f, f, vp]          # b1, 1-b1, b2, 1-b2, eps, wd, stream
+        lib.repro_fused_adamw_stats.argtypes = [
+            vp, i, vp, i, vp, vp, vp, vp, vp, ctypes.c_longlong, i, *hyper]
+        lib.repro_fused_adamw.argtypes = [
+            vp, i, vp, i, vp, vp, vp, ctypes.c_longlong, i, *hyper]
+        lib.repro_fused_adamw_stats.restype = ctypes.c_int
+        lib.repro_fused_adamw.restype = ctypes.c_int
     return lib
 
 
@@ -53,50 +49,57 @@ def adamw_scalars(lr, c1, c2, clip_scale, device) -> torch.Tensor:
                         for x in (lr, c1, c2, clip_scale)])
 
 
-def _check(p, g, m, v, scalars):
-    for name, t in (("p", p), ("g", g), ("m", m), ("v", v),
-                    ("scalars", scalars)):
-        if t.device.type != "cuda" or t.device != p.device:
-            raise ValueError(f"fused_adamw_stats: {name} must lie on the CUDA "
-                             f"device of p ({p.device}), got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_adamw_stats: {name} must be contiguous")
-    if p.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused_adamw_stats: p must be float32 or bfloat16, got {p.dtype}")
-    if g.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused_adamw_stats: g must be float32 or bfloat16, got {g.dtype}")
-    for name, t in (("m", m), ("v", v), ("scalars", scalars)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused_adamw_stats: {name} must be float32, got {t.dtype}")
+def _check(kernel, p, g, m, v, scalars):
+    check_operands(kernel, p.device, {"p": p, "g": g},
+                   {"m": m, "v": v, "scalars": scalars})
     if not p.numel() == g.numel() == m.numel() == v.numel():
-        raise ValueError("fused_adamw_stats: p, g, m, v differ in size: "
+        raise ValueError(f"{kernel}: p, g, m, v differ in size: "
                          f"{p.numel()}, {g.numel()}, {m.numel()}, {v.numel()}")
     if scalars.numel() != 4:
-        raise ValueError("fused_adamw_stats: scalars must hold (lr, c1, c2, clip)")
+        raise ValueError(f"{kernel}: scalars must hold (lr, c1, c2, clip)")
+
+
+def _hyper(beta1, beta2, eps, weight_decay, device):
+    return (beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps, weight_decay,
+            torch.cuda.current_stream(device).cuda_stream)
 
 
 def fused_adamw_stats(p, g, m, v, scalars, *, beta1: float, beta2: float,
                       eps: float, weight_decay: float) -> torch.Tensor:
     """In-place AdamW over one flat buffer; returns Σg² of the RAW gradient
     as a 0-d f32 tensor on the device.  `scalars` is `adamw_scalars(...)`."""
-    _check(p, g, m, v, scalars)
+    _check("fused_adamw_stats", p, g, m, v, scalars)
     lib = _lib()
     n = p.numel()
     grid = grid_for(n)
     partials = torch.empty(grid, dtype=torch.float32, device=p.device)
     gsq = torch.empty((), dtype=torch.float32, device=p.device)
-    stream = torch.cuda.current_stream(p.device).cuda_stream
     err = lib.repro_fused_adamw_stats(
         p.data_ptr(), int(p.dtype == torch.bfloat16), g.data_ptr(),
         int(g.dtype == torch.bfloat16), m.data_ptr(), v.data_ptr(),
         scalars.data_ptr(), partials.data_ptr(), gsq.data_ptr(), n, grid,
-        beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps, weight_decay, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_adamw_stats launch failed: CUDA error {err} "
-            f"({lib.repro_cuda_error_string(err).decode()})")
+        *_hyper(beta1, beta2, eps, weight_decay, p.device))
+    check_launch(lib, err, "fused_adamw_stats")
     fused_adamw_stats.launches += 1
     return gsq
 
 
+def fused_adamw(p, g, m, v, scalars, *, beta1: float, beta2: float,
+                eps: float, weight_decay: float):
+    """In-place AdamW on one tensor (no clip: `scalars[3]` is not read);
+    returns (p, m, v)."""
+    _check("fused_adamw", p, g, m, v, scalars)
+    lib = _lib()
+    n = p.numel()
+    err = lib.repro_fused_adamw(
+        p.data_ptr(), int(p.dtype == torch.bfloat16), g.data_ptr(),
+        int(g.dtype == torch.bfloat16), m.data_ptr(), v.data_ptr(),
+        scalars.data_ptr(), n, grid_for(n),
+        *_hyper(beta1, beta2, eps, weight_decay, p.device))
+    check_launch(lib, err, "fused_adamw")
+    fused_adamw.launches += 1
+    return p, m, v
+
+
 fused_adamw_stats.launches = 0
+fused_adamw.launches = 0

@@ -1,20 +1,90 @@
 """Public entry points of the port's kernels, dispatched by the device of
-the tensors passed in (counterpart of `repro/kernels/ops.py`'s flat
-hot-path dispatch):
+the tensors passed in (counterpart of `repro/kernels/ops.py`):
 
 * a CUDA tensor goes to the hand-written kernel — or the call raises;
 * a CPU tensor goes to the kernel's plain PyTorch version in `ref.py`.
 
 There is no environment override and no fallback: a tensor on the card
-never reaches the plain version.
+never reaches the plain version.  The reference's per-tensor wrappers
+(`fused_stats`, `sqdiff_norm`, `fused_adamw`) and its flat hot-path ones
+(`stats_flat`, `adamw_flat`) dispatch the same way here.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import fused_adamw as _fa
 from repro_torch.kernels import ref
-from repro_torch.kernels.fused_adamw import adamw_scalars, fused_adamw_stats
+from repro_torch.kernels.fused_stats import fused_stats as _fused_stats
+from repro_torch.kernels.sqdiff_norm import sqdiff_norm as _sqdiff_norm
+from repro_torch.tree import tree_leaves
+
+
+def _on_card(kernel: str, t) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"{kernel}: no implementation for {t.device}")
+    return False
+
+
+def sqdiff_norm(x, y):
+    """Σ(x−y)² in f32 as a 0-d tensor on x's device."""
+    if _on_card("sqdiff_norm", x):
+        return _sqdiff_norm(x, y)
+    return ref.sqdiff_norm_ref(x, y)
+
+
+def sqdiff_norm_tree(tree_a, tree_b):
+    """Σ‖a−b‖² over a whole gradient tree, one `sqdiff_norm` per leaf (the
+    norm-test statistic's `sqdiff_fn`)."""
+    leaves_a = tree_leaves(tree_a)
+    total = torch.zeros((), dtype=torch.float32,
+                        device=leaves_a[0].device if leaves_a else "cpu")
+    for a, b in zip(leaves_a, tree_leaves(tree_b)):
+        total = total + sqdiff_norm(a, b)
+    return total
+
+
+def fused_stats(x, y):
+    """(Σ(x−y)², Σy²) in one read of each operand, as two 0-d f32 tensors."""
+    if _on_card("fused_stats", x):
+        return _fused_stats(x, y)
+    return ref.fused_stats_ref(x, y)
+
+
+# the reference's name for the flat hot-path call (one bucket of g_j and
+# g); the kernel's grid covers whatever buffer arrives
+stats_flat = fused_stats
+
+
+def fused_adamw(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, c1, c2):
+    """AdamW on one tensor, IN PLACE on p, m and v (the reference step
+    donates them); no clip.  Returns (p, m, v)."""
+    if _on_card("fused_adamw", p):
+        return _fa.fused_adamw(
+            p, g, m, v, _fa.adamw_scalars(lr, c1, c2, 1.0, p.device),
+            beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay)
+    p2, m2, v2 = ref.adamw_ref(p, g, m, v, lr=lr, beta1=beta1, beta2=beta2,
+                               eps=eps, weight_decay=weight_decay, c1=c1, c2=c2)
+    p.copy_(p2)
+    m.copy_(m2)
+    v.copy_(v2)
+    return p, m, v
+
+
+def fused_adamw_tree(params, grads, m, v, *, lr, beta1, beta2, eps,
+                     weight_decay, c1, c2):
+    """`fused_adamw` leaf by leaf, in place; returns the (params, m, v)
+    trees, whose leaves are the tensors passed in."""
+    kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+              weight_decay=weight_decay, c1=c1, c2=c2)
+    for xs in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(m),
+                  tree_leaves(v)):
+        fused_adamw(*xs, **kw)
+    return params, m, v
 
 
 def adamw_flat(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, c1, c2,
@@ -22,13 +92,11 @@ def adamw_flat(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, c1, c2,
     """Flat-buffer AdamW over one bucket, IN PLACE on p, m and v (the port's
     form of the reference's buffer donation).  Returns (p, m, v, Σg²_raw)
     with Σg² a 0-d f32 tensor on p's device."""
-    if p.device.type == "cuda":
-        gsq = fused_adamw_stats(
-            p, g, m, v, adamw_scalars(lr, c1, c2, clip_scale, p.device),
+    if _on_card("adamw_flat", p):
+        gsq = _fa.fused_adamw_stats(
+            p, g, m, v, _fa.adamw_scalars(lr, c1, c2, clip_scale, p.device),
             beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay)
         return p, m, v, gsq
-    if p.device.type != "cpu":
-        raise ValueError(f"adamw_flat: no implementation for {p.device}")
     p2, m2, v2, gsq = ref.adamw_stats_ref(
         p, g, m, v, lr=lr, beta1=beta1, beta2=beta2, eps=eps,
         weight_decay=weight_decay, c1=c1, c2=c2, clip_scale=clip_scale)
@@ -39,9 +107,25 @@ def adamw_flat(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, c1, c2,
 
 
 def flat_dispatch_info(device) -> dict:
-    """Which implementation the flat AdamW tail runs for tensors on
-    `device`."""
+    """Which implementation the flat hot path (the statistics pair and the
+    AdamW tail) runs for tensors on `device`."""
     kind = torch.device(device).type
-    return {"device": str(device),
-            "flat_tail": {"cuda": "cuda-kernel fused_adamw_stats",
-                          "cpu": "torch-reference"}.get(kind, "unsupported")}
+    route = lambda kernel: {"cuda": f"cuda-kernel {kernel}",
+                            "cpu": "torch-reference"}.get(kind, "unsupported")
+    return {"device": str(device), "stats_flat": route("fused_stats"),
+            "flat_tail": route("fused_adamw_stats")}
+
+
+_COUNTED = {"fused_adamw_stats": _fa.fused_adamw_stats,
+            "fused_adamw": _fa.fused_adamw, "fused_stats": _fused_stats,
+            "sqdiff_norm": _sqdiff_norm}
+
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's launch count in this process."""
+    return {name: fn.launches for name, fn in _COUNTED.items()}
+
+
+def reset_launch_counts():
+    for fn in _COUNTED.values():
+        fn.launches = 0

@@ -12,6 +12,12 @@ determines the (M, J*micro, seq) stacked batch; the step accumulates over
 M, computes the norm-test statistic and runs the AdamW update; the host
 controller consumes (var_l1, grad_sqnorm) and emits the next plan.
 
+FSDP-Norm with J = `mesh_data` > 1 workers runs one process per worker:
+inside a process group (e.g. under `torchrun`) as this process's rank,
+otherwise it spawns J local ranks (`launch/mesh.py`) and returns rank 0's
+history.  Every rank runs the same loop and controller on the same
+metrics, so all take the same batch-size decisions.
+
 Runs on the CUDA card unless the job asks for the CPU (`device="cpu"`,
 `--device cpu`).  With no device given and no card present it raises; it
 never falls back to the CPU.  On the card, float32 matmuls and
@@ -24,6 +30,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import time
 from dataclasses import dataclass
 
@@ -39,7 +46,14 @@ from repro_torch.core.schedule import (
 from repro_torch.data.pipeline import (
     MarkovTokens, UniformTokens, make_batch, pad_to_bucket)
 from repro_torch.distributed.engine import BucketedEngine
-from repro_torch.distributed.train_step import batch_to_device, make_accum_norm_step
+from repro_torch.distributed.sharding import (
+    gather_flat_buffers, shard_flat_buffers)
+from repro_torch.distributed.train_step import (
+    batch_to_device, make_accum_norm_step, make_fsdp_norm_step)
+from repro_torch.kernels.ops import launch_counts
+from repro_torch.launch.mesh import (
+    default_backend, init_workers, num_workers, rank_device, spawn_workers,
+    worker_index)
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import (
     AdamWConfig, init_adamw, init_adamw_flat, warmup_cosine)
@@ -50,7 +64,7 @@ class TrainJob:
     arch: str = "microllama-300m"
     smoke: bool = True
     schedule: str = "adaptive"            # adaptive | constant | stagewise
-    step_impl: str = "fsdp_norm"          # fsdp_norm (slice 2) | accum_norm
+    step_impl: str = "fsdp_norm"          # fsdp_norm | accum_norm
     variance_impl: str = "scalar"         # scalar | paper (FSDP-Norm only)
     stats_impl: str = "tree"              # tree | flat (DESIGN §9 buffers)
     params_impl: str = "tree"             # tree | flat (DESIGN §10 resident)
@@ -84,8 +98,11 @@ class TrainJob:
     data: str = "markov"                  # markov | uniform
     data_seed: int = 0
     seed: int = 0
-    mesh_data: int = 0                    # one device: 0 or 1
+    # J data-parallel workers, one process each; 0 = the launcher's world
+    # size (torchrun), else 1
+    mesh_data: int = 0
     mesh_model: int = 1
+    dist_backend: str = ""                # "" = nccl on the card, gloo on the CPU
     seq_stages: tuple = ()
     bucket_ladder: str = "auto"           # auto | off | 'micro:accum,...'
     aot_warmup: bool = False
@@ -115,18 +132,28 @@ def resolve_device(device: str) -> torch.device:
     return torch.device("cuda")
 
 
+def _workers(job: TrainJob) -> int:
+    """J: `mesh_data`, else the launcher's world size, else 1."""
+    if job.mesh_data:
+        return job.mesh_data
+    return num_workers() if num_workers() > 1 else int(
+        os.environ.get("WORLD_SIZE", 1))
+
+
 def _check_supported(job: TrainJob):
+    if job.step_impl not in ("fsdp_norm", "accum_norm"):
+        raise ValueError(f"step_impl must be 'fsdp_norm' or 'accum_norm', "
+                         f"got {job.step_impl!r}")
     later = []
-    if job.step_impl != "accum_norm":
-        later.append(f"step_impl={job.step_impl!r} (FSDP-Norm on "
-                     "torch.distributed, slice 2)")
-    if job.mesh_data > 1 or job.mesh_model > 1:
-        later.append("multi-device meshes")
+    if job.step_impl == "accum_norm" and _workers(job) > 1:
+        later.append("ACCUM-NORM over several workers (ROADMAP §1, item 8)")
+    if job.mesh_model > 1:
+        later.append("a model axis, mesh_model > 1 (ROADMAP §1, item 8)")
     if job.checkpoint_dir or job.checkpoint_every or job.resume:
-        later.append("checkpoint/resume")
+        later.append("checkpoint/resume (ROADMAP §1, item 3)")
     if job.coord != "none" or job.aot_warmup or job.compile_cache:
         later.append("coordination, AOT warmup and the compile cache "
-                     "")
+                     "(ROADMAP §1, items 2 and 5)")
     if later:
         raise NotImplementedError("not ported yet: " + "; ".join(later))
 
@@ -138,30 +165,65 @@ def _make_source(job: TrainJob, vocab: int):
 
 
 def run_training(job: TrainJob) -> dict:
+    """Train as `job` says; returns the history (rank 0's, with J > 1)."""
     _check_supported(job)
     device = resolve_device(job.device)
+    J = _workers(job)
+    if J > 1 and num_workers() == 1:
+        backend = job.dist_backend or default_backend(device)
+        if "RANK" not in os.environ:
+            return spawn_workers(_train, J, job, backend=backend)
+        init_workers(backend, int(os.environ["RANK"]),    # under torchrun
+                     int(os.environ["WORLD_SIZE"]), "env://")
+    if num_workers() != J:
+        raise ValueError(f"the job asks for {J} workers, the process group "
+                         f"has {num_workers()} ranks")
+    return _train(job)
+
+
+def _train(job: TrainJob) -> dict:
+    """The loop of one worker (all of them in lockstep)."""
+    workers, rank = num_workers(), worker_index()
+    device = rank_device(resolve_device(job.device), rank)
     if device.type == "cuda":
         # f32 stays f32 on the card: no TF32 in matmuls or convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    launches_before = launch_counts()
     cfg = get_smoke_config(job.arch) if job.smoke else get_config(job.arch)
     model = build_model(cfg)
     params = model.init(job.seed, device)
-    workers = 1
 
     opt_cfg = AdamWConfig(lr=job.peak_lr, weight_decay=job.weight_decay,
                           grad_clip=job.grad_clip)
-    wrap = make_accum_norm_step(model, opt_cfg, stats_impl=job.stats_impl,
-                                params_impl=job.params_impl,
-                                params_like=params, device=device)
+    if job.step_impl == "fsdp_norm":
+        wrap = make_fsdp_norm_step(model, opt_cfg,
+                                   variance_impl=job.variance_impl,
+                                   stats_impl=job.stats_impl,
+                                   params_impl=job.params_impl,
+                                   params_like=params, device=device)
+    else:
+        wrap = make_accum_norm_step(model, opt_cfg, stats_impl=job.stats_impl,
+                                    params_impl=job.params_impl,
+                                    params_like=params, device=device)
     layout = wrap.flat_layout
+    # flat moments are this worker's 1/J shard of each J-divisible bucket
     opt_state = (init_adamw_flat(params, shard_divisor=workers, layout=layout,
                                  device=device)
                  if job.stats_impl == "flat" else init_adamw(params))
     if job.params_impl == "flat":
         # flat residency (DESIGN §10): the only pack of the run — from here
-        # on params are bucket buffers and the model runs on views of them
-        params = tuple(layout.flatten(params))
+        # on params are bucket buffers (the worker's shards of them) and the
+        # model runs on views of the gathered buffers
+        params = tuple(shard_flat_buffers(layout.flatten(params)))
+
+    def full_tree(params):
+        """The whole parameter tree (flat: gathered from every worker)."""
+        if job.params_impl != "flat":
+            return params
+        return layout.unflatten(gather_flat_buffers(params))
 
     if job.bucket_ladder == "off":
         ladder = None
@@ -234,7 +296,7 @@ def run_training(job: TrainJob) -> dict:
     def eval_loss(params):
         bplan = BatchPlan(global_batch=workers * 2, micro_batch=2,
                           accum_steps=1, workers=workers)
-        tree = layout.unflatten(list(params)) if job.params_impl == "flat" else params
+        tree = full_tree(params)
         losses = []
         with torch.no_grad():
             for i in range(job.eval_batches):
@@ -254,7 +316,7 @@ def run_training(job: TrainJob) -> dict:
     step = 0
 
     t0 = time.time()
-    log_f = open(job.log_path, "w") if job.log_path else None
+    log_f = open(job.log_path, "w") if job.log_path and rank == 0 else None
     if log_f:
         log_f.write("step,samples,global_batch,accum,micro,loss,val_loss,T,var_l1,grad_sqnorm,wall_s\n")
 
@@ -364,8 +426,17 @@ def run_training(job: TrainJob) -> dict:
 
     if engine is not None:
         history["engine"] = engine.stats.as_dict()
-    history["final_params"] = (layout.unflatten(list(params))
-                               if job.params_impl == "flat" else params)
+    history["final_params"] = full_tree(params)
+    # what each worker ran: its kernel launches in this run and its peak
+    # device memory (a spawned rank's counters are not the caller's)
+    mine = {"launches": {k: n - launches_before[k]
+                         for k, n in launch_counts().items()},
+            "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
+                               if device.type == "cuda" else None)}
+    history["ranks"] = [mine]
+    if workers > 1:
+        history["ranks"] = [None] * workers
+        torch.distributed.all_gather_object(history["ranks"], mine)
     return history
 
 

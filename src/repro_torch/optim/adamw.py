@@ -3,7 +3,8 @@ correction and global-norm gradient clipping (counterpart of
 `repro/optim/adamw.py`).  Optimizer moments are f32 regardless of param
 dtype.
 
-* `adamw_update` — the tree oracle: leaf by leaf, returns new tensors.
+* `adamw_update` — the tree oracle: leaf by leaf, returns new tensors
+  (with `use_kernel`, one per-tensor `fused_adamw` launch a leaf, in place).
 * `adamw_update_buffers` — the flat-buffer path (DESIGN §9): one
   `kernels.ops.adamw_flat` launch per bucket, updating params and moments
   IN PLACE (where the reference step donates its buffers), with the
@@ -64,17 +65,26 @@ def _bias_corrections(cfg: AdamWConfig, count):
 
 def adamw_update(params, grads, state, cfg: AdamWConfig, lr):
     """One AdamW step on trees (the oracle); returns (new_params, new_state,
-    grad_norm) as new tensors.  `lr` may be a float or a 0-d tensor."""
-    if cfg.use_kernel:
-        raise NotImplementedError(
-            "the per-tensor fused_adamw kernel is not ported yet; use the "
-            "flat path")
+    grad_norm) as new tensors.  `lr` may be a float or a 0-d tensor.
+
+    With `cfg.use_kernel` the update runs leaf by leaf through
+    `kernels.ops.fused_adamw_tree` (the per-tensor `fused_adamw` kernel on
+    the card), IN PLACE on the params and moments passed in, where the
+    reference step donates them."""
     if cfg.grad_clip > 0:
         grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     else:
         gnorm = torch.sqrt(tree_sqnorm(grads))
     count = state["count"] + 1
     c1, c2 = _bias_corrections(cfg, count)
+
+    if cfg.use_kernel:
+        from repro_torch.kernels.ops import fused_adamw_tree
+        new_params, new_m, new_v = fused_adamw_tree(
+            params, grads, state["m"], state["v"], lr=lr, beta1=cfg.beta1,
+            beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay,
+            c1=c1, c2=c2)
+        return new_params, {"m": new_m, "v": new_v, "count": count}, gnorm
 
     def upd(p, g, m, v):
         g32 = g.float()
@@ -99,7 +109,11 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr):
 def init_adamw_flat(params, *, shard_divisor: int = 1, layout=None,
                     device=None):
     """Moments as flat f32 buffers (tuples) matching the params' `FlatLayout`
-    (rebuilt deterministically when `layout` is not given)."""
+    (rebuilt deterministically when `layout` is not given).  With a layout
+    of shard divisor J > 1 each buffer is this worker's 1/J shard of its
+    bucket — the port's form of the reference's moments sharded over the
+    data axes: a worker holds only its own shard, and since the moments
+    start at zero the shard needs no worker index."""
     from repro_torch.distributed.flatbuf import FlatLayout
     leaves = tree_flatten(params)[0]
     if device is None:
@@ -107,9 +121,10 @@ def init_adamw_flat(params, *, shard_divisor: int = 1, layout=None,
     if layout is None:
         layout = FlatLayout.from_tree(params, shard_divisor=shard_divisor,
                                       device=device)
-    return {"m": tuple(layout.zeros(torch.float32, device)),
-            "v": tuple(layout.zeros(torch.float32, device)),
-            "count": _count(device)}
+    zeros = lambda: tuple(torch.zeros(n // layout.shard_divisor,
+                                      dtype=torch.float32, device=device)
+                          for n in layout.buffer_sizes)
+    return {"m": zeros(), "v": zeros(), "count": _count(device)}
 
 
 def adamw_update_buffers(pb, gb, mb, vb, cfg: AdamWConfig, lr, count, *,

@@ -1,23 +1,30 @@
 """Port kernels: every plain version in `repro_torch.kernels.ref` against
-`repro.kernels.ref` over the sweeps of tests/test_kernels.py, the
-device-dispatched `ops.adamw_flat` against the Pallas `fused_adamw_stats`
-(interpret mode).  The CUDA kernel's own tests are in test_torch_cuda.py."""
+`repro.kernels.ref` over the sweeps of tests/test_kernels.py, and the CPU
+routes of the device-dispatched `ops` entry points (`adamw_flat`,
+`stats_flat`, `sqdiff_norm_tree`, `fused_adamw_tree`) against the Pallas
+kernels in interpret mode, as the reference's own tests run them.  The
+CUDA kernels' own tests are in test_torch_cuda.py."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from test_torch_helpers import np32, rng, to_jax, to_torch
 
 from repro.kernels import ops as jops, ref as jref
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import grid_for, ops, ref
+from repro_torch.tree import tree_leaves
 from repro_torch.kernels.fused_adamw import (
-    adamw_scalars, fused_adamw_stats, grid_for)
+    adamw_scalars, fused_adamw, fused_adamw_stats)
+from repro_torch.kernels.fused_stats import fused_stats
+from repro_torch.kernels.sqdiff_norm import sqdiff_norm
 
 DTYPES = [("float32", jnp.float32, torch.float32),
           ("bfloat16", jnp.bfloat16, torch.bfloat16)]
+TORCH_DT = {name: tdt for name, _, tdt in DTYPES}
 # f32: same arithmetic, sums in another order; bf16 outputs may differ by
 # one rounding of the final cast
 TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
@@ -118,16 +125,90 @@ def test_adamw_flat_cpu_matches_pallas_interpret(n, clip):
 
 
 def test_dispatch_is_by_device_and_kernel_wrapper_refuses_cpu():
-    assert ops.flat_dispatch_info("cpu")["flat_tail"] == "torch-reference"
-    assert ops.flat_dispatch_info("cuda:0")["flat_tail"].startswith("cuda-kernel")
+    info = ops.flat_dispatch_info("cpu")
+    assert info["flat_tail"] == info["stats_flat"] == "torch-reference"
+    info = ops.flat_dispatch_info("cuda:0")
+    assert info["flat_tail"] == "cuda-kernel fused_adamw_stats"
+    assert info["stats_flat"] == "cuda-kernel fused_stats"
     x = torch.zeros(8)
-    with pytest.raises(ValueError, match="CUDA device"):
-        fused_adamw_stats(x, x, x, x, torch.zeros(4), beta1=0.9, beta2=0.95,
-                          eps=1e-8, weight_decay=0.1)
+    hyper = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1)
+    for kernel in (fused_adamw_stats, fused_adamw):
+        with pytest.raises(ValueError, match="CUDA device"):
+            kernel(x, x, x, x, torch.zeros(4), **hyper)
+    for kernel in (fused_stats, sqdiff_norm):
+        with pytest.raises(ValueError, match="CUDA device"):
+            kernel(x, x)
+    assert ops.launch_counts() == {"fused_adamw_stats": 0, "fused_adamw": 0,
+                                   "fused_stats": 0, "sqdiff_norm": 0}
     meta = torch.zeros(8, device="meta")
     with pytest.raises(ValueError, match="no implementation"):
         ops.adamw_flat(meta, meta, meta, meta, lr=1e-3, beta1=0.9, beta2=0.95,
                        eps=1e-8, weight_decay=0.1, c1=0.1, c2=0.05)
+    for fn in (ops.stats_flat, ops.sqdiff_norm):
+        with pytest.raises(ValueError, match="no implementation"):
+            fn(meta, meta)
+
+
+SWEEP = [(17,), (1024,), (257, 3), (8, 128), (1000, 33), (2, 3, 5, 7)]
+
+
+@pytest.mark.parametrize("shape", SWEEP)
+@pytest.mark.parametrize("dts", [("float32", "float32"), ("bfloat16", "bfloat16"),
+                                 ("bfloat16", "float32")])
+def test_stats_flat_cpu_matches_pallas_interpret(shape, dts):
+    """(Σ(x−y)², Σy²) of the CPU dispatch against the Pallas `fused_stats`,
+    f32, bf16 and mixed operands; both sum in f32, in another order."""
+    xj, xt = _pair(shape, 12, dts[0])
+    yj, yt = _pair(shape, 13, dts[1])
+    got = ops.stats_flat(xt, yt)
+    want = jops.fused_stats(xj, yj, interpret=True)
+    assert all(g.dtype == torch.float32 and g.shape == () for g in got)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(np32(a), np32(b), rtol=1e-5)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_sqdiff_norm_tree_cpu_matches_pallas_interpret(dt):
+    """Σ‖a−b‖² over a tree holding every shape of the sweep."""
+    pairs = [_pair(shape, 20 + i, dt) for i, shape in enumerate(SWEEP)]
+    others = [_pair(shape, 40 + i, dt) for i, shape in enumerate(SWEEP)]
+    tree = lambda xs: {"a": xs[0], "b": list(xs[1:4]), "c": {"d": xs[4], "e": xs[5]}}
+    got = ops.sqdiff_norm_tree(tree([t for _, t in pairs]),
+                               tree([t for _, t in others]))
+    want = jops.sqdiff_norm_tree(tree([j for j, _ in pairs]),
+                                 tree([j for j, _ in others]), interpret=True)
+    np.testing.assert_allclose(np32(got), np32(want), rtol=1e-5)
+    x, y = pairs[0][1], others[0][1]
+    np.testing.assert_allclose(np32(ops.sqdiff_norm(x, y)),
+                               np32(jops.sqdiff_norm(pairs[0][0], others[0][0],
+                                                     interpret=True)), rtol=1e-5)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_fused_adamw_tree_cpu_matches_pallas_interpret(dt):
+    """The per-tensor AdamW over a tree of the sweep's shapes, in place,
+    against the Pallas `fused_adamw` leaf by leaf."""
+    shapes = [(100,), (1024,), (31, 67)]
+    ps = [_pair(s, 50 + i, dt) for i, s in enumerate(shapes)]
+    gs = [_pair(s, 60 + i, dt) for i, s in enumerate(shapes)]
+    ms = [rng(70 + i).standard_normal(s).astype(np.float32)
+          for i, s in enumerate(shapes)]
+    vs = [np.abs(rng(80 + i).standard_normal(s)).astype(np.float32)
+          for i, s in enumerate(shapes)]
+    tree = lambda xs: {"w": xs[0], "blocks": [xs[1], xs[2]]}
+    want = jops.fused_adamw_tree(
+        tree([j for j, _ in ps]), tree([j for j, _ in gs]),
+        tree([to_jax(m) for m in ms]), tree([to_jax(v) for v in vs]),
+        interpret=True, **ADAMW_KW)
+    p_t = tree([t for _, t in ps])
+    m_t, v_t = tree([to_torch(m) for m in ms]), tree([to_torch(v) for v in vs])
+    got = ops.fused_adamw_tree(p_t, tree([t for _, t in gs]), m_t, v_t,
+                               **ADAMW_KW)
+    assert got[0]["w"] is p_t["w"] and got[1]["blocks"][1] is m_t["blocks"][1]
+    assert {x.dtype for x in tree_leaves(got[0])} == {TORCH_DT[dt]}
+    for g_tree, w_tree in zip(got, want):
+        for a, b in zip(tree_leaves(g_tree), jax.tree.leaves(w_tree)):
+            np.testing.assert_allclose(np32(a), np32(b), **TOL[dt])
 
 
 def test_grid_and_scalars():

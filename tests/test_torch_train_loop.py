@@ -43,7 +43,11 @@ def test_quickstart_trajectory_matches_reference(monkeypatch):
                         lambda self, seed=0, device="cpu":
                         params_from_jax(init_np, self.cfg, device))
     ht = ttrain.run_training(ttrain.TrainJob(device="cpu", **QUICKSTART))
-    assert sorted(ht) == sorted(hj)
+    # the port adds what each worker ran (its kernel launches, peak memory)
+    assert sorted(set(ht) - {"ranks"}) == sorted(hj)
+    assert ht["ranks"] == [{"launches": {"fused_adamw_stats": 0, "fused_adamw": 0,
+                                         "fused_stats": 0, "sqdiff_norm": 0},
+                            "peak_mem_bytes": None}]
     assert ht["global_batch"] == hj["global_batch"]
     assert ht["samples"] == hj["samples"]
     assert ht["accum_steps"] == hj["accum_steps"]
@@ -106,11 +110,20 @@ def test_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch):
         ttrain.run_training(ttrain.TrainJob(arch="llama3.2-1b",
                                             step_impl="accum_norm", steps=1))
     assert ttrain.resolve_device("cpu") == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ttrain.run_training(ttrain.TrainJob(device="cpu"))   # fsdp_norm
+    # the default job (FSDP-Norm, one worker) trains
+    hist = ttrain.run_training(ttrain.TrainJob(device="cpu", steps=2, seq_len=16,
+                                               eval_every=0))
+    assert ttrain.TrainJob().step_impl == "fsdp_norm"
+    assert hist["workers"] == 1 and len(hist["loss"]) == 2
+    assert all(np.isfinite(hist["loss"])) and hist["var_l1"] == [0.0, 0.0]
     with pytest.raises(NotImplementedError, match="checkpoint"):
         ttrain.run_training(ttrain.TrainJob(device="cpu", step_impl="accum_norm",
                                             checkpoint_every=5))
+    for kw, item in ((dict(step_impl="accum_norm", mesh_data=2), "item 8"),
+                     (dict(mesh_model=2), "item 8"),
+                     (dict(coord="file"), "items 2 and 5")):
+        with pytest.raises(NotImplementedError, match=item):
+            ttrain.run_training(ttrain.TrainJob(device="cpu", **kw))
 
 
 @pytest.mark.parametrize("schedule,extra", [

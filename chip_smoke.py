@@ -16,6 +16,13 @@ exit (nothing is caught):
               bf16 and mixed operands, AdamW clip on and off, the stats
               kernels also on unaligned views; tolerances printed and
               asserted.
+   serve-check — rmsnorm and flash_attention against their plain
+              versions on the card: rmsnorm over rows {1, 7, 4096, 16384} x
+              d {64, 100, 2048, 2050, 8192} x (f32/f32, bf16/bf16,
+              bf16/f32) and unaligned views; flash over t != s, tails that
+              are not a multiple of 64, GQA groups 1, 4, 8, head dims 32,
+              64, 128, causal or not, window 0/100, softcap 0/30, f32 and
+              bf16; tolerances printed and asserted.
 4. ref      — two ACCUM-NORM steps of the microllama smoke config on the
               card (kernels) and on the CPU (plain versions) from the same
               parameters; the metrics must agree.
@@ -27,6 +34,11 @@ exit (nothing is caught):
               plain `tree_sqdiff`, which must agree.  This is the path of
               `fused_adamw` and `sqdiff_norm`: each rank's launch counts
               start at 0 and must be > 0 after it.
+   serve-ref — llama3.2-1b at full width and 2 layers, the same
+              parameters on the card and on the CPU: prefill's last-token
+              logits and caches, 8 `decode_step`s at per-row positions
+              (logits and caches), and `run_serving`'s greedy tokens
+              (batch 2, prompt 16, gen 8) must agree.
 6. train    — slice 1's path: `run_training` of full-width microllama-300m
               (adaptive batch, ACCUM-NORM, flat stats and params) for 6
               steps; launch counts set to 0 just before and read just
@@ -38,9 +50,18 @@ exit (nothing is caught):
               launches in the run must equal steps x buckets.  Then the
               step's collectives alone (every bucket's all-reduce and
               all-gather), timed on two fresh ranks.
+   serve    — serving's main path, full-width llama3.2-1b (16 layers):
+              `make_prefill` at 4 x 2048 tokens (launch counts 0 just
+              before, exactly 16 flash_attention and 33 rmsnorm just after;
+              its last-token logits and caches held against the same tokens
+              streamed through `decode_step`), `run_serving` (batch 8,
+              prompt 128, gen 64) and `run_continuous_serving` (8 slots,
+              prompt 16, gen 32, 60 load steps, arrivals 0.5/step and a
+              burst of 5 every 20), each with its own launch counts.
 8. time     — each kernel, its plain version and the nearest library call
-              at the main path's shapes (all buckets of the layout), timed
-              with CUDA events, beside the least time the card could take.
+              at the main path's shapes (all buckets of the layout; for
+              rmsnorm and flash_attention prefill's shapes), timed with
+              CUDA events, beside the least time the card could take.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and the
 final line {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -84,6 +105,23 @@ FSDP_JOB = dict(TRAIN_JOB, step_impl="fsdp_norm", mesh_data=2,
                 dist_backend="gloo")
 REF_RTOL = 1e-4          # card vs CPU step metrics (sums in another order)
 METRICS = ("loss", "var_l1", "grad_sqnorm", "grad_norm", "clip_scale")
+# serving: llama3.2-1b, the default arch of the reference's serve launcher
+SERVE_ARCH = "llama3.2-1b"
+PREFILL_BATCH, PREFILL_LEN = 4, 2048
+SERVE_JOB = dict(batch=8, prompt_len=128, gen_len=64)
+CONT_JOB = dict(max_slots=8, prompt_len=16, gen_len=32, load_steps=60,
+                arrival_rate=0.5, burst_every=20, burst_size=5)
+# kernel vs plain version on the card: f32 sums in another order (flash
+# also exp and the online rescaling), bf16 one rounding of the output
+SERVE_TOL = {"rmsnorm_f32": dict(rtol=1e-5, atol=1e-5),
+             "flash_f32": dict(rtol=2e-5, atol=2e-5),
+             "bf16": dict(rtol=2 ** -7, atol=1e-2)}
+# card (kernels, cuBLAS) vs CPU, and prefill (flash) vs streamed decode
+# (plain grouped attention): f32 through the whole model, max abs error
+# over the largest magnitude
+SERVE_REL = 1e-4
+KERNELS = ("fused_adamw_stats", "fused_adamw", "fused_stats", "sqdiff_norm",
+           "rmsnorm", "flash_attention")
 
 
 def say(phase: str, **kv):
@@ -226,6 +264,282 @@ def adamw_inputs(n, p_dtype, g_dtype, seed, dev):
     return p, g, m, v
 
 
+def rel_err(got, want) -> float:
+    """Max abs error over the largest magnitude of `want` (f32)."""
+    got, want = got.float(), want.float().to(got.device)
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def caches_rel_err(a, b) -> float:
+    return max(rel_err(x[k], y[k]) for x, y in zip(a, b) for k in ("k", "v"))
+
+
+def check_serving_kernels(dev):
+    """Phase serve-check: rmsnorm and flash_attention against their plain
+    versions on the card; ends with each kernel's max abs error by dtype."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = lambda dt, k: SERVE_TOL[k] if dt == f32 else SERVE_TOL["bf16"]
+    err = {f"{k}/{dt}": 0.0 for k in ("rmsnorm", "flash_attention")
+           for dt in ("float32", "bfloat16")}
+    say("serve-check", tolerances=SERVE_TOL)
+    rows_d = [(r, d) for r in (1, 7, 4096, 16384) for d in (64, 100, 2048, 2050, 8192)]
+    cases = [(r, d, xd, sd, 0) for r, d in rows_d
+             for xd, sd in ((f32, f32), (bf16, bf16), (bf16, f32))]
+    cases += [(r, d, f32, f32, 1) for r, d in ((7, 2048), (4096, 2048), (7, 100))]
+    for rows, d, xd, sd, offset in cases:
+        gen = torch.Generator(device=dev).manual_seed(rows * d + offset)
+        x = torch.randn(rows * d + offset, device=dev, generator=gen).to(xd)
+        x = x[offset:].view(rows, d)
+        scale = (1 + 0.1 * torch.randn(d, device=dev, generator=gen)).to(sd)
+        with torch.inference_mode():
+            got = rmsnorm(x, scale)
+            again = rmsnorm(x, scale)
+        want = ref.rmsnorm_ref(x, scale)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"rmsnorm not bit-identical on repeat: {rows}x{d}")
+        torch.testing.assert_close(got, want, **tol(xd, "rmsnorm_f32"))
+        e = float((got.float() - want.float()).abs().max())
+        key = f"rmsnorm/{str(xd)[6:]}"
+        err[key] = max(err[key], e)
+        if rows in (7, 4096) or offset:
+            say("serve-check", kernel="rmsnorm", rows=rows, d=d, x=str(xd),
+                scale=str(sd), offset=offset, max_abs_err=e)
+        del x, got, again, want
+    shapes = [  # b, t, s, causal, window, softcap
+        (1, 64, 64, True, 0, 0.0), (2, 100, 100, True, 0, 30.0),
+        (1, 77, 130, True, 100, 0.0), (1, 200, 60, True, 50, 0.0),
+        (2, 300, 300, True, 100, 30.0), (1, 96, 150, False, 0, 0.0),
+        (1, 130, 200, False, 100, 30.0), (1, 520, 520, True, 0, 0.0)]
+    i = 0
+    for d in (32, 64, 128):
+        for h, kvh in ((8, 8), (8, 2), (8, 1)):
+            for dt in (f32, bf16):
+                b, t, sl, causal, window, cap = shapes[i % len(shapes)]
+                i += 1
+                gen = torch.Generator(device=dev).manual_seed(i)
+                q, k, v = (torch.randn(b, n, hh, d, device=dev, generator=gen).to(dt)
+                           for n, hh in ((t, h), (sl, kvh), (sl, kvh)))
+                kw = dict(causal=causal, window=window, softcap=cap)
+                with torch.inference_mode():
+                    got = flash_attention(q, k, v, **kw)
+                want = ref.flash_attention_ref(q, k, v, **kw)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, **tol(dt, "flash_f32"))
+                e = float((got.float() - want.float()).abs().max())
+                key = f"flash_attention/{str(dt)[6:]}"
+                err[key] = max(err[key], e)
+                say("serve-check", kernel="flash_attention", b=b, t=t, s=sl, h=h,
+                    kvh=kvh, d=d, dtype=str(dt), **kw, max_abs_err=e)
+    say("serve-check", max_abs_err=err)
+
+
+def serve_ref(smi):
+    """Phase serve-ref: llama3.2-1b at full width and 2 layers, the same
+    parameters on the card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.serve_step import make_decode_step, make_prefill
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(SERVE_ARCH).replace(num_layers=2)
+    model = build_model(cfg)
+    params = {"cpu": model.init(0, "cpu")}
+    params["cuda"] = tree_map(lambda x: x.to("cuda", copy=True), params["cpu"])
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+    out = {}
+    for d in ("cpu", "cuda"):
+        logits, caches = make_prefill(model)(params[d], {"tokens": tokens.to(d)})
+        step = make_decode_step(model)
+        cache = model.init_cache(2, 16, device=d)
+        dec = []
+        for i in range(8):   # per-row: the second row runs 3 positions behind
+            pos = torch.tensor([i + 3, i], device=d)
+            lg, cache = step(params[d], cache, tokens[:, i].to(d), pos)
+            dec.append(lg)
+        served = run_serving(SERVE_ARCH, smoke=False, batch=2, prompt_len=16,
+                             gen_len=8, params=params[d])
+        out[d] = (logits, caches, dec, cache, served["tokens"])
+    cpu, card = out["cpu"], out["cuda"]
+    errs = {"prefill_logits": rel_err(card[0], cpu[0]),
+            "prefill_caches": caches_rel_err(card[1], cpu[1]),
+            "decode_logits": max(rel_err(a, b) for a, b in zip(card[2], cpu[2])),
+            "decode_caches": caches_rel_err(card[3], cpu[3])}
+    if max(errs.values()) > SERVE_REL:
+        raise AssertionError(f"card vs CPU serving: {errs} > {SERVE_REL}")
+    if not (card[4] == cpu[4]).all():
+        raise AssertionError(f"run_serving tokens differ: card {card[4].tolist()} "
+                             f"vs CPU {cpu[4].tolist()}")
+    say("serve-ref", arch=SERVE_ARCH, layers=2, rel_tol=SERVE_REL, rel_errs=errs,
+        tokens=card[4].tolist())
+
+
+def serve_path(smi, ops, dev):
+    """Phase serve: serving's main path at full width.  Returns the launch
+    counts of the path's runs, summed."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.serve_step import make_decode_step, make_prefill
+    from repro_torch.launch.serve import run_continuous_serving, run_serving
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
+                           device=dev, generator=gen)
+    prefill = make_prefill(model)
+    prefill(params, {"tokens": tokens[:, :64]})          # cuBLAS warm-up
+    total = {k: 0 for k in KERNELS}
+
+    def counted(fn, name):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        for k in KERNELS:
+            total[k] += launches[k]
+        if not launches["rmsnorm"]:
+            raise AssertionError(f"{name}: rmsnorm never launched: {launches}")
+        return out, secs, launches
+
+    (logits, caches), prefill_s, launches = counted(
+        lambda: prefill(params, {"tokens": tokens}), "prefill")
+    layers = cfg.num_layers
+    want = {k: 0 for k in KERNELS} | {"flash_attention": layers,
+                                      "rmsnorm": 2 * layers + 1}
+    if launches != want:
+        raise AssertionError(f"prefill launched {launches}, expected {want}")
+    if logits.shape != (PREFILL_BATCH, cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError("prefill logits are not finite of the expected shape")
+    prefill_ms = [1e3 * prefill_s]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
+    # the same tokens streamed through decode (the plain grouped attention)
+    step = make_decode_step(model)
+    cache = model.init_cache(PREFILL_BATCH, PREFILL_LEN, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(PREFILL_LEN):
+        dec, cache = step(params, cache, tokens[:, i], i)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    errs = {"last_logits": rel_err(logits, dec), "caches": caches_rel_err(caches, cache)}
+    if max(errs.values()) > SERVE_REL:
+        raise AssertionError(f"prefill vs streamed decode: {errs} > {SERVE_REL}")
+    prefill_peak = torch.cuda.max_memory_allocated()
+    del caches, cache, dec, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("serve", part="prefill", nvidia_smi=smi, arch=SERVE_ARCH, layers=layers,
+        params=sum(x.numel() for x in tree_leaves(params)),
+        batch=PREFILL_BATCH, tokens=PREFILL_LEN, launches=launches,
+        prefill_ms=prefill_ms,
+        prefill_tok_per_s=PREFILL_BATCH * PREFILL_LEN / (min(prefill_ms) / 1e3),
+        streamed_decode_s=stream_s, rel_tol=SERVE_REL, rel_errs=errs,
+        peak_mem_bytes=prefill_peak)
+
+    torch.cuda.reset_peak_memory_stats()
+    res, secs, launches = counted(lambda: run_serving(
+        SERVE_ARCH, smoke=False, params=params, **SERVE_JOB), "run_serving")
+    steps = SERVE_JOB["prompt_len"] + SERVE_JOB["gen_len"] - 1
+    want = {k: 0 for k in KERNELS} | {"rmsnorm": (2 * layers + 1) * steps}
+    if launches != want:
+        raise AssertionError(f"run_serving launched {launches}, expected {want}")
+    if res["tokens"].shape != (SERVE_JOB["batch"], SERVE_JOB["gen_len"]):
+        raise AssertionError(f"run_serving tokens {res['tokens'].shape}")
+    say("serve", part="run_serving", nvidia_smi=smi, **SERVE_JOB, launches=launches,
+        prefill_s=res["prefill_s"], decode_s=res["decode_s"],
+        decode_tok_per_s=res["decode_tok_per_s"],
+        decode_ms_per_step=1e3 * res["decode_s"] / (SERVE_JOB["gen_len"] - 1),
+        peak_mem_bytes=torch.cuda.max_memory_allocated(), wall_s=secs)
+
+    torch.cuda.reset_peak_memory_stats()
+    res, secs, launches = counted(lambda: run_continuous_serving(
+        SERVE_ARCH, smoke=False, params=params, **CONT_JOB), "continuous")
+    eng = res["engine"]
+    want = {k: 0 for k in KERNELS} | {"rmsnorm": (2 * layers + 1) * eng["steps"]}
+    if launches != want:
+        raise AssertionError(f"continuous serving launched {launches}, expected {want}")
+    if not res["probe"]["steady_state_transition_hit"] or not res["requests_completed"]:
+        raise AssertionError(f"continuous serving: {res['probe']}, "
+                             f"{res['requests_completed']} completed")
+    say("serve", part="continuous", nvidia_smi=smi, **CONT_JOB, launches=launches,
+        requests=res["requests_completed"], req_per_s=res["sustained_req_per_s"],
+        p50_latency_s=res["p50_latency_s"], p99_latency_s=res["p99_latency_s"],
+        decode_tok_per_s=res["decode_tok_per_s"], wall_s=res["wall_s"],
+        probe=res["probe"], engine=eng, rung_trace=res["rung_trace"],
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def time_serving_kernels(dev, bw):
+    """Phase 8's serving part: rmsnorm and flash_attention at prefill's
+    shapes, their plain versions and library calls, CUDA events."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows, d = PREFILL_BATCH * PREFILL_LEN, 2048            # (8192, 2048)
+    x = torch.randn(rows, d, device=dev, generator=gen)
+    scale = 1 + 0.1 * torch.randn(d, device=dev, generator=gen)
+    b, t, h, kvh, hd = PREFILL_BATCH, PREFILL_LEN, 32, 8, 64
+    q = torch.randn(b, t, h, hd, device=dev, generator=gen)
+    k = torch.randn(b, t, kvh, hd, device=dev, generator=gen)
+    v = torch.randn(b, t, kvh, hd, device=dev, generator=gen)
+    out = {}
+    with torch.inference_mode():
+        want = ref.rmsnorm_ref(x, scale)
+        out["rmsnorm"] = {
+            "max_abs_err": float((rmsnorm(x, scale) - want).abs().max()),
+            "ms": [cuda_ms(lambda: rmsnorm(x, scale), 50) for _ in range(2)],
+            "plain_ms": [cuda_ms(lambda: ref.rmsnorm_ref(x, scale), 20) for _ in range(2)],
+            "library_ms": [cuda_ms(lambda: F.rms_norm(x, (d,), scale, 1e-6), 50)
+                           for _ in range(2)],
+            "bound_bytes_ms": (2 * x.numel() + d) * 4 / bw * 1e3,
+            # x*x, +, the divide and the scale: 4 flops an element
+            "bound_ops_ms": 4 * x.numel() / F32_FLOPS * 1e3,
+            "shape": [rows, d]}
+        del want
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        out["flash_attention"] = {
+            "max_abs_err": float((flash_attention(q, k, v, causal=True) - want)
+                                 .abs().max()),
+            "ms": [cuda_ms(lambda: flash_attention(q, k, v, causal=True), 5)
+                   for _ in range(2)],
+            "plain_ms": [cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 2)
+                         for _ in range(2)],
+            "library_ms": [cuda_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True), 5) for _ in range(2)],
+            "bound_bytes_ms": 2 * (q.numel() + k.numel()) * 4 / bw * 1e3,
+            # q.k and p.v, 2 flops a multiply-add each, over the visible
+            # (query, key) pairs of the causal mask: t(t+1)/2 a head
+            "bound_ops_ms": 4 * b * h * hd * t * (t + 1) / 2 / F32_FLOPS * 1e3,
+            "shape": [b, t, h, kvh, hd]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -325,6 +639,7 @@ def main() -> int:
                 ysq_rel_err=float(((q - wq) / wq).abs()),
                 sqdiff_rel_err=float(((sq - ws) / ws).abs()))
             del x, y
+    check_serving_kernels(dev)
 
     # 4. the card's step against the CPU's on a small model -------------------
     from repro_torch.configs import get_smoke_config
@@ -377,12 +692,11 @@ def main() -> int:
             if any(cpu["launches"].values()):
                 raise AssertionError(f"a CPU run launched a kernel: {cpu['launches']}")
         steps = len(batches)
-        want = {"flat": {"fused_stats": steps * out["flat/cuda"]["buckets"],
-                         "fused_adamw_stats": steps * out["flat/cuda"]["buckets"],
-                         "fused_adamw": 0, "sqdiff_norm": 0},
-                "tree": {"fused_adamw": steps * out["tree/cuda"]["leaves"],
-                         "sqdiff_norm": out["tree/cuda"]["leaves"],
-                         "fused_stats": 0, "fused_adamw_stats": 0}}
+        zero = {k: 0 for k in KERNELS}
+        want = {"flat": zero | {"fused_stats": steps * out["flat/cuda"]["buckets"],
+                                "fused_adamw_stats": steps * out["flat/cuda"]["buckets"]},
+                "tree": zero | {"fused_adamw": steps * out["tree/cuda"]["leaves"],
+                                "sqdiff_norm": out["tree/cuda"]["leaves"]}}
         for impl in ("flat", "tree"):
             if out[f"{impl}/cuda"]["launches"] != want[impl]:
                 raise AssertionError(f"rank {rank} {impl} launches "
@@ -395,6 +709,9 @@ def main() -> int:
         sqdiff_check=[r["tree/cuda"]["sqdiff_check"] for r in ranks],
         launches=[{k: v["launches"] for k, v in r.items() if k.endswith("cuda")}
                   for r in ranks])
+
+    # serve-ref: serving, card against CPU, llama3.2-1b full width, 2 layers
+    serve_ref(smi)
 
     # 6. slice 1's path: ACCUM-NORM, full-width microllama-300m ----------------
     from repro_torch.distributed.flatbuf import FlatLayout
@@ -423,8 +740,7 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     layout = FlatLayout.from_tree(hist["final_params"], device=dev)
     expect = TRAIN_JOB["steps"] * layout.num_buffers
-    if launches != {"fused_adamw_stats": expect, "fused_adamw": 0, "fused_stats": 0,
-                    "sqdiff_norm": 0}:
+    if launches != {k: 0 for k in KERNELS} | {"fused_adamw_stats": expect}:
         raise AssertionError(f"ACCUM-NORM launches {launches}, expected "
                              f"{expect} fused_adamw_stats and nothing else")
     say("train", nvidia_smi=smi, params=sum(layout.buffer_sizes),
@@ -441,8 +757,8 @@ def main() -> int:
                                        device=dev)
     expect = FSDP_JOB["steps"] * fsdp_layout.num_buffers
     for rank, r in enumerate(hist["ranks"]):
-        want = {"fused_stats": expect, "fused_adamw_stats": expect,
-                "fused_adamw": 0, "sqdiff_norm": 0}
+        want = {k: 0 for k in KERNELS} | {"fused_stats": expect,
+                                          "fused_adamw_stats": expect}
         if r["launches"] != want:
             raise AssertionError(f"rank {rank} launched {r['launches']}, expected "
                                  f"{want} ({FSDP_JOB['steps']} steps x "
@@ -465,6 +781,9 @@ def main() -> int:
         bytes_all_reduce=4 * sum(fsdp_layout.buffer_sizes),
         bytes_all_gather=4 * sum(fsdp_layout.buffer_sizes), probe_elements=1 << 24,
         ranks=coll)
+
+    # serve: serving's main path, full-width llama3.2-1b -----------------------
+    serve_launches = serve_path(smi, ops, dev)
 
     # 8. timing at the main path's shapes --------------------------------------
     sizes = layout.buffer_sizes
@@ -554,6 +873,11 @@ def main() -> int:
         "adamw_library_ms": cuda_ms(big_opt.step, 20),
         "adamw_bound_ms": 28 * sizes[big] / bw * 1e3,
         "stats_bound_ms": 8 * sizes[big] / bw * 1e3, "elements": sizes[big]}
+    # rmsnorm and flash_attention: the error at prefill's shapes, f32, as
+    # the other kernels' at the main path's (the sweeps print their own)
+    serve_timed = time_serving_kernels(dev, bw)
+    err.update({k: t["max_abs_err"] for k, t in serve_timed.items()})
+    timed.update(serve_timed)
     say("time", nvidia_smi=smi, elements=n_total, buckets=len(sizes), kernels=timed,
         sharded_fused_adamw_stats={"ms": sharded_ms,
                                    "elements": sum(x[0].numel() for x in shards),
@@ -561,14 +885,20 @@ def main() -> int:
         largest_bucket=t_big, max_abs_err=err)
 
     sources = {"fused_adamw_stats": "fused_adamw.cu", "fused_adamw": "fused_adamw.cu",
-               "fused_stats": "fused_stats.cu", "sqdiff_norm": "fused_stats.cu"}
+               "fused_stats": "fused_stats.cu", "sqdiff_norm": "fused_stats.cu",
+               "rmsnorm": "rmsnorm.cu", "flash_attention": "flash_attention.cu"}
     replaces = {"fused_adamw_stats": "src/repro/kernels/fused_adamw.py:107",
                 "fused_adamw": "src/repro/kernels/fused_adamw.py:77",
                 "fused_stats": "src/repro/kernels/fused_stats.py:35",
-                "sqdiff_norm": "src/repro/kernels/sqdiff_norm.py:29"}
+                "sqdiff_norm": "src/repro/kernels/sqdiff_norm.py:29",
+                "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
+                "flash_attention": "src/repro/kernels/flash_attention.py:88"}
     # launches: the FSDP main path's run (both ranks) for the flat kernels,
-    # the tree run of phase 5 (both ranks, on the card) for the others
-    path_launches = {**fsdp_launches, **tree_launches}
+    # the tree run of phase 5 (both ranks, on the card) for the per-tensor
+    # ones, serving's path (prefill, run_serving, continuous) for the rest
+    path_launches = {**fsdp_launches, **tree_launches,
+                     "rmsnorm": serve_launches["rmsnorm"],
+                     "flash_attention": serve_launches["flash_attention"]}
     entries = []
     for k, t in timed.items():
         bound = max(t["bound_bytes_ms"], t["bound_ops_ms"])

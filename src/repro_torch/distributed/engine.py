@@ -12,6 +12,13 @@ padding, hits and rung transitions in `EngineStats`.  `compiles`,
 Ahead-of-time warmup, multi-host coordination and the persistent compile
 cache have no eager counterpart yet; they arrive with the coordination
 slice and raise `NotImplementedError` until then.
+
+`RungCache` is the subset of the reference's rung cache that the serving
+engine stands on: a keyed cache of built steps with lookup-or-build,
+warm-up and the counters.  The reference compiles a rung's executable
+ahead of time on a background thread; eager PyTorch has nothing to
+compile, so a rung's build is its step closure and a warm-up builds it at
+once, in the foreground.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from repro_torch.core.schedule import BatchPlan, LadderShapeError, quantize_to_l
 class EngineStats:
     """Counters emitted into the run's history (same keys as the
     reference's `EngineStats.as_dict`)."""
-    compiles: int = 0          # always 0: eager steps are not compiled
+    compiles: int = 0          # rung builds (RungCache); 0 for the train engine
     hits: int = 0              # steps whose signature was seen before
     warmups: int = 0
     warmup_failures: int = 0
@@ -76,6 +83,46 @@ def _batch_key(batch) -> tuple:
     """The step signature: names x shapes x dtypes."""
     return tuple(sorted(
         (k, tuple(v.shape), str(v.dtype)) for k, v in batch.items()))
+
+
+class RungCache:
+    """Keyed cache of built steps (the serving engine's base).  A subclass
+    supplies `_build(build_arg)`.  `stats.compiles` counts builds,
+    `stats.hits` lookups that found the key built, `stats.warmups` builds
+    made ahead of use (only with `aot=True`)."""
+
+    def __init__(self, *, aot: bool = False, stats=None):
+        self._aot = bool(aot)
+        self._cache: dict[tuple, object] = {}
+        self.stats = stats if stats is not None else EngineStats()
+
+    def _build(self, build_arg):
+        """Build the step of one key (subclass hook)."""
+        raise NotImplementedError
+
+    def lookup(self, key: tuple, build_arg):
+        """The step for `key`, built at most once per key."""
+        fn = self._cache.get(key)
+        if fn is not None:
+            self.stats.hits += 1
+            return fn
+        fn = self._cache[key] = self._build(build_arg)
+        self.stats.compiles += 1
+        return fn
+
+    def cached(self, key: tuple) -> bool:
+        """True when `key`'s step is already built."""
+        return key in self._cache
+
+    def submit_warmup(self, key: tuple, build_arg) -> bool:
+        """Build `key`'s step ahead of use; no-op (False) when warm-up is
+        off or the key is built."""
+        if not self._aot or key in self._cache:
+            return False
+        self._cache[key] = self._build(build_arg)
+        self.stats.warmups += 1
+        self.stats.compiles += 1
+        return True
 
 
 class BucketedEngine:
@@ -144,4 +191,4 @@ class BucketedEngine:
             self.stats.buckets_used.append(tag)
 
 
-__all__ = ["BucketedEngine", "EngineStats", "LadderShapeError"]
+__all__ = ["BucketedEngine", "EngineStats", "LadderShapeError", "RungCache"]

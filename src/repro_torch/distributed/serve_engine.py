@@ -1,0 +1,319 @@
+"""Adaptive continuous-batching serve engine (DESIGN §11) — counterpart of
+`repro/distributed/serve_engine.py`.
+
+`ServeEngine` quantizes the IN-FLIGHT request batch onto a powers-of-two
+rung ladder of decode steps (`serve_step.make_slot_decode_step`), keeps the
+built steps in a `RungCache`, and adapts the active rung to measured load
+via `core.serve_controller`, as the reference does.
+
+Residency: ONE KV buffer of `max_slots` rows is allocated at construction
+and never reallocated.  Requests own slot rows; admission zeroes a row,
+completion backfills the freed row from the highest active slot
+(`move_slot`), and a rung change re-slices the same buffer.  The slot
+operations and the decode write into the buffer in place (the reference
+donates it through compiled steps).
+
+Continuous batching at token granularity: every in-flight request lives on
+its own timeline (per-slot positions).  A newly admitted request streams
+its prompt through the same rung decode step (teacher-forced), then flips
+to generation.  Greedy decoding only: the argmax is taken on the device,
+and one (b,) int32 vector comes back to the host a step.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.core.serve_controller import (
+    ServeControllerConfig, init_serve_controller, observe_step_latency,
+    serve_controller_update, serve_ladder)
+from repro_torch.distributed.engine import EngineStats, RungCache
+from repro_torch.distributed.serve_step import (
+    make_slot_decode_step, move_slot, reset_slot)
+from repro_torch.tree import tree_leaves
+
+
+class QueueFullError(RuntimeError):
+    """Admission control: the engine's wait queue is at `max_queue` and this
+    request was REJECTED (never enqueued).  Callers load-shed."""
+
+    def __init__(self, message: str, *, queued: int = 0, max_queue: int = 0):
+        super().__init__(message)
+        self.queued = queued
+        self.max_queue = max_queue
+
+
+@dataclass
+class ServeStats(EngineStats):
+    """Engine counters plus serving-tier accounting.  `steps` counts engine
+    decode iterations; `real_samples`/`padded_samples` count occupied and
+    empty slot-rows per step, so `padding_waste` is the fraction of decode
+    rows burned on empty slots."""
+    requests_submitted: int = 0
+    requests_completed: int = 0
+    requests_rejected: int = 0    # load-shed at submit (queue at max_queue)
+    tokens_generated: int = 0     # generated (post-prompt) tokens only
+    prompt_tokens: int = 0        # prompt tokens streamed through decode
+    rung_transitions: int = 0     # steps whose rung differs from the last
+    transition_hits: int = 0      # ...that found the step already built
+    slot_resets: int = 0          # admissions (each zeroes one slot row)
+    slot_moves: int = 0           # compaction copies after completions
+
+    def as_dict(self) -> dict:
+        d = super().as_dict()
+        d.update({
+            "requests_submitted": self.requests_submitted,
+            "requests_completed": self.requests_completed,
+            "requests_rejected": self.requests_rejected,
+            "tokens_generated": self.tokens_generated,
+            "prompt_tokens": self.prompt_tokens,
+            "rung_transitions": self.rung_transitions,
+            "transition_hits": self.transition_hits,
+            "slot_resets": self.slot_resets,
+            "slot_moves": self.slot_moves,
+        })
+        return d
+
+
+@dataclass
+class Request:
+    """One in-flight generation request (host-side bookkeeping)."""
+    rid: int
+    prompt: np.ndarray                # (prompt_len,) int32
+    max_new_tokens: int
+    arrival_s: float
+    generated: list = field(default_factory=list)
+    pos: int = 0                      # next cache position its slot writes
+    n_consumed: int = 0               # prompt tokens streamed so far
+    first_token_s: float | None = None
+    done_s: float | None = None
+
+    @property
+    def prefilling(self) -> bool:
+        return self.n_consumed < len(self.prompt)
+
+    @property
+    def latency_s(self) -> float | None:
+        return None if self.done_s is None else self.done_s - self.arrival_s
+
+
+class ServeEngine(RungCache):
+    """Ladder-bucketed continuous-batching engine over one resident KV pool.
+
+    model / params : the served model (`decode_step` API); the engine runs
+                     on the device the params lie on.
+    max_slots      : top rung — the resident cache's slot-row count.
+    cache_len      : per-slot cache length; every request must satisfy
+                     prompt_len + max_new_tokens <= cache_len.
+    ladder         : ascending request-batch rungs (default: powers of two
+                     up to max_slots).
+    controller     : `ServeControllerConfig` (default: ladder + eager grow,
+                     patience-4 shrink, no latency SLO).
+    aot_warmup     : build the steps of the rungs adjacent to the active
+                     one ahead of use, so a rung change is a cache hit.
+    """
+
+    def __init__(self, model, params, *, max_slots: int, cache_len: int,
+                 ladder: tuple[int, ...] | None = None,
+                 controller: ServeControllerConfig | None = None,
+                 aot_warmup: bool = False, ring: bool = False,
+                 max_queue: int = 0):
+        if ring:
+            raise NotImplementedError(
+                "ring-buffer slot caches need per-slot wrap accounting")
+        super().__init__(aot=aot_warmup, stats=ServeStats())
+        self.ladder = tuple(sorted(set(ladder))) if ladder else \
+            serve_ladder(max_slots)
+        if self.ladder[-1] > max_slots:
+            raise ValueError(
+                f"ladder top {self.ladder[-1]} exceeds max_slots {max_slots}")
+        self.max_slots = max_slots
+        self.cache_len = cache_len
+        self._params = params
+        self.device = tree_leaves(params)[0].device
+        self._wrap = make_slot_decode_step(model, max_slots=max_slots)
+        self._kv = model.init_cache(max_slots, cache_len, device=self.device)
+
+        self._ctrl_cfg = controller or ServeControllerConfig(ladder=self.ladder)
+        if self._ctrl_cfg.ladder != self.ladder:
+            raise ValueError("controller ladder must match engine ladder")
+        if max_queue < 0:
+            raise ValueError(f"max_queue must be >= 0, got {max_queue}")
+        self.max_queue = max_queue            # 0 = unbounded (the default)
+        self.ctrl = init_serve_controller(self._ctrl_cfg)
+        self.queue: deque[Request] = deque()
+        self._active: list[Request] = []      # index == slot row
+        self._last_rung: int | None = None
+        self._next_rid = 0
+
+    # --------------------------------------------------------- admission --
+
+    @property
+    def num_active(self) -> int:
+        return len(self._active)
+
+    @property
+    def current_rung(self) -> int:
+        return self.ladder[self.ctrl.rung]
+
+    def submit(self, prompt, max_new_tokens: int,
+               arrival_s: float | None = None) -> Request:
+        """Enqueue one request; decode work happens in `step()`.
+
+        Raises `QueueFullError` (and counts `requests_rejected`) when the
+        wait queue already holds `max_queue` requests — malformed requests
+        (empty prompt, cache overrun) stay ValueError and count as neither
+        submitted nor rejected."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if len(prompt) < 1:
+            raise ValueError("empty prompt")
+        if len(prompt) + max_new_tokens > self.cache_len:
+            raise ValueError(
+                f"prompt_len {len(prompt)} + max_new_tokens {max_new_tokens} "
+                f"exceeds cache_len {self.cache_len}")
+        if self.max_queue and len(self.queue) >= self.max_queue:
+            self.stats.requests_rejected += 1
+            raise QueueFullError(
+                f"serve queue full: {len(self.queue)} queued >= max_queue "
+                f"{self.max_queue} (request rejected, not enqueued)",
+                queued=len(self.queue), max_queue=self.max_queue)
+        req = Request(rid=self._next_rid, prompt=prompt,
+                      max_new_tokens=max_new_tokens,
+                      arrival_s=time.time() if arrival_s is None else arrival_s)
+        self._next_rid += 1
+        self.queue.append(req)
+        self.stats.requests_submitted += 1
+        return req
+
+    def _admit(self, req: Request):
+        reset_slot(self._kv, len(self._active))
+        self.stats.slot_resets += 1
+        req.pos = 0
+        req.n_consumed = 0
+        self._active.append(req)
+
+    # -------------------------------------------------------- decode step --
+
+    def _rung_key(self, b: int) -> tuple:
+        return ("decode", b, self.cache_len)
+
+    def _build(self, b: int):
+        return self._wrap(b)
+
+    def warm(self, rungs) -> None:
+        """Build the steps of the given rung batch sizes ahead of use."""
+        for b in rungs:
+            if b in self.ladder:
+                self.submit_warmup(self._rung_key(b), b)
+
+    def _warm_adjacent(self, rung_idx: int):
+        """The controller moves one rung at a time: build both neighbours."""
+        for j in (rung_idx + 1, rung_idx - 1):
+            if 0 <= j < len(self.ladder):
+                self.submit_warmup(self._rung_key(self.ladder[j]),
+                                   self.ladder[j])
+
+    def step(self) -> dict | None:
+        """One engine iteration: controller decision, admissions, one
+        decode step at the active rung, host-side advance + completions.
+        Returns a step report, or None when idle."""
+        if not self._active and not self.queue:
+            return None
+        self.ctrl = serve_controller_update(
+            self._ctrl_cfg, self.ctrl, queued=len(self.queue),
+            active=len(self._active))
+        rung_idx = self.ctrl.rung
+        b = self.ladder[rung_idx]
+        while self.queue and len(self._active) < b:
+            self._admit(self.queue.popleft())
+
+        key = self._rung_key(b)
+        if b != self._last_rung:
+            if self._last_rung is not None:
+                self.stats.rung_transitions += 1
+                if self.cached(key):
+                    self.stats.transition_hits += 1
+            self._last_rung = b
+        fn = self.lookup(key, b)
+
+        tokens = np.zeros((b,), np.int32)
+        pos = np.zeros((b,), np.int32)
+        for s, r in enumerate(self._active):
+            tokens[s] = (r.prompt[r.n_consumed] if r.prefilling
+                         else r.generated[-1])
+            pos[s] = r.pos
+        t0 = time.time()
+        out_tok, self._kv = fn(self._params, self._kv,
+                               torch.from_numpy(tokens).to(self.device),
+                               torch.from_numpy(pos).to(self.device))
+        out = out_tok.cpu().numpy()          # waits for the device step
+        dt = time.time() - t0
+        self.ctrl = observe_step_latency(self._ctrl_cfg, self.ctrl,
+                                         rung_idx, dt)
+        if self._aot:
+            self._warm_adjacent(rung_idx)
+
+        completed = self._advance(out)
+        self.stats.steps += 1
+        self.stats.real_samples += len(self._active) + len(completed)
+        self.stats.padded_samples += b - len(self._active) - len(completed)
+        tag = str(b)
+        if tag not in self.stats.buckets_used:
+            self.stats.buckets_used.append(tag)
+        return {"rung": b, "active": len(self._active),
+                "queued": len(self.queue), "step_s": dt,
+                "completed": completed}
+
+    def _advance(self, out: np.ndarray) -> list[Request]:
+        """Fold one step's sampled tokens into per-request state; retire
+        finished requests and compact their slots (highest active slot
+        backfills the freed row — its cache row moves, nothing else)."""
+        now = time.time()
+        done_slots = []
+        for s, r in enumerate(self._active):
+            if r.prefilling:
+                r.n_consumed += 1
+                self.stats.prompt_tokens += 1
+                if not r.prefilling:     # last prompt token -> first output
+                    r.generated.append(int(out[s]))
+                    r.first_token_s = now
+                    self.stats.tokens_generated += 1
+            else:
+                r.generated.append(int(out[s]))
+                self.stats.tokens_generated += 1
+            r.pos += 1
+            if (len(r.generated) >= r.max_new_tokens
+                    or r.pos >= self.cache_len):
+                r.done_s = now
+                done_slots.append(s)
+        completed = [self._active[s] for s in done_slots]
+        for s in sorted(done_slots, reverse=True):
+            last = len(self._active) - 1
+            if s != last:
+                move_slot(self._kv, last, s)
+                self._active[s] = self._active[last]
+                self.stats.slot_moves += 1
+            self._active.pop()
+        self.stats.requests_completed += len(completed)
+        return completed
+
+    def run_until_drained(self, max_steps: int = 10_000) -> list[Request]:
+        """Step until queue and in-flight batch are empty; returns every
+        request completed along the way."""
+        done: list[Request] = []
+        for _ in range(max_steps):
+            report = self.step()
+            if report is None:
+                return done
+            done.extend(report["completed"])
+        raise RuntimeError(f"not drained after {max_steps} steps "
+                           f"(active={len(self._active)}, "
+                           f"queued={len(self.queue)})")
+
+
+__all__ = ["QueueFullError", "Request", "ServeEngine", "ServeStats"]

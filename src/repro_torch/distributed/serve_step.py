@@ -1,0 +1,117 @@
+"""Serving steps: prefill (a full-sequence forward producing the KV cache)
+and decode (one token a row against the cache), plus the slot primitives
+of the continuous-batching tier — counterpart of
+`repro/distributed/serve_step.py`.
+
+The reference jits each step under a mesh's shardings and donates the
+cache; here there is no mesh and no compile.  Each `make_*` returns a plain
+step function that runs on the device its arguments lie on, under
+`torch.inference_mode()` (so the forward-only kernels, `rmsnorm` and
+`flash_attention`, run on the card), and the cache is ONE resident buffer
+written in place:
+
+* `slice_slots` returns views of the first n slot rows, so a rung step's
+  decode writes straight into the resident buffer;
+* `update_slots` is then a no-op that checks it was handed those views
+  (a copy would mean the step's writes were lost);
+* `move_slot` and `reset_slot` copy and zero slot rows in place.
+
+The cache is the model's per-layer list of {"k", "v"}, every leaf
+(slots, length, kv_heads, head_dim): the slot axis is 0 throughout.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def make_decode_step(model, *, ring: bool = False):
+    """`step(params, cache, tokens (b,), pos) -> (logits (b, vocab), cache)`;
+    pos is a scalar or a (b,) tensor of per-row positions.  The cache is
+    updated in place and returned."""
+
+    @torch.inference_mode()
+    def step(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, pos, ring=ring)
+
+    return step
+
+
+def make_prefill(model):
+    """`run(params, batch) -> (last-token logits (b, vocab), caches)`,
+    batch = {"tokens": (b, t)} on the params' device."""
+
+    @torch.inference_mode()
+    def run(params, batch):
+        return model.prefill(params, batch)
+
+    return run
+
+
+# ------------------------------------------------- resident slot caches ----
+
+def _leaves(cache):
+    return [x for layer in cache for _, x in sorted(layer.items())]
+
+
+def slice_slots(cache: list, n: int) -> list:
+    """The first `n` slot rows of every cache leaf, as VIEWS of the
+    resident buffer."""
+    return [{k: x[:n] for k, x in layer.items()} for layer in cache]
+
+
+def update_slots(full: list, sub: list, n: int) -> list:
+    """Rows [0, n) of the resident buffer after a rung step.  The step
+    wrote through the views of `slice_slots`, so nothing is copied; this
+    checks that `sub` is exactly those views and returns `full`."""
+    for f, s in zip(_leaves(full), _leaves(sub), strict=True):
+        if (s.data_ptr() != f.data_ptr() or s.shape[0] != n
+                or s.shape[1:] != f.shape[1:] or s.stride() != f.stride()):
+            raise ValueError("update_slots: the sub-cache is not a view of "
+                             f"rows [0, {n}) of the resident buffer")
+    return full
+
+
+def move_slot(cache: list, src: int, dst: int) -> list:
+    """Copy slot row `src` over slot row `dst`, in place (compaction after
+    a request completes: the highest active slot backfills the freed
+    one)."""
+    with torch.inference_mode():
+        for x in _leaves(cache):
+            x[dst].copy_(x[src])
+    return cache
+
+
+def reset_slot(cache: list, slot: int) -> list:
+    """Zero slot row `slot` in place (admission)."""
+    with torch.inference_mode():
+        for x in _leaves(cache):
+            x[slot].zero_()
+    return cache
+
+
+def make_slot_decode_step(model, *, max_slots: int):
+    """Rung-sliced decode over a resident slot cache (DESIGN §11).
+
+    The cache is allocated once at the top rung (`max_slots` rows).
+    `wrap(b)` returns the step of rung `b`: decode one token a row over
+    rows [0, b) at PER-SLOT positions (each in-flight request lives on its
+    own timeline) and pick the next token greedily:
+    `step(params, cache, tokens (b,), pos (b,)) -> (next_tok (b,) int32,
+    cache)`.  A rung change re-slices the same buffer; no cache byte
+    moves."""
+
+    def wrap(b: int):
+        if not 1 <= b <= max_slots:
+            raise ValueError(f"rung {b} outside resident pool [1, {max_slots}]")
+
+        @torch.inference_mode()
+        def step(params, cache, tokens, pos):
+            sub = slice_slots(cache, b)
+            logits, new_sub = model.decode_step(params, sub, tokens, pos)
+            next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            return next_tok, update_slots(cache, new_sub, b)
+
+        return step
+
+    return wrap

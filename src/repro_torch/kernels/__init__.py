@@ -12,8 +12,8 @@ loads.  Nothing here runs at import: the CPU-only test machine has no
 There is no fallback: a missing compiler, a failed build or a failed
 launch raises.
 
-Also here: the launch geometry and the argument checks the streaming
-kernels' wrappers share.
+Also here: the launch geometry and the argument checks the kernels'
+wrappers share.
 """
 
 from __future__ import annotations
@@ -140,6 +140,15 @@ def check_operands(kernel: str, device, float_args: dict, f32_args=None):
     for name, t in f32_args.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{kernel}: {name} must be float32, got {t.dtype}")
+
+
+def check_no_grad(kernel: str, *tensors):
+    """Raise when autograd would need a gradient through `kernel`: the
+    forward-only kernels (rmsnorm, flash_attention) have no backward, and
+    a tensor on the card never silently takes the plain version instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel}: the CUDA kernel has no backward; call "
+                           f"it under torch.no_grad() or inference_mode()")
 
 
 def check_launch(lib: ctypes.CDLL, err: int, kernel: str):

@@ -7,7 +7,9 @@ the tensors passed in (counterpart of `repro/kernels/ops.py`):
 There is no environment override and no fallback: a tensor on the card
 never reaches the plain version.  The reference's per-tensor wrappers
 (`fused_stats`, `sqdiff_norm`, `fused_adamw`) and its flat hot-path ones
-(`stats_flat`, `adamw_flat`) dispatch the same way here.
+(`stats_flat`, `adamw_flat`) dispatch the same way here, and so do the
+serving path's forward-only `rmsnorm` and `flash_attention`, whose kernels
+raise under grad mode on a tensor that requires grad.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import torch
 
 from repro_torch.kernels import fused_adamw as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 from repro_torch.kernels.fused_stats import fused_stats as _fused_stats
 from repro_torch.kernels.sqdiff_norm import sqdiff_norm as _sqdiff_norm
 from repro_torch.tree import tree_leaves
@@ -106,6 +110,24 @@ def adamw_flat(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, c1, c2,
     return p, m, v, gsq
 
 
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """Row-wise RMSNorm over the last axis; the result has x's dtype."""
+    if _on_card("rmsnorm", x):
+        return _rmsnorm(x, scale, eps)
+    return ref.rmsnorm_ref(x, scale, eps)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """Attention of q (b, t, h, d) over k, v (b, s, kvh, d) with GQA, the
+    causal mask top-left aligned; the result has q's dtype."""
+    if _on_card("flash_attention", q):
+        return _flash_attention(q, k, v, causal=causal, window=window,
+                                softcap=softcap)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+
+
 def flat_dispatch_info(device) -> dict:
     """Which implementation the flat hot path (the statistics pair and the
     AdamW tail) runs for tensors on `device`."""
@@ -118,7 +140,8 @@ def flat_dispatch_info(device) -> dict:
 
 _COUNTED = {"fused_adamw_stats": _fa.fused_adamw_stats,
             "fused_adamw": _fa.fused_adamw, "fused_stats": _fused_stats,
-            "sqdiff_norm": _sqdiff_norm}
+            "sqdiff_norm": _sqdiff_norm, "rmsnorm": _rmsnorm,
+            "flash_attention": _flash_attention}
 
 
 def launch_counts() -> dict:

@@ -76,3 +76,14 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     logits = logits.masked_fill(~mask[None, None], -2.0e38)
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhts,bshd->bthd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """The flash-attention kernel's plain version: kv heads expanded in
+    `repeat_interleave` order (q head h reads kv head h // (H / KVH), the
+    TPU kernel's `kv_map`), then `attention_ref`."""
+    group = q.shape[2] // k.shape[2]
+    k = torch.repeat_interleave(k, group, dim=2)
+    v = torch.repeat_interleave(v, group, dim=2)
+    return attention_ref(q, k, v, causal=causal, window=window,
+                         softcap=softcap)

@@ -54,6 +54,7 @@ from repro_torch.kernels.ops import launch_counts
 from repro_torch.launch.mesh import (
     default_backend, init_workers, num_workers, rank_device, spawn_workers,
     worker_index)
+from repro_torch.models.common import resolve_device
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import (
     AdamWConfig, init_adamw, init_adamw_flat, warmup_cosine)
@@ -121,17 +122,6 @@ class TrainJob:
     device: str = ""                      # "" = the CUDA card; or "cpu"
 
 
-def resolve_device(device: str) -> torch.device:
-    """The job's device: the CUDA card unless `device` names another.
-    Raises when no device is named and no card is present."""
-    if device:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "(--device cpu) to train on the CPU")
-    return torch.device("cuda")
-
-
 def _workers(job: TrainJob) -> int:
     """J: `mesh_data`, else the launcher's world size, else 1."""
     if job.mesh_data:
@@ -146,9 +136,9 @@ def _check_supported(job: TrainJob):
                          f"got {job.step_impl!r}")
     later = []
     if job.step_impl == "accum_norm" and _workers(job) > 1:
-        later.append("ACCUM-NORM over several workers (ROADMAP §1, item 8)")
+        later.append("ACCUM-NORM over several workers (ROADMAP §1, item 7)")
     if job.mesh_model > 1:
-        later.append("a model axis, mesh_model > 1 (ROADMAP §1, item 8)")
+        later.append("a model axis, mesh_model > 1 (ROADMAP §1, item 7)")
     if job.checkpoint_dir or job.checkpoint_every or job.resume:
         later.append("checkpoint/resume (ROADMAP §1, item 3)")
     if job.coord != "none" or job.aot_warmup or job.compile_cache:

@@ -1,10 +1,16 @@
-"""GQA attention with RoPE, sliding windows and logit soft-capping over a
-full sequence (training / prefill) — counterpart of
-`repro/models/attention.py::attend_full`.
+"""GQA attention with RoPE, sliding windows, logit soft-capping and KV
+caches — counterpart of `repro/models/attention.py` (decoder subset):
 
-Plain PyTorch, like the reference's jnp path: the model never calls the
-flash-attention kernel (it is queued for a later slice, off the training
-path).  Decode with KV caches arrives with the serving slice.
+* `attend_full`   — training / prefill over a whole sequence;
+* `attend_decode` — one token a row against a KV cache, at a scalar
+  position or at per-row positions, the cache full-length or a ring;
+* `init_cache`.
+
+Training runs the plain PyTorch path, like the reference's jnp path.
+Prefill on the card (grad mode off) runs the flash-attention kernel
+(`kernels.ops.flash_attention`), the reference's TPU drop-in for the same
+math.  Decode runs the plain `_sdpa_grouped`, as the reference does.
+Cross-attention (Whisper) arrives with the remaining-architectures slice.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import ops
 from repro_torch.models.common import normal_init
 from repro_torch.models.embeddings import apply_rope
 
@@ -67,6 +74,28 @@ def _sdpa(q, k, v, mask, softcap: float):
     return torch.einsum("bhts,bshd->bthd", probs, v)
 
 
+def _sdpa_grouped(q, k, v, mask, softcap: float):
+    """Grouped-query attention for DECODE: q is reshaped to (b,t,kv,g,d) so
+    the KV cache is read once, never expanded.  mask: (t,s), (b,t,s) or
+    (b,1,s).  Softmax in f32, then cast to v's dtype."""
+    b, t, h, dk = q.shape
+    kv = k.shape[2]
+    q = q.reshape(b, t, kv, h // kv, dk)
+    logits = torch.einsum("btkgd,bskd->bkgts", q, k).float()
+    logits = logits / math.sqrt(dk)
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    if mask is not None:
+        if mask.dim() == 2:
+            mask = mask[None, None, None]
+        elif mask.dim() == 3:
+            mask = mask[:, None, None]
+        logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v)
+    return out.reshape(b, t, h, dk)
+
+
 def causal_mask(t: int, s: int, offset: int = 0, window: int = 0,
                 device=None):
     """(t, s) boolean mask. q position i (global i+offset) sees kv j<=i+offset;
@@ -105,13 +134,80 @@ def _sdpa_chunked(q, k, v, softcap, causal, window, q_chunk=Q_CHUNK):
 
 
 def attend_full(params, x, positions, *, rope_theta, softcap=0.0, window=0,
-                causal=True, qk_norm=False):
-    """Self-attention over a full sequence (training / prefill)."""
+                causal=True, qk_norm=False, return_kv=False):
+    """Self-attention over a full sequence (training / prefill).  On the
+    card with grad mode off it runs the flash-attention kernel.  With
+    `return_kv` it returns (out, k, v), k and v after RoPE — the prefill
+    cache."""
     q, k, v = _project_qkv(params, x, positions, rope_theta, qk_norm)
     t = x.shape[1]
-    if t >= CHUNK_THRESHOLD and t % Q_CHUNK == 0:
+    if q.is_cuda and not torch.is_grad_enabled():
+        out = ops.flash_attention(q, k, v, causal=causal,
+                                  window=window if causal else 0,
+                                  softcap=softcap)
+    elif t >= CHUNK_THRESHOLD and t % Q_CHUNK == 0:
         out = _sdpa_chunked(q, k, v, softcap, causal, window)
     else:
         mask = causal_mask(t, t, 0, window, device=x.device) if causal else None
         out = _sdpa(q, k, v, mask, softcap)
-    return torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
+    out = torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
+    return (out, k, v) if return_kv else out
+
+
+# ------------------------------------------------------------- KV cache ----
+
+def init_cache(batch: int, cache_len: int, num_kv_heads: int, head_dim: int,
+               dtype, device):
+    """Full-length cache, or a ring buffer (pass cache_len=window)."""
+    shape = (batch, cache_len, num_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attend_decode(params, x, cache, pos, *, rope_theta, softcap=0.0,
+                  ring: bool = False, qk_norm=False):
+    """Single-token decode.  x: (b,1,d); pos: a scalar global position (an
+    int or a 0-d tensor), or a (b,) integer tensor of PER-ROW positions
+    (continuous batching: each cache row advances on its own timeline,
+    writes its own slot and masks its own prefix).  `ring=True` treats the
+    cache as a circular sliding-window buffer of length cache_len.
+
+    The new k and v are written into `cache`'s tensors IN PLACE (a slice
+    copy for a scalar position, `index_put_` for per-row positions), where
+    the reference returns an updated copy; a cache whose tensors are views
+    of a larger buffer updates that buffer.  Returns (out, cache)."""
+    b = x.shape[0]
+    kc, vc = cache["k"], cache["v"]
+    cache_len = kc.shape[1]
+    per_row = torch.is_tensor(pos) and pos.dim() == 1
+    if per_row:
+        pos = pos.to(device=x.device, dtype=torch.long)
+        positions = pos[:, None]
+    else:
+        pos = int(pos)
+        positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _project_qkv(params, x, positions, rope_theta, qk_norm)
+    slot = pos % cache_len if ring else pos
+    if per_row:
+        rows = torch.arange(b, device=x.device)
+        kc.index_put_((rows, slot), k_new[:, 0].to(kc.dtype))
+        vc.index_put_((rows, slot), v_new[:, 0].to(vc.dtype))
+    else:
+        # the reference's dynamic_update_slice clamps the start in range
+        slot = min(max(slot, 0), cache_len - 1)
+        kc[:, slot:slot + 1].copy_(k_new)
+        vc[:, slot:slot + 1].copy_(v_new)
+    kpos = torch.arange(cache_len, device=x.device)
+    # a scalar position stays a Python int: no host-to-device copy a step
+    ppos = pos[:, None] if per_row else pos
+    if ring:
+        # valid slots: all once pos>=cache_len-1, else slots <= pos
+        valid = kpos <= (torch.clamp(ppos, min=cache_len - 1) if per_row
+                         else max(ppos, cache_len - 1))
+        valid &= (kpos <= ppos) | (ppos >= cache_len)
+    else:
+        valid = kpos <= ppos
+    mask = valid[:, None, :] if per_row else valid[None, None, :]
+    out = _sdpa_grouped(q, kc.to(x.dtype), vc.to(x.dtype), mask, softcap)
+    out = torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
+    return out, cache

@@ -13,6 +13,18 @@ import torch
 from repro_torch.tree import tree_leaves
 
 
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the CUDA card when none is given; raises when no
+    device is given and there is no card (entry points run on the card
+    unless the caller asks for the CPU)."""
+    if device is not None and str(device):
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "(--device cpu) to run on the CPU")
+    return torch.device("cuda")
+
+
 def normal_init(gen: torch.Generator, shape, dtype, device,
                 stddev: float = 0.02) -> torch.Tensor:
     x = torch.empty(shape, dtype=torch.float32, device=device)

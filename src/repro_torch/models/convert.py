@@ -10,6 +10,10 @@ in both, so conversion is unstacking (and stacking back), nothing else.
 Both directions work on any tree with the parameter structure — gradients
 and optimizer moments too — and take / return numpy arrays on the
 reference side, so neither package imports the other.
+
+Decode caches convert the same way: the reference's
+{"prefix": [...], "scanned": [leaves of shape (L, b, ...)]} against the
+port's per-layer list (`cache_from_jax`, `cache_to_jax`).
 """
 
 from __future__ import annotations
@@ -74,3 +78,27 @@ def params_to_jax(params: dict, cfg: ModelConfig) -> dict:
     if "unembed" in params:
         out["unembed"] = tree_map(_to_numpy, params["unembed"])
     return out
+
+
+def cache_from_jax(np_cache: dict, cfg: ModelConfig, device="cpu") -> list:
+    """The port's per-layer decode cache from the reference's (numpy
+    leaves): prefix layers, then the scanned repeats in execution order."""
+    layers = [tree_map(lambda a: _to_torch(a, device), c)
+              for c in np_cache.get("prefix", [])]
+    for r in range(cfg.num_repeats):
+        for sub in np_cache["scanned"]:
+            layers.append(tree_map(lambda a: _to_torch(np.asarray(a)[r], device),
+                                   sub))
+    return layers
+
+
+def cache_to_jax(cache: list, cfg: ModelConfig) -> dict:
+    """Inverse of `cache_from_jax`: the reference's cache tree, numpy
+    leaves."""
+    n_prefix = len(cfg.prefix_pattern)
+    pattern = len(cfg.block_pattern)
+    scanned = cache[n_prefix:]
+    return {"prefix": [tree_map(_to_numpy, c) for c in cache[:n_prefix]],
+            "scanned": [tree_map(lambda *xs: np.stack([_to_numpy(x) for x in xs]),
+                                 *scanned[j::pattern])
+                        for j in range(pattern)]}

@@ -9,14 +9,14 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.common import count_params
 
-_SERVING = "decoding arrives with the serving slice"
-
 
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
 
-    def init(self, seed: int = 0, device="cpu") -> dict:
+    def init(self, seed: int = 0, device=None) -> dict:
+        """Random parameters on `device` (default: the CUDA card; raises
+        when there is none)."""
         return tfm.init_params(self.cfg, seed=seed, device=device)
 
     def loss(self, params, batch):
@@ -27,13 +27,15 @@ class Model:
         return tfm._logits(params, hidden, self.cfg)
 
     def prefill(self, params, batch):
-        raise NotImplementedError(_SERVING)
+        return tfm.prefill(params, batch, self.cfg)
 
-    def init_cache(self, batch: int, cache_len: int, ring: bool = False):
-        raise NotImplementedError(_SERVING)
+    def init_cache(self, batch: int, cache_len: int, ring: bool = False,
+                   device=None):
+        return tfm.init_decode_cache(self.cfg, batch, cache_len, ring=ring,
+                                     device=device)
 
     def decode_step(self, params, cache, tokens, pos, ring: bool = False):
-        raise NotImplementedError(_SERVING)
+        return tfm.decode_step(params, cache, tokens, pos, self.cfg, ring=ring)
 
     def num_params(self, params=None) -> int:
         if params is not None:

@@ -1,10 +1,19 @@
 """RMSNorm / LayerNorm on plain parameter dicts (counterpart of
-`repro/models/norms.py`): statistics in f32, result cast back to x's dtype."""
+`repro/models/norms.py`): statistics in f32, result cast back to x's dtype.
+
+RMSNorm of a tensor on the card with grad mode off (serving, under
+`torch.inference_mode()`) runs the CUDA kernel `kernels.ops.rmsnorm`, which
+divides by sqrt(var + eps) as the TPU kernel does; everywhere else (the
+CPU, and training, which needs a backward) it runs the plain code below,
+which multiplies by 1 / sqrt(var + eps) as the reference model does.  The
+two differ by an ulp or so.
+"""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models.common import ones_init, zeros_init
 
 
@@ -18,6 +27,8 @@ def init_norm(d: int, kind: str, dtype, device):
 
 
 def apply_norm(params, x, kind: str, eps: float = 1e-6):
+    if kind == "rmsnorm" and x.is_cuda and not torch.is_grad_enabled():
+        return ops.rmsnorm(x.contiguous(), params["scale"], eps)
     dtype = x.dtype
     x = x.float()
     if kind == "rmsnorm":

@@ -1,9 +1,12 @@
-"""Decoder-only transformer stack: init, forward, masked cross-entropy
-(counterpart of `repro/models/transformer.py`, dense decoder subset).
+"""Decoder-only transformer stack: init, forward, masked cross-entropy,
+prefill and KV-cache decode (counterpart of `repro/models/transformer.py`,
+dense decoder subset).
 
 The reference scans stacked per-layer parameters (`blocks`, a leading
 repeat axis); the port keeps one parameter dict per layer in `layers` and
-runs a Python loop.  `models/convert.py` maps between the two layouts.
+runs a Python loop.  Likewise the decode cache is a list with one
+{"k", "v"} per layer, where the reference stacks `scanned` caches.
+`models/convert.py` maps between the two layouts.
 
 Cross-entropy can run in sequence chunks (`cfg.xent_chunk`), each chunk's
 logits recomputed in the backward pass, so the (batch, seq, vocab) logits
@@ -16,7 +19,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks as blk
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.common import resolve_device
+from repro_torch.models.config import ATTN, ModelConfig
 from repro_torch.models.embeddings import init_embedding, embed_tokens, unembed
 from repro_torch.models.norms import init_norm, apply_norm
 
@@ -29,11 +33,12 @@ def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
 
 # ------------------------------------------------------------------ init ----
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters: normal(0, 0.02) weights, unit norm scales, drawn
-    from a `torch.Generator` seeded with `seed` on `device`."""
+    from a `torch.Generator` seeded with `seed` on `device` (default: the
+    CUDA card; raises when there is none)."""
     blk.check_supported(cfg)
-    device = torch.device(device)
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = {"embed": init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                       cfg.p_dtype, device)}
@@ -49,16 +54,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
 
 # ----------------------------------------------------------------- stack ----
 
-def run_stack(params, x, positions, cfg: ModelConfig):
-    """All layers, then the final norm.  Returns (hidden, aux)."""
+def _block_x(p, x, positions, cfg, kind):
+    return blk.block_full(p, x, positions, cfg, kind)[0]
+
+
+def run_stack(params, x, positions, cfg: ModelConfig,
+              collect_cache: bool = False):
+    """All layers, then the final norm.  Returns (hidden, aux, caches):
+    caches is the per-layer list of post-RoPE {"k", "v"} when
+    `collect_cache` (prefill), else None."""
+    caches = [] if collect_cache else None
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
-        if cfg.remat == "full":
-            x = checkpoint(blk.block_full, p, x, positions, cfg, kind,
+        if collect_cache:
+            x, cache = blk.block_full(p, x, positions, cfg, kind,
+                                      collect_cache=True)
+            caches.append(cache)
+        elif cfg.remat == "full":
+            x = checkpoint(_block_x, p, x, positions, cfg, kind,
                            use_reentrant=False)
         else:
-            x = blk.block_full(p, x, positions, cfg, kind)
+            x = _block_x(p, x, positions, cfg, kind)
     x = apply_norm(params["final_norm"], x, cfg.norm_kind)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), caches
 
 
 # ------------------------------------------------------------------ loss ----
@@ -109,14 +126,22 @@ def token_loss(params, hidden, labels, cfg: ModelConfig):
 
 # ------------------------------------------------------------- model API ----
 
+def _embed(params, tokens, cfg: ModelConfig):
+    x = embed_tokens(params["embed"], tokens, cfg.scale_embed, cfg.d_model)
+    return x.to(cfg.act_dtype)
+
+
+def _assemble_inputs(params, batch, cfg: ModelConfig):
+    """(x, positions) of a full-sequence batch."""
+    x = _embed(params, batch["tokens"], cfg)
+    b, t = x.shape[:2]
+    return x, torch.arange(t, device=x.device).expand(b, t)
+
+
 def forward(params, batch, cfg: ModelConfig):
     """Full forward -> (hidden, aux)."""
-    tokens = batch["tokens"]
-    x = embed_tokens(params["embed"], tokens, cfg.scale_embed, cfg.d_model)
-    x = x.to(cfg.act_dtype)
-    b, t = x.shape[:2]
-    positions = torch.arange(t, device=x.device).expand(b, t)
-    return run_stack(params, x, positions, cfg)
+    hidden, aux, _ = run_stack(params, *_assemble_inputs(params, batch, cfg), cfg)
+    return hidden, aux
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
@@ -125,3 +150,46 @@ def loss_fn(params, batch, cfg: ModelConfig):
     hidden, aux = forward(params, batch, cfg)
     loss = token_loss(params, hidden, batch["labels"], cfg)
     return loss + aux, {"xent": loss, "aux": aux}
+
+
+def prefill(params, batch, cfg: ModelConfig):
+    """Prefill for serving: returns (last-token logits (b, vocab), caches),
+    caches the per-layer post-RoPE {"k", "v"} of length t."""
+    hidden, _, caches = run_stack(params, *_assemble_inputs(params, batch, cfg),
+                                  cfg, collect_cache=True)
+    logits = _logits(params, hidden[:, -1:, :], cfg)
+    return logits[:, 0], caches
+
+
+# ------------------------------------------------------------- decoding ----
+
+def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                      ring: bool = False, device=None) -> list:
+    """Fresh decode cache: one zeroed {"k", "v"} of (batch, length, kv_heads,
+    head_dim) per layer, on `device` (default: the CUDA card).  ring=True
+    (the long_500k serving mode) bounds full-attention caches to
+    cfg.long_context_window; local-attention caches are window-long rings
+    by construction."""
+    device = resolve_device(device)
+
+    def length(kind):
+        if ring and kind == ATTN:
+            return min(cache_len, cfg.long_context_window)
+        return cache_len
+
+    return [blk.init_block_cache(cfg, kind, batch, length(kind), cfg.act_dtype,
+                                 device)
+            for kind in layer_kinds(cfg)]
+
+
+def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
+                ring: bool = False):
+    """One decode step.  tokens: (b,) integers; pos: a scalar global
+    position or a (b,) tensor of per-row positions (continuous batching).
+    The cache is updated IN PLACE.  Returns (logits (b, vocab), cache)."""
+    x = _embed(params, tokens[:, None], cfg)
+    for i, (p, kind) in enumerate(zip(params["layers"], layer_kinds(cfg))):
+        x, cache[i] = blk.block_decode(p, x, cache[i], pos, cfg, kind,
+                                       ring=ring)
+    x = apply_norm(params["final_norm"], x, cfg.norm_kind)
+    return _logits(params, x, cfg)[:, 0], cache

@@ -8,7 +8,12 @@ that has only PyTorch:
 Tolerance: the AdamW kernels are built with -fmad=false and round where
 the plain version does, so p, m and v agree to rounding of the last bit
 (rtol 1e-6); a bf16 p to one bf16 rounding (rtol 2^-8); every sum (Σg²,
-Σ(x−y)², Σy²) is taken in another order (rtol 1e-5)."""
+Σ(x−y)², Σy²) is taken in another order (rtol 1e-5).  rmsnorm and
+flash_attention sum in another order than the plain version: f32 at
+rtol 1e-5 / atol 1e-5 (rmsnorm) and 2e-5 (flash, where exp and the online
+rescaling add a few ulps); bf16 outputs to one bf16 rounding (2^-7
+relative, 1e-2 absolute).
+"""
 
 import pytest
 import torch
@@ -16,7 +21,9 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_adamw import (
     adamw_scalars, fused_adamw, fused_adamw_stats)
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_stats import fused_stats
+from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.sqdiff_norm import sqdiff_norm
 
 SIZES = [1, 17, 1_000_003]
@@ -96,3 +103,70 @@ def test_cuda_fused_adamw_matches_plain_version(cuda, n, p_dtype, g_dtype):
     torch.testing.assert_close(p, want[0], **tol)
     torch.testing.assert_close(m, want[1], rtol=1e-6, atol=1e-9)
     torch.testing.assert_close(v, want[2], rtol=1e-6, atol=1e-9)
+
+
+BF16_TOL = dict(rtol=2 ** -7, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(1, 64), (7, 100), (4096, 2048), (33, 2050),
+                                    (5, 8192)])
+@pytest.mark.parametrize("x_dtype,s_dtype", [(torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_rmsnorm_matches_plain_version(cuda, rows, d, x_dtype, s_dtype, offset):
+    """offset 1 starts x one element into a buffer (the scalar path)."""
+    gen = torch.Generator(device=cuda).manual_seed(rows * d)
+    x = torch.randn(rows * d + offset, device=cuda, generator=gen).to(x_dtype)
+    x = x[offset:].view(rows, d)
+    scale = (1 + 0.1 * torch.randn(d, device=cuda, generator=gen)).to(s_dtype)
+    with torch.inference_mode():
+        got = rmsnorm(x, scale)
+        again = rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == x_dtype and got.shape == x.shape
+    assert torch.equal(got, again)            # fixed order: bit-identical
+    tol = dict(rtol=1e-5, atol=1e-5) if x_dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got, ref.rmsnorm_ref(x, scale), **tol)
+
+
+FLASH_CASES = [  # b, t, s, h, kvh, d, causal, window, softcap
+    (1, 64, 64, 4, 4, 64, True, 0, 0.0),
+    (2, 100, 100, 8, 2, 64, True, 0, 0.0),
+    (1, 77, 130, 4, 1, 32, True, 0, 30.0),
+    (1, 200, 60, 4, 4, 128, True, 50, 0.0),      # rows 109+ see no key
+    (2, 200, 200, 8, 8, 64, True, 100, 30.0),
+    (1, 96, 150, 8, 4, 64, False, 0, 0.0),
+    (1, 300, 300, 4, 1, 128, True, 100, 0.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,s,h,kvh,d,causal,window,softcap", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain_version(cuda, b, t, s, h, kvh, d, causal,
+                                                    window, softcap, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(t * s + h)
+    q, k, v = (torch.randn(b, n, heads, d, device=cuda, generator=gen).to(dtype)
+               for n, heads in ((t, h), (s, kvh), (s, kvh)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    with torch.inference_mode():
+        got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, **kw), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_forward_kernels_refuse_grad_and_odd_head_dims(cuda):
+    x = torch.randn(4, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rmsnorm(x, torch.ones(64, device=cuda))
+    q = torch.randn(1, 8, 2, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+    before = (rmsnorm.launches, flash_attention.launches)
+    with torch.no_grad():
+        rmsnorm(x, torch.ones(64, device=cuda))
+    assert (rmsnorm.launches, flash_attention.launches) == (before[0] + 1, before[1])

@@ -1,9 +1,10 @@
 """Port kernels: every plain version in `repro_torch.kernels.ref` against
 `repro.kernels.ref` over the sweeps of tests/test_kernels.py, and the CPU
 routes of the device-dispatched `ops` entry points (`adamw_flat`,
-`stats_flat`, `sqdiff_norm_tree`, `fused_adamw_tree`) against the Pallas
-kernels in interpret mode, as the reference's own tests run them.  The
-CUDA kernels' own tests are in test_torch_cuda.py."""
+`stats_flat`, `sqdiff_norm_tree`, `fused_adamw_tree`, `rmsnorm`,
+`flash_attention`) against the Pallas kernels in interpret mode, as the
+reference's own tests run them.  The CUDA kernels' own tests are in
+test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,9 @@ from repro_torch.kernels import grid_for, ops, ref
 from repro_torch.tree import tree_leaves
 from repro_torch.kernels.fused_adamw import (
     adamw_scalars, fused_adamw, fused_adamw_stats)
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_stats import fused_stats
+from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.sqdiff_norm import sqdiff_norm
 
 DTYPES = [("float32", jnp.float32, torch.float32),
@@ -138,8 +141,13 @@ def test_dispatch_is_by_device_and_kernel_wrapper_refuses_cpu():
     for kernel in (fused_stats, sqdiff_norm):
         with pytest.raises(ValueError, match="CUDA device"):
             kernel(x, x)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rmsnorm(x, x)
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention(*(torch.zeros(1, 4, 2, 32) for _ in range(3)))
     assert ops.launch_counts() == {"fused_adamw_stats": 0, "fused_adamw": 0,
-                                   "fused_stats": 0, "sqdiff_norm": 0}
+                                   "fused_stats": 0, "sqdiff_norm": 0,
+                                   "rmsnorm": 0, "flash_attention": 0}
     meta = torch.zeros(8, device="meta")
     with pytest.raises(ValueError, match="no implementation"):
         ops.adamw_flat(meta, meta, meta, meta, lr=1e-3, beta1=0.9, beta2=0.95,
@@ -147,6 +155,69 @@ def test_dispatch_is_by_device_and_kernel_wrapper_refuses_cpu():
     for fn in (ops.stats_flat, ops.sqdiff_norm):
         with pytest.raises(ValueError, match="no implementation"):
             fn(meta, meta)
+
+
+@pytest.mark.parametrize("rows,d", [(1, 128), (37, 256), (200, 512)])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_rmsnorm_cpu_matches_pallas_interpret(rows, d, dt):
+    """The CPU dispatch of `ops.rmsnorm` against the Pallas kernel, over
+    tests/test_kernels.py's sweep; the port's kernel accepts any d, so a
+    d that is not a multiple of 128 is checked against the plain
+    reference too."""
+    xj, xt = _pair((rows, d), 7, dt)
+    sj, st = _pair((d,), 8, dt)
+    got = ops.rmsnorm(xt, st)
+    assert got.dtype == TORCH_DT[dt] and got.shape == xt.shape
+    np.testing.assert_allclose(np32(got),
+                               np32(jops.rmsnorm(xj, sj, interpret=True)),
+                               **TOL[dt])
+    xj, xt = _pair((rows, d + 3), 7, dt)
+    sj, st = _pair((d + 3,), 8, dt)
+    np.testing.assert_allclose(np32(ops.rmsnorm(xt, st)),
+                               np32(jref.rmsnorm_ref(xj, sj)), **TOL[dt])
+
+
+@pytest.mark.parametrize("b,t,h,kvh,d,causal,window,softcap", [
+    (2, 256, 4, 2, 64, True, 0, 0.0),
+    (1, 512, 4, 4, 64, True, 128, 0.0),
+    (2, 256, 8, 2, 32, True, 0, 50.0),       # gemma2-style softcap
+    (1, 256, 2, 2, 64, False, 0, 0.0),        # encoder (bidirectional)
+    (1, 384, 4, 1, 64, True, 256, 30.0),      # MQA + window + cap
+])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_flash_attention_cpu_matches_pallas_interpret(b, t, h, kvh, d, causal,
+                                                      window, softcap, dt):
+    """The CPU dispatch of `ops.flash_attention` (GQA expanded in
+    `repeat_interleave` order, then the plain attention) against the
+    Pallas kernel with the kv heads unexpanded, over tests/test_kernels.py's
+    sweep."""
+    qj, qt = _pair((b, t, h, d), 9, dt)
+    kj, kt = _pair((b, t, kvh, d), 10, dt)
+    vj, vt = _pair((b, t, kvh, d), 11, dt)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = ops.flash_attention(qt, kt, vt, **kw)
+    want = jops.flash_attention(qj, kj, vj, block_q=128, block_kv=128,
+                                interpret=True, **kw)
+    assert got.dtype == TORCH_DT[dt] and got.shape == qt.shape
+    np.testing.assert_allclose(np32(got), np32(want), **TOL[dt])
+
+
+def test_forward_only_kernels_refuse_grad_and_cpu_ops_differentiate():
+    """The CUDA wrappers have no backward: a tensor that requires grad
+    under grad mode raises before any device check; the CPU dispatch is
+    the plain version and differentiates."""
+    x = torch.ones(3, 8, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rmsnorm(x, torch.ones(8))
+    q = torch.zeros(1, 4, 2, 32, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, q.detach(), q.detach())
+    ops.rmsnorm(x, torch.ones(8)).sum().backward()
+    assert x.grad is not None
+    ops.flash_attention(q, q.detach(), q.detach()).sum().backward()
+    assert q.grad is not None
+    with pytest.raises(ValueError, match="no implementation"):
+        ops.rmsnorm(torch.zeros(2, 8, device="meta"), torch.zeros(8))
 
 
 SWEEP = [(17,), (1024,), (257, 3), (8, 128), (1000, 33), (2, 3, 5, 7)]

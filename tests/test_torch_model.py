@@ -107,8 +107,8 @@ def test_full_width_microllama_and_unsupported_configs():
     with pytest.raises(KeyError, match="supported"):
         get_config("mamba2-370m")
     with pytest.raises(NotImplementedError, match="remaining-architectures"):
-        build_model(cfg.replace(block_pattern=("ssd",))).init()
-    p = build_model(get_smoke_config("llama3.2-1b")).init(seed=1)
-    q = build_model(get_smoke_config("llama3.2-1b")).init(seed=1)
+        build_model(cfg.replace(block_pattern=("ssd",))).init(device="cpu")
+    p = build_model(get_smoke_config("llama3.2-1b")).init(seed=1, device="cpu")
+    q = build_model(get_smoke_config("llama3.2-1b")).init(seed=1, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p), tree_leaves(q)))
     assert float(p["embed"]["table"].std()) == pytest.approx(0.02, rel=0.05)

@@ -46,7 +46,8 @@ def test_quickstart_trajectory_matches_reference(monkeypatch):
     # the port adds what each worker ran (its kernel launches, peak memory)
     assert sorted(set(ht) - {"ranks"}) == sorted(hj)
     assert ht["ranks"] == [{"launches": {"fused_adamw_stats": 0, "fused_adamw": 0,
-                                         "fused_stats": 0, "sqdiff_norm": 0},
+                                         "fused_stats": 0, "sqdiff_norm": 0,
+                                         "rmsnorm": 0, "flash_attention": 0},
                             "peak_mem_bytes": None}]
     assert ht["global_batch"] == hj["global_batch"]
     assert ht["samples"] == hj["samples"]
@@ -119,8 +120,8 @@ def test_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch):
     with pytest.raises(NotImplementedError, match="checkpoint"):
         ttrain.run_training(ttrain.TrainJob(device="cpu", step_impl="accum_norm",
                                             checkpoint_every=5))
-    for kw, item in ((dict(step_impl="accum_norm", mesh_data=2), "item 8"),
-                     (dict(mesh_model=2), "item 8"),
+    for kw, item in ((dict(step_impl="accum_norm", mesh_data=2), "item 7"),
+                     (dict(mesh_model=2), "item 7"),
                      (dict(coord="file"), "items 2 and 5")):
         with pytest.raises(NotImplementedError, match=item):
             ttrain.run_training(ttrain.TrainJob(device="cpu", **kw))

@@ -20,9 +20,14 @@ exit (nothing is caught):
               versions on the card: rmsnorm over rows {1, 7, 4096, 16384} x
               d {64, 100, 2048, 2050, 8192} x (f32/f32, bf16/bf16,
               bf16/f32) and unaligned views; flash over t != s, tails that
-              are not a multiple of 64, GQA groups 1, 4, 8, head dims 32,
-              64, 128, causal or not, window 0/100, softcap 0/30, f32 and
-              bf16; tolerances printed and asserted.
+              are not a multiple of 64, GQA groups 1, 4, 8, head dims 16,
+              32, 64, 100 (openllama-3b's), 128, causal or not, window
+              0/100, softcap 0/30, f32 and bf16; tolerances printed and
+              asserted.  Then every dense config the port supports, at
+              full width and 1 layer: the forward with grad mode off
+              (training's eval loss; 1 flash and 3 rmsnorm launches)
+              against the plain forward, and prefill against streamed
+              decode.
 4. ref      — two ACCUM-NORM steps of the microllama smoke config on the
               card (kernels) and on the CPU (plain versions) from the same
               parameters; the metrics must agree.
@@ -57,11 +62,15 @@ exit (nothing is caught):
               streamed through `decode_step`), `run_serving` (batch 8,
               prompt 128, gen 64) and `run_continuous_serving` (8 slots,
               prompt 16, gen 32, 60 load steps, arrivals 0.5/step and a
-              burst of 5 every 20), each with its own launch counts.
+              burst of 5 every 20), each with its own launch counts; the
+              continuous run's figures for its load window alone beside
+              the reference's keys, which also count the probe.
 8. time     — each kernel, its plain version and the nearest library call
               at the main path's shapes (all buckets of the layout; for
               rmsnorm and flash_attention prefill's shapes), timed with
-              CUDA events, beside the least time the card could take.
+              CUDA events, beside the least time the card could take;
+              rmsnorm and flash_attention also held against their plain
+              versions there.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and the
 final line {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -120,6 +129,8 @@ SERVE_TOL = {"rmsnorm_f32": dict(rtol=1e-5, atol=1e-5),
 # (plain grouped attention): f32 through the whole model, max abs error
 # over the largest magnitude
 SERVE_REL = 1e-4
+# a forward with grad mode off (the kernels) vs with it on (plain), same card
+EVAL_RTOL = 1e-5
 KERNELS = ("fused_adamw_stats", "fused_adamw", "fused_stats", "sqdiff_norm",
            "rmsnorm", "flash_attention")
 
@@ -316,7 +327,7 @@ def check_serving_kernels(dev):
         (2, 300, 300, True, 100, 30.0), (1, 96, 150, False, 0, 0.0),
         (1, 130, 200, False, 100, 30.0), (1, 520, 520, True, 0, 0.0)]
     i = 0
-    for d in (32, 64, 128):
+    for d in (16, 32, 64, 100, 128):
         for h, kvh in ((8, 8), (8, 2), (8, 1)):
             for dt in (f32, bf16):
                 b, t, sl, causal, window, cap = shapes[i % len(shapes)]
@@ -336,6 +347,48 @@ def check_serving_kernels(dev):
                 say("serve-check", kernel="flash_attention", b=b, t=t, s=sl, h=h,
                     kvh=kvh, d=d, dtype=str(dt), **kw, max_abs_err=e)
     say("serve-check", max_abs_err=err)
+
+
+def check_dense_configs(ops, dev):
+    """Phase serve-check, last part: every dense config of the port at full
+    width and 1 layer.  A forward with grad mode off (training's eval loss)
+    runs the kernels and must agree with the plain forward under grad mode;
+    prefill must agree with the same tokens streamed through decode."""
+    from repro_torch.configs import ALL_ARCHS, get_config
+    from repro_torch.distributed.serve_step import make_decode_step, make_prefill
+    from repro_torch.models.model import build_model
+
+    for arch in ALL_ARCHS:
+        cfg = get_config(arch).replace(num_layers=1)
+        model = build_model(cfg)
+        params = model.init(0, dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 100), device=dev, generator=gen)
+        labels = torch.randint(0, cfg.vocab_size, (2, 100), device=dev, generator=gen)
+        batch = {"tokens": tokens, "labels": labels}
+        plain = float(model.loss(params, batch)[0])
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            fast = float(model.loss(params, batch)[0])
+        launches = ops.launch_counts()
+        if (launches["flash_attention"], launches["rmsnorm"]) != (1, 3):
+            raise AssertionError(f"{arch}: no-grad forward launched {launches}")
+        if not close(fast, plain, EVAL_RTOL):
+            raise AssertionError(f"{arch}: no-grad loss {fast} vs plain {plain}")
+        logits, caches = make_prefill(model)(params, {"tokens": tokens})
+        step = make_decode_step(model)
+        cache = model.init_cache(2, tokens.shape[1], device=dev)
+        for i in range(tokens.shape[1]):
+            dec, cache = step(params, cache, tokens[:, i], i)
+        errs = {"last_logits": rel_err(logits, dec), "caches": caches_rel_err(caches, cache)}
+        if max(errs.values()) > SERVE_REL:
+            raise AssertionError(f"{arch}: prefill vs streamed decode {errs} > {SERVE_REL}")
+        say("serve-check", arch=arch, layers=1, head_dim=cfg.head_dim,
+            eval_loss={"no_grad": fast, "plain": plain}, rtol=EVAL_RTOL,
+            rel_tol=SERVE_REL, rel_errs=errs)
+        del params, logits, caches, cache, dec
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def serve_ref(smi):
@@ -480,9 +533,12 @@ def serve_path(smi, ops, dev):
         raise AssertionError(f"continuous serving: {res['probe']}, "
                              f"{res['requests_completed']} completed")
     say("serve", part="continuous", nvidia_smi=smi, **CONT_JOB, launches=launches,
-        requests=res["requests_completed"], req_per_s=res["sustained_req_per_s"],
-        p50_latency_s=res["p50_latency_s"], p99_latency_s=res["p99_latency_s"],
-        decode_tok_per_s=res["decode_tok_per_s"], wall_s=res["wall_s"],
+        load=res["load"], wall_s=res["wall_s"],
+        with_probe={"requests": res["requests_completed"],
+                    "req_per_s": res["sustained_req_per_s"],
+                    "p50_latency_s": res["p50_latency_s"],
+                    "p99_latency_s": res["p99_latency_s"],
+                    "decode_tok_per_s": res["decode_tok_per_s"]},
         probe=res["probe"], engine=eng, rung_trace=res["rung_trace"],
         peak_mem_bytes=torch.cuda.max_memory_allocated())
     del params
@@ -510,8 +566,10 @@ def time_serving_kernels(dev, bw):
     out = {}
     with torch.inference_mode():
         want = ref.rmsnorm_ref(x, scale)
+        got = rmsnorm(x, scale)
+        torch.testing.assert_close(got, want, **SERVE_TOL["rmsnorm_f32"])
         out["rmsnorm"] = {
-            "max_abs_err": float((rmsnorm(x, scale) - want).abs().max()),
+            "max_abs_err": float((got - want).abs().max()),
             "ms": [cuda_ms(lambda: rmsnorm(x, scale), 50) for _ in range(2)],
             "plain_ms": [cuda_ms(lambda: ref.rmsnorm_ref(x, scale), 20) for _ in range(2)],
             "library_ms": [cuda_ms(lambda: F.rms_norm(x, (d,), scale, 1e-6), 50)
@@ -520,11 +578,12 @@ def time_serving_kernels(dev, bw):
             # x*x, +, the divide and the scale: 4 flops an element
             "bound_ops_ms": 4 * x.numel() / F32_FLOPS * 1e3,
             "shape": [rows, d]}
-        del want
+        del want, got
         want = ref.flash_attention_ref(q, k, v, causal=True)
+        got = flash_attention(q, k, v, causal=True)
+        torch.testing.assert_close(got, want, **SERVE_TOL["flash_f32"])
         out["flash_attention"] = {
-            "max_abs_err": float((flash_attention(q, k, v, causal=True) - want)
-                                 .abs().max()),
+            "max_abs_err": float((got - want).abs().max()),
             "ms": [cuda_ms(lambda: flash_attention(q, k, v, causal=True), 5)
                    for _ in range(2)],
             "plain_ms": [cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 2)
@@ -640,6 +699,7 @@ def main() -> int:
                 sqdiff_rel_err=float(((sq - ws) / ws).abs()))
             del x, y
     check_serving_kernels(dev)
+    check_dense_configs(ops, dev)
 
     # 4. the card's step against the CPU's on a small model -------------------
     from repro_torch.configs import get_smoke_config

@@ -6,7 +6,8 @@
 // src/repro/kernels/flash_attention.py (its pl.pallas_call at line 123).
 // q is (b, t, h, d); k and v are (b, s, kvh, d) with h % kvh == 0, all f32
 // or all bf16, each with its own strides (the last dimension contiguous);
-// out is a contiguous (b, t, h, d) of q's type.  Every product and sum is
+// out is a contiguous (b, t, h, d) of q's type; any head dim 1 <= d <= 128
+// (the dense configs use 64 and openllama-3b's 100).  Every product and sum is
 // f32.  The semantics are the TPU kernel's:
 //   * causal masks are aligned top-left: key j is visible to query i when
 //     j <= i, both counted from 0, whatever t and s are;
@@ -33,10 +34,13 @@
 //   * one block of 256 threads per (b*h, 64-row q tile), the q tiles with
 //     the most causal work scheduled first;
 //   * the q tile and one 64-key K and V tile at a time staged in shared
-//     memory as f32 (rows padded by 4 floats against bank conflicts);
+//     memory as f32, the head dim zero-filled up to DP, the next multiple
+//     of 16 (the zeros add exact zeros to both products), rows padded by
+//     4 more floats against bank conflicts;
 //   * thread (r, c), r = tid / 4, c = tid % 4, owns query row r: the 16
 //     logits of keys c, c+4, ..., c+60 and the output columns
-//     4c + 16j .. 4c + 16j + 3; the running max, denominator and the
+//     4c + 16j .. 4c + 16j + 3 (those < d are stored); the running max,
+//     denominator and the
 //     accumulator live in registers, the row max and sum are reduced over
 //     the 4 threads of a row with shuffles;
 //   * explicit fmaf for both products (the library is built with
@@ -54,14 +58,16 @@ constexpr int kFT = 256;         // threads a block: 4 per q row
 constexpr int kPad = 4;          // floats of padding per shared row
 constexpr float kNegInf = -2.0e38f;
 
-template <int D>
+constexpr int kMaxD = 128;       // largest head dim
+
+template <int DP>
 constexpr int smem_bytes() {
-  return (3 * kBQ * (D + kPad) + kBQ * (kBK + kPad)) * static_cast<int>(sizeof(float));
+  return (3 * kBQ * (DP + kPad) + kBQ * (kBK + kPad)) * static_cast<int>(sizeof(float));
 }
 
 struct Args {
   const void* q; const void* k; const void* v; void* out;
-  int t, s, h, kvh;
+  int t, s, h, kvh, d;
   long long q_sb, q_st, q_sh;    // strides in elements
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -69,14 +75,17 @@ struct Args {
   int causal, window;
 };
 
-template <typename T>
+// rows [first, first + 64) of src into dst (row stride DP + kPad): the
+// columns past d and the rows past `limit` as zeros
+template <int DP, typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, long long row_stride,
-                                          int first, int limit, int D) {
-  for (int idx = threadIdx.x; idx < kBK * D; idx += kFT) {
-    const int row = idx / D, col = idx - row * D;
+                                          int first, int limit, int d) {
+  for (int idx = threadIdx.x; idx < kBK * DP; idx += kFT) {
+    const int row = idx / DP, col = idx - row * DP;
     const int g = first + row;
-    dst[row * (D + kPad) + col] =
-        g < limit ? to_f32(src[static_cast<long long>(g) * row_stride + col]) : 0.0f;
+    dst[row * (DP + kPad) + col] =
+        g < limit && col < d ? to_f32(src[static_cast<long long>(g) * row_stride + col])
+                             : 0.0f;
   }
 }
 
@@ -90,12 +99,13 @@ __device__ __forceinline__ float row_sum4(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kFT)
 flash_kernel(Args a) {
-  constexpr int LD = D + kPad;          // shared row stride of Q, K, V
+  static_assert(DP % 16 == 0 && DP <= kMaxD, "DP: a multiple of 16, at most 128");
+  constexpr int LD = DP + kPad;         // shared row stride of Q, K, V
   constexpr int LP = kBK + kPad;        // shared row stride of P
-  constexpr int NO = D / 16;            // float4 output groups a thread owns
+  constexpr int NO = DP / 16;           // float4 output groups a thread owns
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + kBQ * LD;
@@ -114,12 +124,7 @@ flash_kernel(Args a) {
   const T* k = static_cast<const T*>(a.k) + bi * a.k_sb + kv_head * a.k_sh;
   const T* v = static_cast<const T*>(a.v) + bi * a.v_sb + kv_head * a.v_sh;
 
-  for (int idx = threadIdx.x; idx < kBQ * D; idx += kFT) {
-    const int row = idx / D, col = idx - row * D;
-    const int g = q0 + row;
-    Qs[row * LD + col] =
-        g < a.t ? to_f32(q[static_cast<long long>(g) * a.q_st + col]) : 0.0f;
-  }
+  load_tile<DP>(Qs, q, a.q_st, q0, a.t, a.d);
 
   float m = kNegInf, l = 0.0f;
   float acc[4 * NO];
@@ -134,15 +139,15 @@ flash_kernel(Args a) {
     if (a.window > 0 && k0 + kBK - 1 <= q0 - a.window) continue;
 
     __syncthreads();                      // the previous tile is consumed
-    load_tile(Ks, k, a.k_ss, k0, a.s, D);
-    load_tile(Vs, v, a.v_ss, k0, a.s, D);
+    load_tile<DP>(Ks, k, a.k_ss, k0, a.s, a.d);
+    load_tile<DP>(Vs, v, a.v_ss, k0, a.s, a.d);
     __syncthreads();
 
     float sc[16];
 #pragma unroll
     for (int jj = 0; jj < 16; ++jj) sc[jj] = 0.0f;
 #pragma unroll 4
-    for (int kk = 0; kk < D; kk += 4) {
+    for (int kk = 0; kk < DP; kk += 4) {
       const float4 qv = *reinterpret_cast<const float4*>(Qs + r * LD + kk);
 #pragma unroll
       for (int jj = 0; jj < 16; ++jj) {
@@ -212,7 +217,7 @@ flash_kernel(Args a) {
     for (int kt = 0; kt < n_tiles; ++kt) {
       const int k0 = kt * kBK;
       __syncthreads();
-      load_tile(Vs, v, a.v_ss, k0, a.s, D);
+      load_tile<DP>(Vs, v, a.v_ss, k0, a.s, a.d);
       __syncthreads();
       if (dead) {
         for (int j = 0; j < kBK && k0 + j < a.s; ++j) {
@@ -233,32 +238,41 @@ flash_kernel(Args a) {
   if (qpos < a.t) {
     const float inv_l = l == 0.0f ? 1.0f : l;   // the TPU kernel's l == 0 guard
     T* o = static_cast<T*>(a.out) +
-           ((static_cast<long long>(bi) * a.t + qpos) * a.h + hh) * D;
+           ((static_cast<long long>(bi) * a.t + qpos) * a.h + hh) * a.d;
 #pragma unroll
     for (int g = 0; g < NO; ++g) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[4 * c + 16 * g + e] = from_f32<T>(acc[4 * g + e] / inv_l);
+      for (int e = 0; e < 4; ++e) {
+        const int col = 4 * c + 16 * g + e;
+        if (col < a.d) o[col] = from_f32<T>(acc[4 * g + e] / inv_l);
+      }
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 cudaError_t launch(const Args& a, int b, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, D>,
+  constexpr int bytes = smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.t + kBQ - 1) / kBQ, b * a.h);
-  flash_kernel<T, D><<<grid, kFT, bytes, stream>>>(a);
+  flash_kernel<T, DP><<<grid, kFT, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
+// the head dim padded to the next multiple of 16
 template <typename T>
-cudaError_t launch_d(const Args& a, int b, int d, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<T, 32>(a, b, stream);
-    case 64: return launch<T, 64>(a, b, stream);
-    case 128: return launch<T, 128>(a, b, stream);
+cudaError_t launch_d(const Args& a, int b, cudaStream_t stream) {
+  switch ((a.d + 15) / 16) {
+    case 1: return launch<T, 16>(a, b, stream);
+    case 2: return launch<T, 32>(a, b, stream);
+    case 3: return launch<T, 48>(a, b, stream);
+    case 4: return launch<T, 64>(a, b, stream);
+    case 5: return launch<T, 80>(a, b, stream);
+    case 6: return launch<T, 96>(a, b, stream);
+    case 7: return launch<T, 112>(a, b, stream);
+    case 8: return launch<T, 128>(a, b, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -270,19 +284,20 @@ extern "C" {
 // Returns a cudaError_t (0 on success).  bf16: 1 when q, k, v and out are
 // bfloat16, 0 for float32.  strides: the (b, t|s, head) strides in elements
 // of q, k and v, nine values; the last dimension of each is contiguous.
-// d in {32, 64, 128}; b * h <= 65535; t, s >= 1.
+// 1 <= d <= 128; b * h <= 65535; t, s >= 1.
 int repro_flash_attention(const void* q, const void* k, const void* v, void* out, int bf16,
                           int b, int t, int s, int h, int kvh, int d,
                           const long long* strides, float scale, float softcap,
                           int causal, int window, void* stream) {
-  if (b < 1 || t < 1 || s < 1 || kvh < 1 || h % kvh != 0 || b * h > 65535)
+  if (b < 1 || t < 1 || s < 1 || kvh < 1 || h % kvh != 0 || b * h > 65535 || d < 1 ||
+      d > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{q, k, v, out, t, s, h, kvh,
+  Args a{q, k, v, out, t, s, h, kvh, d,
          strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
          strides[6], strides[7], strides[8], scale, softcap, causal, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bf16 ? launch_d<__nv_bfloat16>(a, b, d, st)
-                               : launch_d<float>(a, b, d, st);
+  const cudaError_t err = bf16 ? launch_d<__nv_bfloat16>(a, b, st)
+                               : launch_d<float>(a, b, st);
   return static_cast<int>(err);
 }
 

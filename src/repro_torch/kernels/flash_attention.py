@@ -13,7 +13,7 @@ Unlike the TPU wrapper there is no block-size assert and no padding: any t
 and s, tails masked in the kernel.  The wrapper takes CUDA tensors only
 (`kernels.ops` dispatches by device), has no backward (it raises under grad
 mode on a tensor that requires grad) and raises on anything the kernel
-does not take (head dims other than 32, 64 and 128 among them).  Each
+does not take (head dims above 128 among them).  Each
 launch adds one to `flash_attention.launches`.
 """
 
@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels import check_launch, check_no_grad, load
 
 SOURCE = "flash_attention"
-HEAD_DIMS = (32, 64, 128)
+MAX_HEAD_DIM = 128
 
 
 def _lib():
@@ -59,8 +59,9 @@ def _check(q, k, v):
     if k.shape[2] < 1 or h % k.shape[2]:
         raise ValueError(f"flash_attention: {h} q heads are not a multiple of "
                          f"{k.shape[2]} kv heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d} is outside "
+                         f"1..{MAX_HEAD_DIM}")
     if min(b, t, k.shape[1]) < 1 or b * h > 65535:
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} / "
                          f"{tuple(k.shape)} is outside the kernel's grid")
@@ -68,8 +69,8 @@ def _check(q, k, v):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0):
-    """q: (b, t, h, d); k, v: (b, s, kvh, d), h % kvh == 0, d in {32, 64,
-    128}; all float32 or all bfloat16.  Softmax scale 1/sqrt(d).  Returns a
+    """q: (b, t, h, d); k, v: (b, s, kvh, d), h % kvh == 0, 1 <= d <= 128;
+    all float32 or all bfloat16.  Softmax scale 1/sqrt(d).  Returns a
     new contiguous (b, t, h, d) tensor of q's dtype."""
     check_no_grad("flash_attention", q, k, v)
     _check(q, k, v)

@@ -35,12 +35,21 @@ def _sync(device: torch.device):
 
 def _setup(arch, smoke, seed, device, params):
     """(cfg, model, params, device): params drawn from `seed` on `device`,
-    unless given — then the device, and the depth, are theirs."""
+    unless given — then the device, and the depth, are theirs, and naming a
+    device as well is an error."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if params is not None and device is not None:
+        raise ValueError("pass `device` or `params`, not both: given "
+                         "params serve on their own device")
     if params is None:
         params = build_model(cfg).init(seed, resolve_device(device))
     cfg = cfg.replace(num_layers=len(params["layers"]))
     return cfg, build_model(cfg), params, tree_leaves(params)[0].device
+
+
+def _pct(lat, p):
+    """The p-th percentile of the sorted latencies `lat` (0 when empty)."""
+    return lat[min(len(lat) - 1, int(p / 100 * len(lat)))] if lat else 0.0
 
 
 def run_serving(arch: str, *, smoke=True, batch=4, prompt_len=32, gen_len=32,
@@ -106,7 +115,10 @@ def run_continuous_serving(arch: str, *, smoke=True, max_slots=8,
     be served from a built rung — a transition hit with ZERO new builds.
 
     Returns sustained req/s, p50/p99 request latency, decode tok/s, the
-    engine counters, the rung trace and the probe verdict."""
+    engine counters, the rung trace and the probe verdict.  As in the
+    reference, those rates divide every request and token, the probe's
+    included, by the load window's seconds; `load` holds the same figures
+    for the load window's own requests and tokens."""
     cfg, model, params, device = _setup(arch, smoke, seed, device, params)
     engine = ServeEngine(
         model, params, max_slots=max_slots, cache_len=prompt_len + gen_len,
@@ -139,6 +151,14 @@ def run_continuous_serving(arch: str, *, smoke=True, max_slots=8,
     completed.extend(engine.run_until_drained())
     _sync(device)
     wall_s = max(time.time() - t_start, 1e-9)
+    # the load window alone: the reference's keys below also count the
+    # probe's requests and tokens, served after the clock stopped
+    load_lat = sorted(r.latency_s for r in completed)
+    load = {"requests_completed": len(load_lat),
+            "req_per_s": len(load_lat) / wall_s,
+            "p50_latency_s": _pct(load_lat, 50),
+            "p99_latency_s": _pct(load_lat, 99),
+            "decode_tok_per_s": engine.stats.tokens_generated / wall_s}
 
     # ---- steady-state probe: a rung change must hit a built step ----
     engine.warm(engine.ladder)
@@ -162,18 +182,15 @@ def run_continuous_serving(arch: str, *, smoke=True, max_slots=8,
         and probe["new_compiles"] == 0)
 
     lat = sorted(r.latency_s for r in completed)
-
-    def pct(p):
-        return lat[min(len(lat) - 1, int(p / 100 * len(lat)))] if lat else 0.0
-
     stats = engine.stats
     return {
         "requests_completed": len(lat),
         "sustained_req_per_s": len(lat) / wall_s,
-        "p50_latency_s": pct(50),
-        "p99_latency_s": pct(99),
+        "p50_latency_s": _pct(lat, 50),
+        "p99_latency_s": _pct(lat, 99),
         "decode_tok_per_s": stats.tokens_generated / wall_s,
         "wall_s": wall_s,
+        "load": load,
         "rung_trace": rung_trace,
         "probe": probe,
         "engine": stats.as_dict(),
@@ -211,10 +228,11 @@ def main(argv=None):
             load_steps=args.load_steps, arrival_rate=args.arrival_rate,
             burst_every=args.burst_every, burst_size=args.burst_size,
             max_queue=args.max_queue, seed=args.seed, device=device)
-        print(f"served {res['requests_completed']} requests: "
-              f"{res['sustained_req_per_s']:.2f} req/s, "
-              f"p50 {res['p50_latency_s']:.3f}s p99 {res['p99_latency_s']:.3f}s, "
-              f"{res['decode_tok_per_s']:.1f} tok/s")
+        load = res["load"]
+        print(f"served {load['requests_completed']} requests under load: "
+              f"{load['req_per_s']:.2f} req/s, "
+              f"p50 {load['p50_latency_s']:.3f}s p99 {load['p99_latency_s']:.3f}s, "
+              f"{load['decode_tok_per_s']:.1f} tok/s")
         print("engine:", res["engine"])
         print("steady-state probe:", res["probe"])
         return

@@ -6,10 +6,11 @@ caches — counterpart of `repro/models/attention.py` (decoder subset):
   position or at per-row positions, the cache full-length or a ring;
 * `init_cache`.
 
-Training runs the plain PyTorch path, like the reference's jnp path.
-Prefill on the card (grad mode off) runs the flash-attention kernel
-(`kernels.ops.flash_attention`), the reference's TPU drop-in for the same
-math.  Decode runs the plain `_sdpa_grouped`, as the reference does.
+Training steps run the plain PyTorch path, like the reference's jnp
+path.  Every forward on the card with grad mode off — prefill, and the
+training loop's eval loss under `torch.no_grad` — runs the flash-attention
+kernel (`kernels.ops.flash_attention`, any head dim up to 128), the
+reference's TPU drop-in for the same math.  Decode runs the plain `_sdpa_grouped`, as the reference does.
 Cross-attention (Whisper) arrives with the remaining-architectures slice.
 """
 

@@ -2,7 +2,8 @@
 `repro/models/norms.py`): statistics in f32, result cast back to x's dtype.
 
 RMSNorm of a tensor on the card with grad mode off (serving, under
-`torch.inference_mode()`) runs the CUDA kernel `kernels.ops.rmsnorm`, which
+`torch.inference_mode()`, and the training loop's eval loss under
+`torch.no_grad`) runs the CUDA kernel `kernels.ops.rmsnorm`, which
 divides by sqrt(var + eps) as the TPU kernel does; everywhere else (the
 CPU, and training, which needs a backward) it runs the plain code below,
 which multiplies by 1 / sqrt(var + eps) as the reference model does.  The

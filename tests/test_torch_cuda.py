@@ -18,13 +18,16 @@ relative, 1e-2 absolute).
 import pytest
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.configs import ALL_ARCHS, get_config
+from repro_torch.distributed.serve_step import make_decode_step, make_prefill
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_adamw import (
     adamw_scalars, fused_adamw, fused_adamw_stats)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_stats import fused_stats
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.sqdiff_norm import sqdiff_norm
+from repro_torch.models.model import build_model
 
 SIZES = [1, 17, 1_000_003]
 DTYPE_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
@@ -139,6 +142,11 @@ FLASH_CASES = [  # b, t, s, h, kvh, d, causal, window, softcap
     (2, 200, 200, 8, 8, 64, True, 100, 30.0),
     (1, 96, 150, 8, 4, 64, False, 0, 0.0),
     (1, 300, 300, 4, 1, 128, True, 100, 0.0),
+    (2, 130, 130, 4, 4, 100, True, 0, 0.0),      # openllama-3b's head dim
+    (1, 150, 90, 8, 2, 100, True, 50, 30.0),
+    (1, 70, 70, 4, 2, 48, True, 0, 0.0),
+    (1, 80, 120, 4, 1, 16, False, 0, 0.0),
+    (1, 65, 65, 2, 2, 80, True, 0, 0.0),
 ]
 
 
@@ -163,10 +171,49 @@ def test_cuda_forward_kernels_refuse_grad_and_odd_head_dims(cuda):
     x = torch.randn(4, 64, device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         rmsnorm(x, torch.ones(64, device=cuda))
-    q = torch.randn(1, 8, 2, 48, device=cuda)
+    q = torch.randn(1, 8, 2, 160, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q, q)
     before = (rmsnorm.launches, flash_attention.launches)
     with torch.no_grad():
         rmsnorm(x, torch.ones(64, device=cuda))
     assert (rmsnorm.launches, flash_attention.launches) == (before[0] + 1, before[1])
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_cuda_dense_configs_forward_without_grad_and_prefill(cuda, arch):
+    """Every dense config at its full width, one layer: a forward with grad
+    mode off (training's eval loss) runs the kernels and agrees with the
+    plain forward under grad mode; prefill (kernels) agrees with the same
+    tokens streamed through decode (plain grouped attention).  f32 through
+    the model: 1e-5 on the loss, 1e-4 of the largest magnitude on logits
+    and caches (sums in another order over 2000-3200 wide rows)."""
+    model = build_model(get_config(arch).replace(num_layers=1))
+    params = model.init(0, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    vocab = model.cfg.vocab_size
+    tokens = torch.randint(0, vocab, (2, 100), device=cuda, generator=gen)
+    labels = torch.randint(0, vocab, (2, 100), device=cuda, generator=gen)
+    batch = {"tokens": tokens, "labels": labels}
+    plain = model.loss(params, batch)[0]
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        fast = model.loss(params, batch)[0]
+    counts = ops.launch_counts()
+    assert (counts["flash_attention"], counts["rmsnorm"]) == (1, 3), counts
+    torch.testing.assert_close(fast, plain.detach(), rtol=1e-5, atol=0)
+    logits, caches = make_prefill(model)(params, {"tokens": tokens})
+    step = make_decode_step(model)
+    cache = model.init_cache(2, tokens.shape[1], device=cuda)
+    for i in range(tokens.shape[1]):
+        dec, cache = step(params, cache, tokens[:, i], i)
+    torch.cuda.synchronize()
+    assert _rel(logits, dec) <= 1e-4
+    for got, want in zip(caches, cache):
+        assert max(_rel(got[k], want[k]) for k in ("k", "v")) <= 1e-4

@@ -183,6 +183,8 @@ def test_rmsnorm_cpu_matches_pallas_interpret(rows, d, dt):
     (2, 256, 8, 2, 32, True, 0, 50.0),       # gemma2-style softcap
     (1, 256, 2, 2, 64, False, 0, 0.0),        # encoder (bidirectional)
     (1, 384, 4, 1, 64, True, 256, 30.0),      # MQA + window + cap
+    (1, 256, 4, 4, 100, True, 0, 0.0),        # openllama-3b's head dim
+    (2, 256, 4, 2, 100, True, 128, 0.0),
 ])
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_flash_attention_cpu_matches_pallas_interpret(b, t, h, kvh, d, causal,
@@ -190,7 +192,8 @@ def test_flash_attention_cpu_matches_pallas_interpret(b, t, h, kvh, d, causal,
     """The CPU dispatch of `ops.flash_attention` (GQA expanded in
     `repeat_interleave` order, then the plain attention) against the
     Pallas kernel with the kv heads unexpanded, over tests/test_kernels.py's
-    sweep."""
+    sweep and the head dim 100 of openllama-3b, which the CUDA kernel also
+    takes."""
     qj, qt = _pair((b, t, h, d), 9, dt)
     kj, kt = _pair((b, t, kvh, d), 10, dt)
     vj, vt = _pair((b, t, kvh, d), 11, dt)

@@ -241,4 +241,24 @@ def test_continuous_serving_matches_reference_under_the_same_load():
         assert got["engine"][k] == want["engine"][k], k
     assert got["probe"]["steady_state_transition_hit"]
     assert got["probe"] == want["probe"]
-    assert set(got) == set(want)
+    assert set(got) == set(want) | {"load"}
+
+
+def test_continuous_serving_load_window_leaves_out_the_probe():
+    """`load` counts only the requests and tokens served in the timed load
+    window: the probe's requests, served after the clock stopped, make up
+    the difference to the reference's keys, gen_len tokens each."""
+    gen_len = 4
+    params = build_model(get_smoke_config(ARCH)).init(0, "cpu")
+    got = run_continuous_serving(ARCH, params=params, max_slots=4, prompt_len=3,
+                                 gen_len=gen_len, load_steps=24, arrival_rate=0.5,
+                                 burst_every=10, burst_size=3, seed=0)
+    load, wall_s = got["load"], got["wall_s"]
+    probe_requests = got["requests_completed"] - load["requests_completed"]
+    assert probe_requests >= 1 and load["requests_completed"] >= 1
+    assert load["req_per_s"] == pytest.approx(load["requests_completed"] / wall_s)
+    assert got["sustained_req_per_s"] == pytest.approx(
+        got["requests_completed"] / wall_s)
+    load_tokens = round(load["decode_tok_per_s"] * wall_s)
+    assert got["engine"]["tokens_generated"] - load_tokens == probe_requests * gen_len
+    assert load["p50_latency_s"] <= load["p99_latency_s"]

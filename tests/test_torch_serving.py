@@ -200,6 +200,15 @@ def test_run_serving_tokens_identical_to_reference(batch, prompt_len, gen_len):
     assert set(got) == set(want)
 
 
+def test_serving_launchers_refuse_device_with_params():
+    """Given params serve on their own device; naming another one too is an
+    error, not a silent override."""
+    params = build_model(get_smoke_config(ARCH)).init(0, "cpu")
+    for run in (serve_mod.run_serving, serve_mod.run_continuous_serving):
+        with pytest.raises(ValueError, match="not both"):
+            run(ARCH, params=params, device="cpu")
+
+
 def test_run_serving_accounting():
     batch, gen_len = 2, 8
     res = _port_serving(batch=batch, prompt_len=4, gen_len=gen_len)

@@ -15,7 +15,13 @@ exit (nothing is caught):
               f32 bucket) and 32 768 000 (microllama's embedding leaf), f32,
               bf16 and mixed operands, AdamW clip on and off, the stats
               kernels also on unaligned views; tolerances printed and
-              asserted.
+              asserted.  Then the list entry points of the redesigned
+              kernels (`fused_adamw_stats_buckets`, `fused_stats_buckets`)
+              against the plain versions bucket by bucket: ragged sizes
+              (1, 17, 2048, 1 000 003, 5 767 168, ...) with an unaligned
+              entry and three dtype groups in one call, and rank 1's shard
+              views of microllama's J = 2 layout; each case twice, the
+              sums (and p, m, v) bit-identical, one launch per dtype group.
    serve-check — rmsnorm and flash_attention against their plain
               versions on the card: rmsnorm over rows {1, 7, 4096, 16384} x
               d {64, 100, 2048, 2050, 8192} x (f32/f32, bf16/bf16,
@@ -47,12 +53,12 @@ exit (nothing is caught):
 6. train    — slice 1's path: `run_training` of full-width microllama-300m
               (adaptive batch, ACCUM-NORM, flat stats and params) for 6
               steps; launch counts set to 0 just before and read just
-              after must equal steps x buckets.
+              after must equal steps x dtype groups (one launch a step).
 7. fsdp     — the main path: `run_training` of full-width microllama-300m
               with FSDP-Norm, flat stats and params, 2 workers on the one
               card (gloo), 6 steps; var_l1 must be finite and > 0 at every
               step, and each rank's `fused_stats` and `fused_adamw_stats`
-              launches in the run must equal steps x buckets.  Then the
+              launches in the run must equal steps x dtype groups.  Then the
               step's collectives alone (every bucket's all-reduce and
               all-gather), timed on two fresh ranks.
    serve    — serving's main path, full-width llama3.2-1b (16 layers):
@@ -69,8 +75,13 @@ exit (nothing is caught):
               at the main path's shapes (all buckets of the layout; for
               rmsnorm and flash_attention prefill's shapes), timed with
               CUDA events, beside the least time the card could take;
-              rmsnorm and flash_attention also held against their plain
-              versions there.
+              `fused_adamw_stats` and `fused_stats` as one list call and in
+              PR 13's pattern of one call a bucket, in turns with the
+              library call; the list calls, rmsnorm and flash_attention
+              also held against their plain versions there.  Then the
+              step's tail (`worker_variance_stats_buffers` and the sharded
+              AdamW update) in both calling patterns, host clock, at J = 1
+              and on the J = 2 shards.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and the
 final line {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -224,6 +235,8 @@ def fsdp_ref_rank(cpu_params, batches):
                                   "sqdiff_check": check,
                                   "buckets": (wrap.flat_layout.num_buffers
                                               if impl == "flat" else None),
+                                  "adamw_groups": (adamw_groups(wrap.flat_layout)
+                                                   if impl == "flat" else None),
                                   "leaves": len(tree_flatten(params)[0])}
     every = [None] * J
     dist.all_gather_object(every, out)
@@ -273,6 +286,167 @@ def adamw_inputs(n, p_dtype, g_dtype, seed, dev):
     m = 1e-4 * torch.randn(n, device=dev, generator=gen)
     v = 1e-6 * torch.rand(n, device=dev, generator=gen)
     return p, g, m, v
+
+
+def adamw_groups(layout) -> int:
+    """Launches of `fused_adamw_stats` a step: one per (p, g) dtype pair, and
+    the step's gradients are f32 whatever the params' dtype."""
+    return len(set(layout.buffer_dtypes))
+
+
+def check_bucket_kernels(dev, tol, hyper, sum_rtol, shard_layout):
+    """Phase 3, the list entry points: `fused_adamw_stats_buckets` and
+    `fused_stats_buckets` against the plain versions bucket by bucket, over
+    ragged sizes with an unaligned entry and three dtype groups in one call,
+    and over rank 1's shard views of microllama's J = 2 layout.  Each case
+    runs twice, the second time on copies of the inputs, and must give the
+    same bits; each call launches once per dtype group.  Returns each
+    kernel's largest error."""
+    from repro_torch.distributed.sharding import shard_bucket
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_adamw import (
+        adamw_scalars, fused_adamw_stats, fused_adamw_stats_buckets)
+    from repro_torch.kernels.fused_stats import fused_stats, fused_stats_buckets
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    ragged = [(n, 0, f32, f32) for n in (1, 17, 2048, 1_000_003, 5_767_168)]
+    ragged += [(2048, 1, f32, f32), (4099, 0, bf16, bf16), (1_000_003, 0, bf16, bf16),
+               (17, 0, bf16, f32), (1_048_576, 0, bf16, f32)]
+
+    def views(n, off, dt, seed, scale):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return (scale * torch.randn(n + off, device=dev, generator=gen)).to(dt)[off:]
+
+    def ragged_case():
+        return [[views(n, off, pd, 4 * i, 0.02), views(n, off, gd, 4 * i + 1, 1e-3),
+                 views(n, off, f32, 4 * i + 2, 1e-4),
+                 views(n, off, f32, 4 * i + 3, 1e-3) ** 2]
+                for i, (n, off, pd, gd) in enumerate(ragged)], 3
+
+    def shard_case():
+        full = [[views(n, 0, f32, 4 * i + k, s) for k, s in enumerate((0.02, 1e-3, 1e-4, 1e-3))]
+                for i, n in enumerate(shard_layout.buffer_sizes)]
+        for b in full:
+            b[3] = b[3] ** 2
+        return [[shard_bucket(x, 1, 2) for x in b] for b in full], 1
+
+    err = {"fused_adamw_stats": 0.0, "fused_stats": 0.0}
+    sc = dict(lr=torch.tensor(3e-4, device=dev), c1=torch.tensor(1 - 0.9 ** 3, device=dev),
+              c2=torch.tensor(1 - 0.95 ** 3, device=dev), clip_scale=torch.tensor(0.37, device=dev))
+    scalars = adamw_scalars(*sc.values(), dev)
+    for name, make in (("ragged", ragged_case), ("microllama J=2 shards", shard_case)):
+        bufs, groups = make()
+        copies = [[x.clone() for x in b] for b in bufs]
+        want = [ref.adamw_stats_ref(*b, **sc, **hyper) for b in bufs]
+        stats_want = [ref.fused_stats_ref(b[1], b[0]) for b in bufs]
+        before = fused_adamw_stats.launches, fused_stats.launches
+        dsq, ysq = fused_stats_buckets([b[1] for b in bufs], [b[0] for b in bufs])
+        dsq2, ysq2 = fused_stats_buckets([b[1] for b in bufs], [b[0] for b in bufs])
+        gsq = fused_adamw_stats_buckets(*zip(*bufs), scalars, **hyper)
+        gsq2 = fused_adamw_stats_buckets(*zip(*copies), scalars, **hyper)
+        torch.cuda.synchronize()
+        launched = (fused_adamw_stats.launches - before[0], fused_stats.launches - before[1])
+        if launched != (2 * groups, 2 * groups):
+            raise AssertionError(f"{name}: launches {launched}, expected {groups} "
+                                 f"dtype groups a call")
+        if not (torch.equal(gsq, gsq2) and torch.equal(dsq, dsq2) and torch.equal(ysq, ysq2)):
+            raise AssertionError(f"{name}: sums not bit-identical on repeat: "
+                                 f"{[float(x) for x in (gsq, gsq2, dsq, dsq2, ysq, ysq2)]}")
+        for b, c, w in zip(bufs, copies, want):
+            for got, copy, expect in zip((b[0], b[2], b[3]), (c[0], c[2], c[3]), w):
+                if not torch.equal(got, copy):
+                    raise AssertionError(f"{name}: p, m or v not bit-identical on repeat")
+                torch.testing.assert_close(got, expect, **tol[got.dtype])
+                err["fused_adamw_stats"] = max(err["fused_adamw_stats"],
+                                               float((got.float() - expect.float()).abs().max()))
+        sums = {"gsq": (gsq, sum(w[3] for w in want)),
+                "dsq": (dsq, sum(w[0] for w in stats_want)),
+                "ysq": (ysq, sum(w[1] for w in stats_want))}
+        for got, expect in sums.values():
+            torch.testing.assert_close(got, expect, rtol=sum_rtol, atol=0.0)
+        err["fused_stats"] = max(err["fused_stats"], *(float((sums[k][0] - sums[k][1]).abs())
+                                                       for k in ("dsq", "ysq")))
+        say("check", kernel="fused_adamw_stats_buckets+fused_stats_buckets", case=name,
+            buckets=len(bufs), elements=sum(b[0].numel() for b in bufs),
+            dtype_groups=groups, launches_per_call=groups, bit_identical_repeat=True,
+            **{f"{k}_rel_err": float(((g - w) / w).abs()) for k, (g, w) in sums.items()})
+        del bufs, copies, want, stats_want
+        gc.collect()
+    torch.cuda.empty_cache()
+    return err
+
+
+def time_tail(dev, sizes):
+    """Phase 8, the step's tail as FSDP-Norm calls it over microllama's
+    layout: the statistic over the full g_j and g buckets
+    (`worker_variance_stats_buffers`), then the AdamW update of the
+    worker's shards (`_sharded_buffer_update`), at J = 1 and on rank 1's
+    1/2 shards of J = 2 (one process: no collective).  PR 13's calling
+    pattern (one call a bucket, as the step made them) and this tree's
+    (one call over every bucket) run in turns; host clock around work
+    that ends in `synchronize()`, and the host's own time until the calls
+    return."""
+    from repro_torch.core.norm_test import worker_variance_stats_buffers
+    from repro_torch.distributed.sharding import shard_bucket
+    from repro_torch.distributed.train_step import _sharded_buffer_update
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import pmean
+    from repro_torch.optim.adamw import (
+        AdamWConfig, _bias_corrections, clip_scale_from_norm)
+
+    cfg = AdamWConfig()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    g_j = [1e-3 * torch.randn(n, device=dev, generator=gen) for n in sizes]
+    g = [1e-3 * torch.randn(n, device=dev, generator=gen) for n in sizes]
+    zero = lambda: torch.zeros((), dtype=torch.float32, device=dev)
+    out = {}
+    for J in (1, 2):
+        idx = J - 1
+        pb = [0.02 * torch.randn(n // J, device=dev, generator=gen) for n in sizes]
+        opt = {"m": tuple(torch.zeros(n // J, device=dev) for n in sizes),
+               "v": tuple(torch.zeros(n // J, device=dev) for n in sizes),
+               "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+        def new():
+            _, gsq = worker_variance_stats_buffers(g_j, g)
+            _sharded_buffer_update(pb, g, opt, cfg, 3e-4, gsq, idx, J)
+
+        def old():
+            local_sq, gsq = zero(), zero()
+            for a, b in zip(g_j, g):
+                d, q = ops.stats_flat(a, b)
+                local_sq = local_sq + d
+                gsq = gsq + q
+            pmean(local_sq)
+            c1, c2 = _bias_corrections(cfg, opt["count"] + 1)
+            lr = torch.as_tensor(3e-4, dtype=torch.float32).to(dev)
+            scale = clip_scale_from_norm(torch.sqrt(gsq), cfg.grad_clip)
+            for p, gl, m, v in zip(pb, [shard_bucket(b, idx, J) for b in g],
+                                   opt["m"], opt["v"]):
+                ops.adamw_flat(p, gl, m, v, lr=lr, beta1=cfg.beta1, beta2=cfg.beta2,
+                               eps=cfg.eps, weight_decay=cfg.weight_decay, c1=c1,
+                               c2=c2, clip_scale=scale)
+
+        res = {k: {"ms": [], "host_ms": []} for k in ("per_bucket", "one_call")}
+        fns = {"per_bucket": old, "one_call": new}
+        for fn in fns.values():
+            fn()                                 # warm-up (tables, allocator)
+        for rep in range(10):
+            for k in (("per_bucket", "one_call") if rep % 2 == 0
+                      else ("one_call", "per_bucket")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[k]()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                res[k]["host_ms"].append(1e3 * (t1 - t0))
+                res[k]["ms"].append(1e3 * (time.perf_counter() - t0))
+        for r in res.values():
+            r["median_ms"] = sorted(r["ms"])[len(r["ms"]) // 2]
+            r["median_host_ms"] = sorted(r["host_ms"])[len(r["host_ms"]) // 2]
+        out[f"J={J}"] = {"buckets": len(sizes), "shard_elements": sum(sizes) // J, **res}
+        del pb, opt
+    return out
 
 
 def rel_err(got, want) -> float:
@@ -606,8 +780,8 @@ def main() -> int:
     from repro_torch import kernels
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fused_adamw import (
-        adamw_scalars, fused_adamw, fused_adamw_stats)
-    from repro_torch.kernels.fused_stats import fused_stats
+        adamw_scalars, fused_adamw, fused_adamw_stats, fused_adamw_stats_buckets)
+    from repro_torch.kernels.fused_stats import fused_stats, fused_stats_buckets
     from repro_torch.kernels.sqdiff_norm import sqdiff_norm
 
     dev = torch.device("cuda")
@@ -698,6 +872,15 @@ def main() -> int:
                 ysq_rel_err=float(((q - wq) / wq).abs()),
                 sqdiff_rel_err=float(((sq - ws) / ws).abs()))
             del x, y
+    # the list entry points, also over rank 1's shards of microllama's
+    # J = 2 layout (only shapes are read from the parameters)
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.flatbuf import FlatLayout
+    from repro_torch.models.model import build_model
+    shard_layout = FlatLayout.from_tree(
+        build_model(get_config(TRAIN_JOB["arch"])).init(0, dev), shard_divisor=2,
+        device=dev)
+    list_err = check_bucket_kernels(dev, tol, hyper, sum_rtol, shard_layout)
     check_serving_kernels(dev)
     check_dense_configs(ops, dev)
 
@@ -753,8 +936,9 @@ def main() -> int:
                 raise AssertionError(f"a CPU run launched a kernel: {cpu['launches']}")
         steps = len(batches)
         zero = {k: 0 for k in KERNELS}
-        want = {"flat": zero | {"fused_stats": steps * out["flat/cuda"]["buckets"],
-                                "fused_adamw_stats": steps * out["flat/cuda"]["buckets"]},
+        # the flat tail: one launch a step of each list kernel per dtype group
+        want = {"flat": zero | {"fused_stats": steps,
+                                "fused_adamw_stats": steps * out["flat/cuda"]["adamw_groups"]},
                 "tree": zero | {"fused_adamw": steps * out["tree/cuda"]["leaves"],
                                 "sqdiff_norm": out["tree/cuda"]["leaves"]}}
         for impl in ("flat", "tree"):
@@ -799,10 +983,11 @@ def main() -> int:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     layout = FlatLayout.from_tree(hist["final_params"], device=dev)
-    expect = TRAIN_JOB["steps"] * layout.num_buffers
+    expect = TRAIN_JOB["steps"] * adamw_groups(layout)
     if launches != {k: 0 for k in KERNELS} | {"fused_adamw_stats": expect}:
         raise AssertionError(f"ACCUM-NORM launches {launches}, expected "
-                             f"{expect} fused_adamw_stats and nothing else")
+                             f"{expect} fused_adamw_stats (one a step per dtype "
+                             f"group) and nothing else")
     say("train", nvidia_smi=smi, params=sum(layout.buffer_sizes),
         buckets=layout.num_buffers, launches=launches, peak_mem_bytes=peak,
         **check_train(TRAIN_JOB, hist))
@@ -815,13 +1000,13 @@ def main() -> int:
     hist = run_training(TrainJob(**FSDP_JOB))
     fsdp_layout = FlatLayout.from_tree(hist["final_params"], shard_divisor=2,
                                        device=dev)
-    expect = FSDP_JOB["steps"] * fsdp_layout.num_buffers
+    steps = FSDP_JOB["steps"]
     for rank, r in enumerate(hist["ranks"]):
-        want = {k: 0 for k in KERNELS} | {"fused_stats": expect,
-                                          "fused_adamw_stats": expect}
+        want = {k: 0 for k in KERNELS} | {"fused_stats": steps,
+                                          "fused_adamw_stats": steps * adamw_groups(fsdp_layout)}
         if r["launches"] != want:
             raise AssertionError(f"rank {rank} launched {r['launches']}, expected "
-                                 f"{want} ({FSDP_JOB['steps']} steps x "
+                                 f"{want} (one a step per dtype group, over "
                                  f"{fsdp_layout.num_buffers} buckets)")
     if not all(math.isfinite(x) and x > 0 for x in hist["var_l1"]):
         raise AssertionError(f"var_l1 must be finite and > 0: {hist['var_l1']}")
@@ -875,7 +1060,41 @@ def main() -> int:
                 torch.testing.assert_close(a, b, rtol=sum_rtol, atol=0.0)
                 err[k] = max(err[k], float((a - b).abs()))
 
+    # the list entry points over the whole layout, on copies (one launch
+    # each: the layout is one f32 group)
+    pb, gb, mb, vb = (list(x) for x in zip(*bufs))
+    copies = [x.clone() for x in pb], [x.clone() for x in mb], [x.clone() for x in vb]
+    ops.reset_launch_counts()
+    gsq = fused_adamw_stats_buckets(copies[0], gb, copies[1], copies[2], scal, **hyper)
+    dsq, ysq = fused_stats_buckets(mb, gb)
+    if ops.launch_counts() != {k: 0 for k in KERNELS} | {"fused_adamw_stats": 1,
+                                                        "fused_stats": 1}:
+        raise AssertionError(f"list calls over the layout launched {ops.launch_counts()}")
+    want = {"gsq": torch.zeros((), device=dev), "dsq": torch.zeros((), device=dev),
+            "ysq": torch.zeros((), device=dev)}
+    for i, (p, g, m, v) in enumerate(bufs):
+        w = ref.adamw_stats_ref(p, g, m, v, clip_scale=scal[3], **ref_kw)
+        for got, expect in zip((copies[0][i], copies[1][i], copies[2][i]), w):
+            torch.testing.assert_close(got, expect, **tol[f32])
+            err["fused_adamw_stats"] = max(err["fused_adamw_stats"],
+                                           float((got - expect).abs().max()))
+        want["gsq"] += w[3]
+        d, q = ref.fused_stats_ref(m, g)
+        want["dsq"] += d
+        want["ysq"] += q
+        del w
+    for got, k in ((gsq, "gsq"), (dsq, "dsq"), (ysq, "ysq")):
+        torch.testing.assert_close(got, want[k], rtol=sum_rtol, atol=0.0)
+    err["fused_stats"] = max(err["fused_stats"], float((dsq - want["dsq"]).abs()),
+                             float((ysq - want["ysq"]).abs()))
+    err = {k: max(e, list_err.get(k, 0.0)) for k, e in err.items()}
+    del copies
+    gc.collect()
+
     over_layout = lambda fn: (lambda: [fn(*b) for b in bufs])
+    lists = {"fused_adamw_stats": lambda: fused_adamw_stats_buckets(pb, gb, mb, vb, scal,
+                                                                    **hyper),
+             "fused_stats": lambda: fused_stats_buckets(mb, gb)}
     tails = {
         "fused_adamw_stats": (over_layout(lambda p, g, m, v: fused_adamw_stats(
                                   p, g, m, v, scal, **hyper)),
@@ -907,18 +1126,27 @@ def main() -> int:
                 "fused_stats": (8, STATS_FLOPS_PER_ELEM),
                 "sqdiff_norm": (8, SQDIFF_FLOPS_PER_ELEM)}
     timed = {}
-    for k, (kernel_tail, plain_tail) in tails.items():
+    for k, (per_bucket, plain_tail) in tails.items():
         nbytes, flops = per_elem[k]
-        bound_bytes = nbytes * n_total / bw * 1e3
-        bound_ops = flops * n_total / F32_FLOPS * 1e3
-        timed[k] = {"ms": [cuda_ms(kernel_tail, 5), cuda_ms(kernel_tail, 5)],
-                    "plain_ms": [cuda_ms(plain_tail, 3), cuda_ms(plain_tail, 3)],
-                    "library_ms": [cuda_ms(library[k], 5), cuda_ms(library[k], 5)],
-                    "bound_bytes_ms": bound_bytes, "bound_ops_ms": bound_ops}
+        # the redesigned kernels: the one list call (ms) against PR 13's
+        # calling pattern, one call a bucket (per_bucket_ms), and the
+        # library, in turns; the others run one call a tensor on their path
+        fns = {"ms": lists.get(k, per_bucket), "library_ms": library[k]}
+        if k in lists:
+            fns["per_bucket_ms"] = per_bucket
+        timed[k] = {key: [] for key in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for key in order:
+                timed[k][key].append(cuda_ms(fns[key], 5))
+        timed[k].update(plain_ms=[cuda_ms(plain_tail, 3), cuda_ms(plain_tail, 3)],
+                        bound_bytes_ms=nbytes * n_total / bw * 1e3,
+                        bound_ops_ms=flops * n_total / F32_FLOPS * 1e3)
     # the FSDP path's AdamW tail: one rank's 1/2 shard of every bucket
     shards = [tuple(x[:x.numel() // 2] for x in b) for b in bufs]
-    sharded_ms = cuda_ms(lambda: [fused_adamw_stats(p, g, m, v, scal, **hyper)
-                                  for p, g, m, v in shards], 5)
+    sharded = {"per_bucket_ms": lambda: [fused_adamw_stats(p, g, m, v, scal, **hyper)
+                                         for p, g, m, v in shards],
+               "ms": lambda: fused_adamw_stats_buckets(*zip(*shards), scal, **hyper)}
+    sharded_ms = {k: [cuda_ms(fn, 5) for _ in range(2)] for k, fn in sharded.items()}
     big = max(range(len(sizes)), key=lambda i: sizes[i])
     p, g, m, v = bufs[big]
     big_opt = torch.optim.AdamW([lib_params[big]], lr=3e-4, betas=(0.9, 0.95),
@@ -938,11 +1166,18 @@ def main() -> int:
     serve_timed = time_serving_kernels(dev, bw)
     err.update({k: t["max_abs_err"] for k, t in serve_timed.items()})
     timed.update(serve_timed)
+    # the share of the byte bound each streaming loop reaches on one bucket
+    t_big["fused_adamw_stats_share"] = t_big["adamw_bound_ms"] / t_big["fused_adamw_stats_ms"]
+    t_big["fused_stats_share"] = t_big["stats_bound_ms"] / t_big["fused_stats_ms"]
     say("time", nvidia_smi=smi, elements=n_total, buckets=len(sizes), kernels=timed,
-        sharded_fused_adamw_stats={"ms": sharded_ms,
+        sharded_fused_adamw_stats={**sharded_ms,
                                    "elements": sum(x[0].numel() for x in shards),
                                    "bound_ms": 28 * n_total / 2 / bw * 1e3},
         largest_bucket=t_big, max_abs_err=err)
+    del bufs, pb, gb, mb, vb, p, g, m, v, lib_params, lib_opt, big_opt, shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("time-tail", nvidia_smi=smi, **time_tail(dev, sizes))
 
     sources = {"fused_adamw_stats": "fused_adamw.cu", "fused_adamw": "fused_adamw.cu",
                "fused_stats": "fused_stats.cu", "sqdiff_norm": "fused_stats.cu",

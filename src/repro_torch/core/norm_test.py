@@ -80,18 +80,12 @@ def worker_variance_stats_flat(local_grad, mean_grad, *, layout=None):
 
 def worker_variance_stats_buffers(local_buffers, mean_buffers):
     """Born-flat variant (DESIGN §10): g_j and g already live as bucket
-    buffers, so this performs no pack — one `ops.stats_flat` per bucket (the
-    `fused_stats` kernel on the card).  Shard padding is zero in every
-    gradient buffer and adds nothing to either sum.  Returns (var_l1,
-    grad_sqnorm)."""
+    buffers, so this performs no pack — one `ops.stats_flat_buckets` call
+    over every bucket (on the card one `fused_stats` launch per dtype
+    group).  Shard padding is zero in every gradient buffer and adds
+    nothing to either sum.  Returns (var_l1, grad_sqnorm)."""
     from repro_torch.kernels import ops
-    device = local_buffers[0].device if local_buffers else "cpu"
-    local_sq = torch.zeros((), dtype=torch.float32, device=device)
-    gsq = torch.zeros((), dtype=torch.float32, device=device)
-    for lb, mb in zip(local_buffers, mean_buffers):
-        d, q = ops.stats_flat(lb, mb)
-        local_sq = local_sq + d
-        gsq = gsq + q
+    local_sq, gsq = ops.stats_flat_buckets(list(local_buffers), list(mean_buffers))
     return pmean(local_sq), gsq
 
 

@@ -20,8 +20,9 @@ Two residency combinations (`stats_impl`, `params_impl`):
   model runs on views into them (`FlatLayout.unflatten`); each
   microbatch's leaf gradients are added straight into congruent views of
   persistent f32 gradient buffers, so the gradient is born flat with no
-  pack; the AdamW tail runs one kernel launch per bucket, IN PLACE on the
-  param and moment buffers (where the reference donates them).  Under
+  pack; the statistic and the AdamW tail each run one kernel launch over
+  every bucket (per dtype group), IN PLACE on the param and moment buffers
+  (where the reference donates them).  Under
   FSDP-Norm the params and moments rest as the worker's 1/J shard of each
   bucket: the step all-gathers the params, and each worker updates its
   own shard.
@@ -171,7 +172,9 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
     whose buffers are shards too; both are updated in place and returned.
     `batch` holds the GLOBAL batch on the params' device; each worker
     takes its own slice.  Metrics are 0-d f32 tensors, equal on every
-    worker."""
+    worker.  Without `params_like` the step is built from `model.init(0,
+    device)`: on the CUDA card unless `device` names another, and it
+    raises without one."""
     _check_impls(stats_impl, params_impl)
     if variance_impl not in ("scalar", "paper"):
         raise ValueError(f"variance_impl must be 'scalar' or 'paper', got "
@@ -181,7 +184,7 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
                          "baseline) has no flat-buffer path; use "
                          "stats_impl='tree'")
     if params_like is None:
-        params_like = model.init(0, device or "cpu")
+        params_like = model.init(0, device)
     if device is None:
         device = tree_flatten(params_like)[0][0].device
     device = torch.device(device)
@@ -256,10 +259,12 @@ def make_accum_norm_step(model, opt_cfg: AdamWConfig, *,
     `opt_state` comes from `init_adamw_flat(layout=wrap.flat_layout)`; both
     are updated in place and returned.  `batch` holds tensors on the
     params' device (`batch_to_device`); `lr` is a float or 0-d tensor.
-    Metrics are 0-d f32 tensors on the device."""
+    Metrics are 0-d f32 tensors on the device.  Without `params_like` the
+    step is built from `model.init(0, device)`: on the CUDA card unless
+    `device` names another, and it raises without one."""
     _check_impls(stats_impl, params_impl)
     if params_like is None:
-        params_like = model.init(0, device or "cpu")
+        params_like = model.init(0, device)
     if device is None:
         device = tree_flatten(params_like)[0][0].device
     device = torch.device(device)

@@ -12,8 +12,8 @@ loads.  Nothing here runs at import: the CPU-only test machine has no
 There is no fallback: a missing compiler, a failed build or a failed
 launch raises.
 
-Also here: the launch geometry and the argument checks the kernels'
-wrappers share.
+Also here: the argument checks the kernels' wrappers share (the streaming
+kernels' bucket table is in `buckets.py`).
 """
 
 from __future__ import annotations
@@ -107,19 +107,6 @@ def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built first if needed (once per process)."""
     build_all([name])
     return ctypes.CDLL(str(library_path(name)))
-
-
-# ------------------------------------------------ streaming kernels ----
-
-_THREADS = 256                      # kThreads in csrc/common.cuh
-_PER_BLOCK = _THREADS * 4 * 4       # elements a block covers at full grid
-_MAX_GRID = 2048
-
-
-def grid_for(n: int) -> int:
-    """Blocks for an n-element buffer: ~4096 elements each, at most 2048
-    (about two waves of 8 resident 256-thread blocks on 132 SMs)."""
-    return max(1, min(-(-n // _PER_BLOCK), _MAX_GRID))
 
 
 def check_operands(kernel: str, device, float_args: dict, f32_args=None):

@@ -1,10 +1,9 @@
-// Pieces shared by the port's streaming kernels (fused_adamw.cu,
-// fused_stats.cu), for Hopper (sm_90a): 4-element vector loads and stores
-// of f32 or bf16, the 1-D chunking of a buffer over the grid, a block sum
-// in a fixed order, and the second pass that adds per-block partials in a
-// fixed order.  No float atomics anywhere: every sum is the same on every
-// run, which bit-exact resume and every rank proposing the same batch
-// size depend on.
+// Pieces shared by the port's kernels, for Hopper (sm_90a): 4-element
+// vector loads and stores of f32 or bf16, an alignment test and a block sum
+// in a fixed order.  No float atomics anywhere: every sum is the same on
+// every run, which bit-exact resume and every rank proposing the same
+// batch size depend on.  The multi-bucket launch of the streaming kernels
+// is in buckets.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -75,27 +74,8 @@ __device__ __forceinline__ float block_sum(float x) {
   return x;
 }
 
-// Elements a block covers: n split over the grid, rounded up to a multiple
-// of kVec so that in an aligned buffer every vector group starts on a
-// 16-byte boundary.
-inline long long chunk_for(long long n, int grid) {
-  long long chunk = (n + grid - 1) / grid;
-  return (chunk + kVec - 1) / kVec * kVec;
-}
-
 inline bool aligned(const void* ptr, size_t bytes) {
   return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
-}
-
-// The second pass: block k adds partials[k*count .. (k+1)*count) in a fixed
-// order into out[k] (one block per output sum).
-__global__ void __launch_bounds__(kThreads)
-sum_partials_kernel(const float* __restrict__ partials, int count, float* __restrict__ out) {
-  const float* mine = partials + static_cast<long long>(blockIdx.x) * count;
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < count; i += kThreads) acc += mine[i];
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) out[blockIdx.x] = acc;
 }
 
 }  // namespace

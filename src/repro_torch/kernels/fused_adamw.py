@@ -1,19 +1,22 @@
 """CUDA kernels: fused AdamW (Algorithm 1's optimizer block, DESIGN §9).
 
-* `fused_adamw_stats` replaces the TPU kernel of the same name in
-  `repro/kernels/fused_adamw.py`: AdamW over one flat buffer with the
-  global-norm clip folded in and the pre-clip Σg² as a byproduct (plain
-  version `ref.adamw_stats_ref`).
+* `fused_adamw_stats_buckets` replaces the TPU kernel `fused_adamw_stats`
+  of `repro/kernels/fused_adamw.py` over a whole flat layout: AdamW over
+  every bucket with the global-norm clip folded in and the pre-clip Σg²
+  over all of them as a byproduct, one launch per dtype group of p and g
+  (plain version: `ref.adamw_stats_ref` bucket by bucket).
+  `fused_adamw_stats` is the same call over one bucket.
 * `fused_adamw` replaces the TPU kernel `fused_adamw` there: the same
   update on one tensor of any shape, no clip, no byproduct (plain version
   `ref.adamw_ref`).
 
-Both run the one element loop of `csrc/fused_adamw.cu`, whose header gives
-the design and the bound.  The wrappers take CUDA tensors only
-(`kernels.ops` dispatches by device) and raise on anything the kernel does
-not take.  p, m and v are updated IN PLACE — the port's form of the
-reference step donating its buffers.  Each call adds one to its wrapper's
-`launches`.
+All run the kernel of `csrc/fused_adamw.cu` over a bucket table
+(`kernels.buckets`); the sources give the design and the bound.  The
+wrappers take CUDA tensors only (`kernels.ops` dispatches by device) and
+raise on anything the kernel does not take.  p, m and v are updated IN
+PLACE — the port's form of the reference step donating its buffers.  Each
+launch of a variant adds one to `fused_adamw_stats.launches` or
+`fused_adamw.launches`.
 """
 
 from __future__ import annotations
@@ -22,22 +25,22 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import check_launch, check_operands, grid_for, load
+from repro_torch.kernels import check_launch, check_operands, load
+from repro_torch.kernels.buckets import ROW, TABLES, table_for
 
 SOURCE = "fused_adamw"
+_FLOAT = (torch.float32, torch.bfloat16)
+_F32 = (torch.float32,)
 
 
 def _lib():
     lib = load(SOURCE)
     if lib.repro_fused_adamw.argtypes is None:
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        hyper = [f, f, f, f, f, f, vp]          # b1, 1-b1, b2, 1-b2, eps, wd, stream
-        lib.repro_fused_adamw_stats.argtypes = [
-            vp, i, vp, i, vp, vp, vp, vp, vp, ctypes.c_longlong, i, *hyper]
-        lib.repro_fused_adamw.argtypes = [
-            vp, i, vp, i, vp, vp, vp, ctypes.c_longlong, i, *hyper]
-        lib.repro_fused_adamw_stats.restype = ctypes.c_int
-        lib.repro_fused_adamw.restype = ctypes.c_int
+        vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        lib.repro_fused_adamw.argtypes = [vp, i, ll, i, i, i, i, vp, vp,
+                                          f, f, f, f, f, f, vp]
+        lib.repro_sum_partials.argtypes = [vp, i, i, vp, vp]
+        lib.repro_fused_adamw.restype = lib.repro_sum_partials.restype = ctypes.c_int
     return lib
 
 
@@ -49,55 +52,66 @@ def adamw_scalars(lr, c1, c2, clip_scale, device) -> torch.Tensor:
                         for x in (lr, c1, c2, clip_scale)])
 
 
-def _check(kernel, p, g, m, v, scalars):
-    check_operands(kernel, p.device, {"p": p, "g": g},
-                   {"m": m, "v": v, "scalars": scalars})
-    if not p.numel() == g.numel() == m.numel() == v.numel():
-        raise ValueError(f"{kernel}: p, g, m, v differ in size: "
-                         f"{p.numel()}, {g.numel()}, {m.numel()}, {v.numel()}")
+def _launch(kernel, pb, gb, mb, vb, scalars, stats: bool, hyper):
+    """Launch the kernel once per dtype group of the buckets; with `stats`
+    return Σg²_raw over all of them as a 0-d f32 tensor."""
+    if not len(pb) == len(gb) == len(mb) == len(vb):
+        raise ValueError(f"{kernel}: {len(pb)} p, {len(gb)} g, {len(mb)} m and "
+                         f"{len(vb)} v buffers")
+    groups, count, table = table_for(kernel, TABLES, list(zip(pb, gb, mb, vb)),
+                                     ("p", "g", "m", "v"), (_FLOAT, _FLOAT, _F32, _F32))
+    device = table.device
+    check_operands(kernel, device, {}, {"scalars": scalars})
     if scalars.numel() != 4:
         raise ValueError(f"{kernel}: scalars must hold (lr, c1, c2, clip)")
+    lib = _lib()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    partials = torch.empty(count if stats else 0, dtype=torch.float32, device=device)
+    counter = fused_adamw_stats if stats else fused_adamw
+    for grp in groups:
+        if not grp.tiles:
+            continue
+        err = lib.repro_fused_adamw(
+            table.data_ptr() + 8 * ROW * grp.first_row, len(grp.rows), grp.tiles,
+            grp.grid, int(grp.dtypes[0] == "bfloat16"), int(grp.dtypes[1] == "bfloat16"),
+            int(stats), scalars.data_ptr(),
+            partials.data_ptr() + 4 * grp.first_partial if stats else None,
+            hyper["beta1"], 1.0 - hyper["beta1"], hyper["beta2"], 1.0 - hyper["beta2"],
+            hyper["eps"], hyper["weight_decay"], stream)
+        check_launch(lib, err, kernel)
+        counter.launches += 1
+    if not stats:
+        return None
+    gsq = torch.empty((), dtype=torch.float32, device=device)
+    check_launch(lib, lib.repro_sum_partials(partials.data_ptr(), count, 1,
+                                             gsq.data_ptr(), stream), kernel)
+    return gsq
 
 
-def _hyper(beta1, beta2, eps, weight_decay, device):
-    return (beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps, weight_decay,
-            torch.cuda.current_stream(device).cuda_stream)
+def fused_adamw_stats_buckets(pb, gb, mb, vb, scalars, *, beta1: float,
+                              beta2: float, eps: float,
+                              weight_decay: float) -> torch.Tensor:
+    """In-place AdamW over every bucket (p_i, g_i, m_i, v_i) of the lists;
+    returns Σg² of the RAW gradient over all of them as a 0-d f32 tensor on
+    the device.  `scalars` is `adamw_scalars(...)`.  One launch per dtype
+    group of (p, g), plus one that adds the per-block partials."""
+    return _launch("fused_adamw_stats", pb, gb, mb, vb, scalars, True,
+                   dict(beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay))
 
 
 def fused_adamw_stats(p, g, m, v, scalars, *, beta1: float, beta2: float,
                       eps: float, weight_decay: float) -> torch.Tensor:
-    """In-place AdamW over one flat buffer; returns Σg² of the RAW gradient
-    as a 0-d f32 tensor on the device.  `scalars` is `adamw_scalars(...)`."""
-    _check("fused_adamw_stats", p, g, m, v, scalars)
-    lib = _lib()
-    n = p.numel()
-    grid = grid_for(n)
-    partials = torch.empty(grid, dtype=torch.float32, device=p.device)
-    gsq = torch.empty((), dtype=torch.float32, device=p.device)
-    err = lib.repro_fused_adamw_stats(
-        p.data_ptr(), int(p.dtype == torch.bfloat16), g.data_ptr(),
-        int(g.dtype == torch.bfloat16), m.data_ptr(), v.data_ptr(),
-        scalars.data_ptr(), partials.data_ptr(), gsq.data_ptr(), n, grid,
-        *_hyper(beta1, beta2, eps, weight_decay, p.device))
-    check_launch(lib, err, "fused_adamw_stats")
-    fused_adamw_stats.launches += 1
-    return gsq
+    """`fused_adamw_stats_buckets` over the one bucket (p, g, m, v)."""
+    return fused_adamw_stats_buckets([p], [g], [m], [v], scalars, beta1=beta1,
+                                     beta2=beta2, eps=eps, weight_decay=weight_decay)
 
 
 def fused_adamw(p, g, m, v, scalars, *, beta1: float, beta2: float,
                 eps: float, weight_decay: float):
     """In-place AdamW on one tensor (no clip: `scalars[3]` is not read);
     returns (p, m, v)."""
-    _check("fused_adamw", p, g, m, v, scalars)
-    lib = _lib()
-    n = p.numel()
-    err = lib.repro_fused_adamw(
-        p.data_ptr(), int(p.dtype == torch.bfloat16), g.data_ptr(),
-        int(g.dtype == torch.bfloat16), m.data_ptr(), v.data_ptr(),
-        scalars.data_ptr(), n, grid_for(n),
-        *_hyper(beta1, beta2, eps, weight_decay, p.device))
-    check_launch(lib, err, "fused_adamw")
-    fused_adamw.launches += 1
+    _launch("fused_adamw", [p], [g], [m], [v], scalars, False,
+            dict(beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay))
     return p, m, v
 
 

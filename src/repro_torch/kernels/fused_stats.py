@@ -2,13 +2,16 @@
 read of each operand (DESIGN §9).
 
 Replaces the TPU kernel `fused_stats` of `repro/kernels/fused_stats.py`.
-FSDP-Norm calls it once per flat bucket per step with x = g_j (the
-worker's gradient) and y = g (the mean gradient): ‖g_j − g‖² and ‖g‖².
-The source, with its design and bound, is `csrc/fused_stats.cu`; the plain
-version is `ref.fused_stats_ref`.
+FSDP-Norm calls `fused_stats_buckets` once per step over every flat
+bucket, with x_i = g_j (the worker's gradient) and y_i = g (the mean
+gradient): ‖g_j − g‖² and ‖g‖² over the whole layout, one launch per dtype
+group of (x, y).  `fused_stats` is the same call over one pair.  The
+source, with its design and bound, is `csrc/fused_stats.cu` (and the
+bucket table's, `csrc/buckets.cuh`); the plain version is
+`ref.fused_stats_ref`.
 
-The wrapper takes CUDA tensors only (`kernels.ops` dispatches by device)
-and raises on anything the kernel does not take.  Each call adds one to
+The wrappers take CUDA tensors only (`kernels.ops` dispatches by device)
+and raise on anything the kernel does not take.  Each launch adds one to
 `fused_stats.launches`.
 """
 
@@ -18,48 +21,71 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import check_launch, check_operands, grid_for, load
+from repro_torch.kernels import check_launch, load
+from repro_torch.kernels.buckets import ROW, TABLES, table_for
 
 SOURCE = "fused_stats"       # one source for fused_stats and sqdiff_norm
+_FLOAT = (torch.float32, torch.bfloat16)
 
 
 def stats_lib():
-    """The library of `csrc/fused_stats.cu`, its two entry points bound."""
+    """The library of `csrc/fused_stats.cu`, its entry points bound."""
     lib = load(SOURCE)
     if lib.repro_fused_stats.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.repro_fused_stats, lib.repro_sqdiff_norm):
-            fn.argtypes = [vp, i, vp, i, vp, vp, ctypes.c_longlong, i, vp]
-            fn.restype = ctypes.c_int
+        lib.repro_fused_stats.argtypes = [vp, i, ctypes.c_longlong, i, i, i, i,
+                                          vp, i, vp]
+        lib.repro_sum_partials.argtypes = [vp, i, i, vp, vp]
+        lib.repro_fused_stats.restype = lib.repro_sum_partials.restype = ctypes.c_int
     return lib
 
 
-def launch_stats(kernel: str, x, y, outputs: int) -> torch.Tensor:
-    """Check x and y, launch `kernel` of the stats library and return its
-    `outputs` f32 sums as a 1-D tensor on the device."""
-    check_operands(kernel, x.device, {"x": x, "y": y})
+def check_same_shape(kernel: str, x, y):
     if x.shape != y.shape:
         raise ValueError(f"{kernel}: x and y differ in shape: "
                          f"{tuple(x.shape)} vs {tuple(y.shape)}")
+
+
+def launch_stats(kernel: str, counter, xs, ys, outputs: int) -> torch.Tensor:
+    """Launch the stats kernel once per dtype group of the pairs (x_i, y_i)
+    (`outputs` 2: both sums, 1: Σ(x−y)² alone), add one to
+    `counter.launches` for each, and return the `outputs` f32 sums over
+    every pair as a 1-D tensor on the device."""
+    if len(xs) != len(ys):
+        raise ValueError(f"{kernel}: {len(xs)} x and {len(ys)} y buffers")
+    groups, count, table = table_for(kernel, TABLES, list(zip(xs, ys)), ("x", "y"),
+                                     (_FLOAT, _FLOAT))
+    device = table.device
     lib = stats_lib()
-    n = x.numel()
-    grid = grid_for(n)
-    partials = torch.empty(outputs * grid, dtype=torch.float32, device=x.device)
-    out = torch.empty(outputs, dtype=torch.float32, device=x.device)
-    err = getattr(lib, f"repro_{kernel}")(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(),
-        int(y.dtype == torch.bfloat16), partials.data_ptr(), out.data_ptr(),
-        n, grid, torch.cuda.current_stream(x.device).cuda_stream)
-    check_launch(lib, err, kernel)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    partials = torch.empty(outputs * count, dtype=torch.float32, device=device)
+    for grp in groups:
+        if not grp.tiles:
+            continue
+        err = lib.repro_fused_stats(
+            table.data_ptr() + 8 * ROW * grp.first_row, len(grp.rows), grp.tiles,
+            grp.grid, int(grp.dtypes[0] == "bfloat16"), int(grp.dtypes[1] == "bfloat16"),
+            int(outputs == 2), partials.data_ptr() + 4 * grp.first_partial, count, stream)
+        check_launch(lib, err, kernel)
+        counter.launches += 1
+    out = torch.empty(outputs, dtype=torch.float32, device=device)
+    check_launch(lib, lib.repro_sum_partials(partials.data_ptr(), count, outputs,
+                                             out.data_ptr(), stream), kernel)
     return out
 
 
-def fused_stats(x, y):
-    """(Σ(x−y)², Σy²) as two 0-d f32 tensors on the device; x and y are
-    float32 or bfloat16 (each its own) and of the same shape."""
-    out = launch_stats("fused_stats", x, y, 2)
-    fused_stats.launches += 1
+def fused_stats_buckets(xs, ys):
+    """(Σ_i Σ(x_i−y_i)², Σ_i Σy_i²) over every pair of the lists, as two 0-d
+    f32 tensors on the device; each x_i and y_i is float32 or bfloat16
+    (each its own), and the two of a pair have one element count."""
+    out = launch_stats("fused_stats", fused_stats, xs, ys, 2)
     return out[0], out[1]
+
+
+def fused_stats(x, y):
+    """`fused_stats_buckets` over the one pair (x, y), of the same shape."""
+    check_same_shape("fused_stats", x, y)
+    return fused_stats_buckets([x], [y])
 
 
 fused_stats.launches = 0

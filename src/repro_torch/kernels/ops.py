@@ -8,8 +8,11 @@ There is no environment override and no fallback: a tensor on the card
 never reaches the plain version.  The reference's per-tensor wrappers
 (`fused_stats`, `sqdiff_norm`, `fused_adamw`) and its flat hot-path ones
 (`stats_flat`, `adamw_flat`) dispatch the same way here, and so do the
-serving path's forward-only `rmsnorm` and `flash_attention`, whose kernels
-raise under grad mode on a tensor that requires grad.
+training step's calls over every bucket at once (`stats_flat_buckets`,
+`adamw_flat_buckets`: one launch per dtype group on the card, the plain
+version bucket by bucket on the CPU) and the serving path's forward-only
+`rmsnorm` and `flash_attention`, whose kernels raise under grad mode on a
+tensor that requires grad.
 """
 
 from __future__ import annotations
@@ -17,10 +20,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import fused_adamw as _fa
+from repro_torch.kernels import fused_stats as _fs
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
-from repro_torch.kernels.fused_stats import fused_stats as _fused_stats
 from repro_torch.kernels.sqdiff_norm import sqdiff_norm as _sqdiff_norm
 from repro_torch.tree import tree_leaves
 
@@ -55,13 +58,30 @@ def sqdiff_norm_tree(tree_a, tree_b):
 def fused_stats(x, y):
     """(Σ(x−y)², Σy²) in one read of each operand, as two 0-d f32 tensors."""
     if _on_card("fused_stats", x):
-        return _fused_stats(x, y)
+        return _fs.fused_stats(x, y)
     return ref.fused_stats_ref(x, y)
 
 
 # the reference's name for the flat hot-path call (one bucket of g_j and
 # g); the kernel's grid covers whatever buffer arrives
 stats_flat = fused_stats
+
+
+def stats_flat_buckets(xs, ys):
+    """(Σ_i Σ(x_i−y_i)², Σ_i Σy_i²) over every bucket pair of the lists, as
+    two 0-d f32 tensors: one `fused_stats` launch per dtype group on the
+    card; on the CPU the plain version bucket by bucket, summed in bucket
+    order."""
+    if xs and _on_card("stats_flat_buckets", xs[0]):
+        return _fs.fused_stats_buckets(xs, ys)
+    device = xs[0].device if xs else "cpu"
+    dsq = torch.zeros((), dtype=torch.float32, device=device)
+    ysq = torch.zeros((), dtype=torch.float32, device=device)
+    for x, y in zip(xs, ys):
+        d, q = ref.fused_stats_ref(x, y)
+        dsq = dsq + d
+        ysq = ysq + q
+    return dsq, ysq
 
 
 def fused_adamw(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, c1, c2):
@@ -110,6 +130,25 @@ def adamw_flat(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, c1, c2,
     return p, m, v, gsq
 
 
+def adamw_flat_buckets(pb, gb, mb, vb, *, lr, beta1, beta2, eps, weight_decay,
+                       c1, c2, clip_scale=1.0):
+    """`adamw_flat` over every bucket (p_i, g_i, m_i, v_i) of the lists, IN
+    PLACE; returns Σg²_raw over all of them as a 0-d f32 tensor.  On the
+    card one `fused_adamw_stats` launch per dtype group of (p, g); on the
+    CPU the plain version bucket by bucket, summed in bucket order."""
+    kw = dict(beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay)
+    if pb and _on_card("adamw_flat_buckets", pb[0]):
+        return _fa.fused_adamw_stats_buckets(
+            pb, gb, mb, vb, _fa.adamw_scalars(lr, c1, c2, clip_scale, pb[0].device),
+            **kw)
+    gsq = torch.zeros((), dtype=torch.float32,
+                      device=pb[0].device if pb else "cpu")
+    for p, g, m, v in zip(pb, gb, mb, vb):
+        gsq = gsq + adamw_flat(p, g, m, v, lr=lr, c1=c1, c2=c2,
+                               clip_scale=clip_scale, **kw)[3]
+    return gsq
+
+
 def rmsnorm(x, scale, eps: float = 1e-6):
     """Row-wise RMSNorm over the last axis; the result has x's dtype."""
     if _on_card("rmsnorm", x):
@@ -139,7 +178,7 @@ def flat_dispatch_info(device) -> dict:
 
 
 _COUNTED = {"fused_adamw_stats": _fa.fused_adamw_stats,
-            "fused_adamw": _fa.fused_adamw, "fused_stats": _fused_stats,
+            "fused_adamw": _fa.fused_adamw, "fused_stats": _fs.fused_stats,
             "sqdiff_norm": _sqdiff_norm, "rmsnorm": _rmsnorm,
             "flash_attention": _flash_attention}
 

@@ -6,7 +6,8 @@ dtype.
 * `adamw_update` — the tree oracle: leaf by leaf, returns new tensors
   (with `use_kernel`, one per-tensor `fused_adamw` launch a leaf, in place).
 * `adamw_update_buffers` — the flat-buffer path (DESIGN §9): one
-  `kernels.ops.adamw_flat` launch per bucket, updating params and moments
+  `kernels.ops.adamw_flat_buckets` call over every bucket (on the card one
+  `fused_adamw_stats` launch per dtype group), updating params and moments
   IN PLACE (where the reference step donates its buffers), with the
   gradient's Σg² as the kernel's byproduct.
 """
@@ -129,8 +130,8 @@ def init_adamw_flat(params, *, shard_divisor: int = 1, layout=None,
 
 def adamw_update_buffers(pb, gb, mb, vb, cfg: AdamWConfig, lr, count, *,
                          grad_sqnorm=None):
-    """The buffer-level AdamW tail: one fused launch per bucket, IN PLACE on
-    the param buffers `pb` and moment buffers `mb`, `vb`.
+    """The buffer-level AdamW tail: one fused call over every bucket, IN
+    PLACE on the param buffers `pb` and moment buffers `mb`, `vb`.
 
     If the caller already holds Σ‖g‖², pass it as `grad_sqnorm` and the clip
     norm costs zero extra passes; otherwise it comes from the kernel's
@@ -157,15 +158,12 @@ def adamw_update_buffers(pb, gb, mb, vb, cfg: AdamWConfig, lr, count, *,
              if cfg.grad_clip > 0
              else torch.ones((), dtype=torch.float32, device=device))
 
-    sums = [ops.adamw_flat(p, g, m, v, lr=lr, beta1=cfg.beta1,
-                           beta2=cfg.beta2, eps=cfg.eps,
-                           weight_decay=cfg.weight_decay, c1=c1, c2=c2,
-                           clip_scale=scale)[3]
-            for p, g, m, v in zip(pb, gb, mb, vb)]
+    gsq = ops.adamw_flat_buckets(pb, gb, mb, vb, lr=lr, beta1=cfg.beta1,
+                                 beta2=cfg.beta2, eps=cfg.eps,
+                                 weight_decay=cfg.weight_decay, c1=c1, c2=c2,
+                                 clip_scale=scale)
     if grad_sqnorm is None:   # kernel byproduct: Σg² with zero extra passes
-        grad_sqnorm = torch.zeros((), dtype=torch.float32, device=device)
-        for s in sums:
-            grad_sqnorm = grad_sqnorm + s
+        grad_sqnorm = gsq
     return pb, mb, vb, count, torch.sqrt(grad_sqnorm), grad_sqnorm
 
 

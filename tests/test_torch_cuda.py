@@ -12,7 +12,9 @@ the plain version does, so p, m and v agree to rounding of the last bit
 flash_attention sum in another order than the plain version: f32 at
 rtol 1e-5 / atol 1e-5 (rmsnorm) and 2e-5 (flash, where exp and the online
 rescaling add a few ulps); bf16 outputs to one bf16 rounding (2^-7
-relative, 1e-2 absolute).
+relative, 1e-2 absolute).  The list entry points over many buckets are
+held against the plain versions bucket by bucket at the same tolerances,
+and two calls on the same inputs must give the same bits.
 """
 
 import pytest
@@ -21,10 +23,11 @@ import torch
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.distributed.serve_step import make_decode_step, make_prefill
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.buckets import TABLES
 from repro_torch.kernels.fused_adamw import (
-    adamw_scalars, fused_adamw, fused_adamw_stats)
+    adamw_scalars, fused_adamw, fused_adamw_stats, fused_adamw_stats_buckets)
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.fused_stats import fused_stats
+from repro_torch.kernels.fused_stats import fused_stats, fused_stats_buckets
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.sqdiff_norm import sqdiff_norm
 from repro_torch.models.model import build_model
@@ -106,6 +109,89 @@ def test_cuda_fused_adamw_matches_plain_version(cuda, n, p_dtype, g_dtype):
     torch.testing.assert_close(p, want[0], **tol)
     torch.testing.assert_close(m, want[1], rtol=1e-6, atol=1e-9)
     torch.testing.assert_close(v, want[2], rtol=1e-6, atol=1e-9)
+
+
+# bucket lists: ragged sizes, an entry one element into its buffers (the
+# scalar loop) and two dtype groups (the last two entries)
+BUCKETS = [(1, 0, torch.float32), (17, 0, torch.float32), (2048, 0, torch.float32),
+           (1_000_003, 0, torch.float32), (5_767_168, 0, torch.float32),
+           (2048, 1, torch.float32), (4099, 0, torch.bfloat16),
+           (1_000_003, 0, torch.bfloat16)]
+
+
+def _views(n, offset, dtype, gen, cuda, scale=1.0):
+    x = scale * torch.randn(n + offset, device=cuda, generator=gen)
+    return x.to(dtype)[offset:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [1.0, 0.3])
+def test_cuda_adamw_buckets_match_plain_loop(cuda, clip):
+    """One list call against `ref.adamw_stats_ref` bucket by bucket: p in
+    its dtype (f32 or bf16), g f32, m and v f32; Σg² over every bucket.
+    One launch per dtype group; a second call on copies of the same inputs
+    gives the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    bufs = [[_views(n, off, dt, gen, cuda, 0.02), _views(n, off, torch.float32, gen, cuda, 1e-3),
+             _views(n, off, torch.float32, gen, cuda, 1e-4),
+             _views(n, off, torch.float32, gen, cuda, 1e-3).abs() ** 2]
+            for n, off, dt in BUCKETS]
+    copies = [[x.clone() for x in b] for b in bufs]
+    hyper = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1)
+    sc = dict(lr=torch.tensor(1e-3, device=cuda), c1=torch.tensor(0.19, device=cuda),
+              c2=torch.tensor(0.0975, device=cuda), clip_scale=torch.tensor(clip, device=cuda))
+    want = [ref.adamw_stats_ref(*b, **sc, **hyper) for b in bufs]
+    scalars = adamw_scalars(*sc.values(), cuda)
+    before = fused_adamw_stats.launches
+    gsq = fused_adamw_stats_buckets(*zip(*bufs), scalars, **hyper)
+    assert fused_adamw_stats.launches == before + 2
+    again = fused_adamw_stats_buckets(*zip(*copies), scalars, **hyper)
+    torch.cuda.synchronize()
+    assert torch.equal(gsq, again)
+    for b, c, w in zip(bufs, copies, want):
+        for got, copy, expect in zip((b[0], b[2], b[3]), (c[0], c[2], c[3]), w):
+            assert torch.equal(got, copy)
+            tol = (dict(rtol=2 ** -8, atol=1e-9) if got.dtype == torch.bfloat16
+                   else dict(rtol=1e-6, atol=1e-9))
+            torch.testing.assert_close(got, expect, **tol)
+    torch.testing.assert_close(gsq, sum(w[3] for w in want), rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_stats_buckets_match_plain_loop(cuda):
+    """One list call against `ref.fused_stats_ref` bucket by bucket, x and y
+    f32, or bf16 and f32 (two dtype groups); one launch per group; repeated
+    calls give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    xs = [_views(n, off, dt, gen, cuda) for n, off, dt in BUCKETS]
+    ys = [_views(n, off, torch.float32, gen, cuda) for n, off, _ in BUCKETS]
+    before = fused_stats.launches
+    dsq, ysq = fused_stats_buckets(xs, ys)
+    assert fused_stats.launches == before + 2
+    dsq2, ysq2 = fused_stats_buckets(xs, ys)
+    torch.cuda.synchronize()
+    assert torch.equal(dsq, dsq2) and torch.equal(ysq, ysq2)
+    want = [ref.fused_stats_ref(x, y) for x, y in zip(xs, ys)]
+    torch.testing.assert_close(dsq, sum(w[0] for w in want), rtol=1e-5, atol=0)
+    torch.testing.assert_close(ysq, sum(w[1] for w in want), rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_bucket_table_is_cached_by_buffer(cuda):
+    """The second call on the same buffers finds its table on the card; a
+    changed buffer builds a new one, and the result follows the buffer."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    xs = [_views(n, 0, torch.float32, gen, cuda) for n in (17, 4096, 70_000)]
+    ys = [_views(n, 0, torch.float32, gen, cuda) for n in (17, 4096, 70_000)]
+    fused_stats_buckets(xs, ys)
+    builds, hits = TABLES.builds, TABLES.hits
+    fused_stats_buckets(xs, ys)
+    assert (TABLES.builds, TABLES.hits) == (builds, hits + 1)
+    ys[1] = 2 * ys[1]
+    dsq, ysq = fused_stats_buckets(xs, ys)
+    assert TABLES.builds == builds + 1
+    want = [ref.fused_stats_ref(x, y) for x, y in zip(xs, ys)]
+    torch.testing.assert_close(ysq, sum(w[1] for w in want), rtol=1e-5, atol=0)
 
 
 BF16_TOL = dict(rtol=2 ** -7, atol=1e-2)

@@ -16,7 +16,8 @@ import jax.numpy as jnp
 from test_torch_helpers import np32, rng, to_jax, to_torch
 
 from repro.kernels import ops as jops, ref as jref
-from repro_torch.kernels import grid_for, ops, ref
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.buckets import GRID, plan
 from repro_torch.tree import tree_leaves
 from repro_torch.kernels.fused_adamw import (
     adamw_scalars, fused_adamw, fused_adamw_stats)
@@ -286,8 +287,13 @@ def test_fused_adamw_tree_cpu_matches_pallas_interpret(dt):
 
 
 def test_grid_and_scalars():
-    assert [grid_for(n) for n in (0, 1, 4096, 4097, 1 << 20, 32_768_000)] == \
-        [1, 1, 1, 2, 256, 2048]
+    """A one-bucket launch: ceil(n / 4096) tiles on min(GRID, tiles) blocks,
+    one partial a block."""
+    sizes = (0, 1, 4096, 4097, 1 << 20, 32_768_000)
+    launches = [plan([(n, ((0, 4, "float32"),))]) for n in sizes]
+    assert [g[0].tiles for g, _ in launches] == [0, 1, 1, 2, 256, 8000]
+    assert [g[0].grid for g, _ in launches] == [0, 1, 1, 2, 256, GRID] == \
+        [count for _, count in launches]
     s = adamw_scalars(torch.tensor(1e-3), 0.1, torch.tensor(0.05), 1.0, "cpu")
     assert s.dtype == torch.float32 and s.shape == (4,)
     np.testing.assert_array_equal(s.numpy(), np.float32([1e-3, 0.1, 0.05, 1.0]))

@@ -53,8 +53,8 @@ __device__ __forceinline__ void adamw_one(float& p, float g, float& m, float& v,
 
 // kStats: fold the clip scale into g and write this block's partial of
 // sum(g_raw^2) to partials[blockIdx.x]; otherwise the plain update.
-template <typename P, typename G, bool kStats, int kMinBlocks>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <typename P, typename G, bool kStats>
+__global__ void __launch_bounds__(kThreads)
 adamw_kernel(const Bucket* __restrict__ table, int rows, long long tiles,
              const float* __restrict__ scalars, float* __restrict__ partials, Hyper h) {
   const float lr = scalars[0], c1 = scalars[1], c2 = scalars[2];
@@ -118,175 +118,25 @@ adamw_kernel(const Bucket* __restrict__ table, int rows, long long tiles,
   }
 }
 
-// ---- experiment: a 1-D TMA bulk-copy ring (cp.async.bulk global->shared
-// with an mbarrier a stage) in place of the vector loads.
-constexpr int kStages = 2;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
-}
-
-// Elements of a tile that the bulk copies move: a multiple of 8, so that
-// every operand's bytes are a multiple of 16.
-__device__ __forceinline__ int bulk_elems(const Bucket& b, int len) {
-  return b.aligned ? (len & ~7) : 0;
-}
-
-template <typename P, typename G>
-__device__ __forceinline__ void issue_tile(const Bucket* table, int rows, long long t,
-                                           int& cur, unsigned char* stage, uint64_t* bar) {
-  const TileAt at = tile_at(table, rows, t, cur);
-  cur = at.row;
-  const Bucket& b = table[cur];
-  const int n = bulk_elems(b, at.len);
-  mbar_expect_tx(bar, static_cast<uint32_t>(n) * (sizeof(P) + sizeof(G) + 8));
-  if (n) {
-    bulk_load(stage, reinterpret_cast<const P*>(b.ptr[0]) + at.start, n * sizeof(P), bar);
-    bulk_load(stage + kTile * sizeof(P), reinterpret_cast<const G*>(b.ptr[1]) + at.start,
-              n * sizeof(G), bar);
-    bulk_load(stage + kTile * (sizeof(P) + sizeof(G)),
-              reinterpret_cast<const float*>(b.ptr[2]) + at.start, n * 4, bar);
-    bulk_load(stage + kTile * (sizeof(P) + sizeof(G) + 4),
-              reinterpret_cast<const float*>(b.ptr[3]) + at.start, n * 4, bar);
-  }
-}
-
-template <typename P, typename G, bool kStats>
-__global__ void __launch_bounds__(kThreads)
-adamw_tma_kernel(const Bucket* __restrict__ table, int rows, long long tiles,
-                 const float* __restrict__ scalars, float* __restrict__ partials, Hyper h) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[kStages];
-  constexpr int kStageBytes = kTile * (sizeof(P) + sizeof(G) + 8);
-  const float lr = scalars[0], c1 = scalars[1], c2 = scalars[2];
-  const float clip = kStats ? scalars[3] : 1.0f;
-  const long long mine =
-      tiles > blockIdx.x ? (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
-  int pcur = 0;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(&bars[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (int s = 0; s < kStages && s < mine; ++s)
-      issue_tile<P, G>(table, rows, blockIdx.x + s * static_cast<long long>(gridDim.x), pcur,
-                       smem + s * kStageBytes, &bars[s]);
-  }
-  __syncthreads();
-  float acc = 0.0f;
-  int cur = 0;
-  for (long long i = 0; i < mine; ++i) {
-    const long long t = blockIdx.x + i * gridDim.x;
-    const TileAt at = tile_at(table, rows, t, cur);
-    cur = at.row;
-    const Bucket& b = table[cur];
-    const int s = static_cast<int>(i % kStages);
-    mbar_wait(&bars[s], static_cast<uint32_t>((i / kStages) & 1));
-    const unsigned char* st = smem + s * kStageBytes;
-    const P* ps = reinterpret_cast<const P*>(st);
-    const G* gs = reinterpret_cast<const G*>(st + kTile * sizeof(P));
-    const float* ms = reinterpret_cast<const float*>(st + kTile * (sizeof(P) + sizeof(G)));
-    const float* vs = ms + kTile;
-    P* p = reinterpret_cast<P*>(b.ptr[0]) + at.start;
-    const G* g = reinterpret_cast<const G*>(b.ptr[1]) + at.start;
-    float* m = reinterpret_cast<float*>(b.ptr[2]) + at.start;
-    float* v = reinterpret_cast<float*>(b.ptr[3]) + at.start;
-    const int n = bulk_elems(b, at.len);
-    for (int k = threadIdx.x * kVec; k < n; k += kThreads * kVec) {
-      float pf[kVec], gf[kVec], mf[kVec], vf[kVec];
-      load4(ps + k, pf);
-      load4(gs + k, gf);
-      load4(ms + k, mf);
-      load4(vs + k, vf);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        if (kStats) acc += gf[j] * gf[j];
-        adamw_one(pf[j], kStats ? gf[j] * clip : gf[j], mf[j], vf[j], lr, c1, c2, h);
-      }
-      store4(p + k, pf);
-      store4(m + k, mf);
-      store4(v + k, vf);
-    }
-    for (int k = n + threadIdx.x; k < at.len; k += kThreads) {
-      float pf = to_f32(p[k]), gf = to_f32(g[k]), mf = m[k], vf = v[k];
-      if (kStats) acc += gf * gf;
-      adamw_one(pf, kStats ? gf * clip : gf, mf, vf, lr, c1, c2, h);
-      p[k] = from_f32<P>(pf);
-      m[k] = mf;
-      v[k] = vf;
-    }
-    __syncthreads();             // every thread is done with stage s
-    if (threadIdx.x == 0 && i + kStages < mine) {
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      issue_tile<P, G>(table, rows, t + kStages * static_cast<long long>(gridDim.x), pcur,
-                       smem + s * kStageBytes, &bars[s]);
-    }
-  }
-  if (kStats) {
-    acc = block_sum(acc);
-    if (threadIdx.x == 0) partials[blockIdx.x] = acc;
-  }
-}
-
-template <typename P, typename G, bool kStats>
-cudaError_t launch_variant(int variant, int grid, cudaStream_t s, const Bucket* tb, int rows,
-                           long long tiles, const float* sc, float* part, const Hyper& h) {
-  if (variant == 2) {
-    constexpr int bytes = kStages * kTile * (sizeof(P) + sizeof(G) + 8);
-    cudaError_t err = cudaFuncSetAttribute(adamw_tma_kernel<P, G, kStats>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    adamw_tma_kernel<P, G, kStats><<<grid, kThreads, bytes, s>>>(tb, rows, tiles, sc, part, h);
-  } else if (variant == 1) {
-    adamw_kernel<P, G, kStats, 4><<<grid, kThreads, 0, s>>>(tb, rows, tiles, sc, part, h);
-  } else {
-    adamw_kernel<P, G, kStats, 1><<<grid, kThreads, 0, s>>>(tb, rows, tiles, sc, part, h);
-  }
-  return cudaGetLastError();
-}
-
 template <bool kStats>
 int launch_any(const void* table, int rows, long long tiles, int grid, int p_bf16,
                int g_bf16, const void* scalars, void* partials, const Hyper& h,
-               void* stream, int variant) {
+               void* stream) {
   if (rows < 1 || tiles < 1 || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Bucket* tb = static_cast<const Bucket*>(table);
   const float* sc = static_cast<const float*>(scalars);
   float* part = static_cast<float*>(partials);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
-  cudaError_t err;
   if (p_bf16 && g_bf16)
-    err = launch_variant<bf16, bf16, kStats>(variant, grid, s, tb, rows, tiles, sc, part, h);
+    adamw_kernel<bf16, bf16, kStats><<<grid, kThreads, 0, s>>>(tb, rows, tiles, sc, part, h);
   else if (p_bf16)
-    err = launch_variant<bf16, float, kStats>(variant, grid, s, tb, rows, tiles, sc, part, h);
+    adamw_kernel<bf16, float, kStats><<<grid, kThreads, 0, s>>>(tb, rows, tiles, sc, part, h);
   else if (g_bf16)
-    err = launch_variant<float, bf16, kStats>(variant, grid, s, tb, rows, tiles, sc, part, h);
+    adamw_kernel<float, bf16, kStats><<<grid, kThreads, 0, s>>>(tb, rows, tiles, sc, part, h);
   else
-    err = launch_variant<float, float, kStats>(variant, grid, s, tb, rows, tiles, sc, part, h);
-  return static_cast<int>(err);
+    adamw_kernel<float, float, kStats><<<grid, kThreads, 0, s>>>(tb, rows, tiles, sc, part, h);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -302,12 +152,12 @@ int repro_fused_adamw(const void* table, int rows, long long tiles, int grid, in
                       int g_bf16, int stats, const void* scalars, void* partials,
                       float beta1, float one_minus_beta1, float beta2,
                       float one_minus_beta2, float eps, float weight_decay,
-                      void* stream, int variant) {
+                      void* stream) {
   const Hyper h{beta1, one_minus_beta1, beta2, one_minus_beta2, eps, weight_decay};
   return stats ? launch_any<true>(table, rows, tiles, grid, p_bf16, g_bf16, scalars,
-                                  partials, h, stream, variant)
+                                  partials, h, stream)
                : launch_any<false>(table, rows, tiles, grid, p_bf16, g_bf16, scalars,
-                                   partials, h, stream, variant);
+                                   partials, h, stream);
 }
 
 }  // extern "C"

@@ -38,15 +38,10 @@ def _lib():
     if lib.repro_fused_adamw.argtypes is None:
         vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.repro_fused_adamw.argtypes = [vp, i, ll, i, i, i, i, vp, vp,
-                                          f, f, f, f, f, f, vp, i]
+                                          f, f, f, f, f, f, vp]
         lib.repro_sum_partials.argtypes = [vp, i, i, vp, vp]
         lib.repro_fused_adamw.restype = lib.repro_sum_partials.restype = ctypes.c_int
     return lib
-
-
-# experiment only: the loop variant (0 vector, 1 vector with 4 blocks an
-# SM, 2 TMA ring) and a grid override
-EXPERIMENT = {"variant": 0, "grid": None}
 
 
 def adamw_scalars(lr, c1, c2, clip_scale, device) -> torch.Tensor:
@@ -71,20 +66,18 @@ def _launch(kernel, pb, gb, mb, vb, scalars, stats: bool, hyper):
         raise ValueError(f"{kernel}: scalars must hold (lr, c1, c2, clip)")
     lib = _lib()
     stream = torch.cuda.current_stream(device).cuda_stream
-    grid_of = (lambda grp: grp.grid) if EXPERIMENT["grid"] is None else (
-        lambda grp: min(EXPERIMENT["grid"], grp.tiles))
-    partials = torch.zeros(count if stats else 0, dtype=torch.float32, device=device)
+    partials = torch.empty(count if stats else 0, dtype=torch.float32, device=device)
     counter = fused_adamw_stats if stats else fused_adamw
     for grp in groups:
         if not grp.tiles:
             continue
         err = lib.repro_fused_adamw(
             table.data_ptr() + 8 * ROW * grp.first_row, len(grp.rows), grp.tiles,
-            grid_of(grp), int(grp.dtypes[0] == "bfloat16"), int(grp.dtypes[1] == "bfloat16"),
+            grp.grid, int(grp.dtypes[0] == "bfloat16"), int(grp.dtypes[1] == "bfloat16"),
             int(stats), scalars.data_ptr(),
             partials.data_ptr() + 4 * grp.first_partial if stats else None,
             hyper["beta1"], 1.0 - hyper["beta1"], hyper["beta2"], 1.0 - hyper["beta2"],
-            hyper["eps"], hyper["weight_decay"], stream, EXPERIMENT["variant"])
+            hyper["eps"], hyper["weight_decay"], stream)
         check_launch(lib, err, kernel)
         counter.launches += 1
     if not stats:

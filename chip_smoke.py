@@ -76,7 +76,7 @@ exit (nothing is caught):
               rmsnorm and flash_attention prefill's shapes), timed with
               CUDA events, beside the least time the card could take;
               `fused_adamw_stats` and `fused_stats` as one list call and in
-              PR 13's pattern of one call a bucket, in turns with the
+              the earlier pattern of one call a bucket, in turns with the
               library call; the list calls, rmsnorm and flash_attention
               also held against their plain versions there.  Then the
               step's tail (`worker_variance_stats_buffers` and the sharded
@@ -381,11 +381,11 @@ def time_tail(dev, sizes):
     layout: the statistic over the full g_j and g buckets
     (`worker_variance_stats_buffers`), then the AdamW update of the
     worker's shards (`_sharded_buffer_update`), at J = 1 and on rank 1's
-    1/2 shards of J = 2 (one process: no collective).  PR 13's calling
-    pattern (one call a bucket, as the step made them) and this tree's
-    (one call over every bucket) run in turns; host clock around work
-    that ends in `synchronize()`, and the host's own time until the calls
-    return."""
+    1/2 shards of J = 2 (one process: no collective).  The earlier calling
+    pattern (one call a bucket, as the step made them before the list
+    calls) and the step's own (one call over every bucket) run in turns;
+    host clock around work that ends in `synchronize()`, and the host's
+    own time until the calls return."""
     from repro_torch.core.norm_test import worker_variance_stats_buffers
     from repro_torch.distributed.sharding import shard_bucket
     from repro_torch.distributed.train_step import _sharded_buffer_update
@@ -874,7 +874,7 @@ def main() -> int:
             del x, y
     # the list entry points, also over rank 1's shards of microllama's
     # J = 2 layout (only shapes are read from the parameters)
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.distributed.flatbuf import FlatLayout
     from repro_torch.models.model import build_model
     shard_layout = FlatLayout.from_tree(
@@ -885,12 +885,10 @@ def main() -> int:
     check_dense_configs(ops, dev)
 
     # 4. the card's step against the CPU's on a small model -------------------
-    from repro_torch.configs import get_smoke_config
     from repro_torch.core.schedule import BatchPlan
     from repro_torch.data.pipeline import MarkovTokens, make_batch
     from repro_torch.distributed.train_step import batch_to_device, make_accum_norm_step
     from repro_torch.launch.mesh import spawn_workers
-    from repro_torch.models.model import build_model
     from repro_torch.optim.adamw import AdamWConfig, init_adamw_flat
     from repro_torch.tree import tree_map
 
@@ -958,7 +956,6 @@ def main() -> int:
     serve_ref(smi)
 
     # 6. slice 1's path: ACCUM-NORM, full-width microllama-300m ----------------
-    from repro_torch.distributed.flatbuf import FlatLayout
     from repro_torch.launch.train import TrainJob, run_training
 
     def check_train(job, hist):
@@ -1128,7 +1125,7 @@ def main() -> int:
     timed = {}
     for k, (per_bucket, plain_tail) in tails.items():
         nbytes, flops = per_elem[k]
-        # the redesigned kernels: the one list call (ms) against PR 13's
+        # the redesigned kernels: the one list call (ms) against the earlier
         # calling pattern, one call a bucket (per_bucket_ms), and the
         # library, in turns; the others run one call a tensor on their path
         fns = {"ms": lists.get(k, per_bucket), "library_ms": library[k]}

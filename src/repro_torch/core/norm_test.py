@@ -85,7 +85,7 @@ def worker_variance_stats_buffers(local_buffers, mean_buffers):
     group).  Shard padding is zero in every gradient buffer and adds
     nothing to either sum.  Returns (var_l1, grad_sqnorm)."""
     from repro_torch.kernels import ops
-    local_sq, gsq = ops.stats_flat_buckets(list(local_buffers), list(mean_buffers))
+    local_sq, gsq = ops.stats_flat_buckets(local_buffers, mean_buffers)
     return pmean(local_sq), gsq
 
 

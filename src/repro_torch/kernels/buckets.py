@@ -34,7 +34,6 @@ class Group:
     """The buckets of one launch: those whose operands share one dtype
     tuple, in the caller's order."""
     dtypes: tuple          # each operand's dtype name, e.g. ("float32", "float32")
-    index: tuple           # each row's bucket, as a position in the caller's list
     rows: tuple            # the table rows (ROW ints each)
     tiles: int             # tiles of the launch
     grid: int              # blocks of the launch: min(GRID, tiles)
@@ -64,8 +63,8 @@ def plan(entries) -> tuple[list, int]:
                          int(aligned), 0))
             tiles += -(-n // TILE)
         grid = min(GRID, tiles)
-        groups.append(Group(dtypes, tuple(index), tuple(rows), tiles, grid,
-                            first_row, first_partial))
+        groups.append(Group(dtypes, tuple(rows), tiles, grid, first_row,
+                            first_partial))
         first_row += len(rows)
         first_partial += grid
     return groups, first_partial

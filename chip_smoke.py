@@ -83,8 +83,10 @@ exit (nothing is caught):
               AdamW update) in both calling patterns, host clock, at J = 1
               and on the J = 2 shards.
 
-Then one JSON line describing the kernels, the nvidia-smi line, and the
-final line {"ok": true, "device": {...}}.  Without a CUDA device, or
+Every process the run started (nvcc, the ranks and the resource tracker
+that spawning them starts) must have ended by then; a child still there
+fails the run.  Then one JSON line describing the kernels, the nvidia-smi
+line, and the final line {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the rest of the repository beside it, it fails before printing any
 result.
 """
@@ -773,6 +775,20 @@ def time_serving_kernels(dev, bw):
     return out
 
 
+def child_processes() -> dict:
+    """{pid: command line} of this process's children that have not been
+    reaped, those of every thread."""
+    out = {}
+    for f in Path("/proc/self/task").glob("*/children"):
+        for pid in f.read_text().split():
+            try:
+                cmd = Path(f"/proc/{pid}/cmdline").read_bytes()
+            except OSError:
+                cmd = b"?"
+            out[pid] = cmd.replace(b"\0", b" ").decode(errors="replace").strip()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1175,6 +1191,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     say("time-tail", nvidia_smi=smi, **time_tail(dev, sizes))
+    left = child_processes()
+    if left:
+        raise AssertionError(f"processes the run started are still there: {left}")
 
     sources = {"fused_adamw_stats": "fused_adamw.cu", "fused_adamw": "fused_adamw.cu",
                "fused_stats": "fused_stats.cu", "sqdiff_norm": "fused_stats.cu",

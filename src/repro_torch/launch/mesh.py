@@ -22,6 +22,7 @@ import shutil
 import tempfile
 import time
 import traceback
+from multiprocessing import resource_tracker
 from multiprocessing.connection import wait
 from pathlib import Path
 
@@ -121,8 +122,13 @@ def spawn_workers(fn, world: int, *args, backend: str = "gloo",
     fresh temporary directory (no port, so concurrent runs never collide)
     and share the host's CPU threads.  If a rank fails, the others are
     stopped and its traceback is raised; past `timeout_s` seconds every
-    rank is stopped and TimeoutError raised."""
+    rank is stopped and TimeoutError raised.  Every process it starts has
+    ended when it returns, the ranks and the resource tracker that the
+    spawn start method starts beside them (unless one ran before the call):
+    the tracker outlives an exiting parent otherwise."""
     deadline = None if timeout_s is None else time.monotonic() + timeout_s
+    tracker = resource_tracker._resource_tracker
+    own_tracker = tracker._fd is None
     rundir = tempfile.mkdtemp(prefix="repro_torch_ranks_")
     ctx = mp.get_context("spawn")
     threads = max(1, torch.get_num_threads() // world)
@@ -156,4 +162,6 @@ def spawn_workers(fn, world: int, *args, backend: str = "gloo",
                 p.kill()
             if p.pid is not None:
                 p.join()
+        if own_tracker:
+            tracker._stop()          # closes its pipe, then waits for it
         shutil.rmtree(rundir, ignore_errors=True)

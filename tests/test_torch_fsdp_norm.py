@@ -281,6 +281,33 @@ def test_spawn_stops_every_rank_when_one_fails():
         mesh.spawn_workers(time.sleep, 2, 60, timeout_s=1.0)
 
 
+_NO_PROCESS_LEFT = """
+from pathlib import Path
+from repro_torch.launch import mesh
+
+def children():
+    return [pid for f in Path("/proc/self/task").glob("*/children")
+            for pid in f.read_text().split()]
+
+assert mesh.spawn_workers(mesh.worker_index, 2) == 0
+print("after success", children())
+try:
+    mesh.spawn_workers(mesh.rank_device, 2, "no-such-device", 0)
+except RuntimeError as e:
+    assert "worker ranks failed" in str(e)
+print("after failure", children())
+"""
+
+
+def test_spawn_leaves_no_process_behind():
+    """In a fresh process, every process `spawn_workers` starts has ended
+    when it returns, on success and on failure: the ranks and the resource
+    tracker that the spawn start method starts beside them (which would
+    otherwise outlive the parent)."""
+    out = run_subprocess(_NO_PROCESS_LEFT)
+    assert out.splitlines() == ["after success []", "after failure []"]
+
+
 def test_nccl_refuses_more_ranks_than_cards(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="card per rank"):

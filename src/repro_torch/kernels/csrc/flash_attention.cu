@@ -1,14 +1,14 @@
-// Forward attention with an online softmax for Hopper (sm_90a):
+// Forward attention with an online softmax on Hopper's tensor cores (sm_90a):
 //
 //     out[b, i, h, :] = sum_j softmax_j(mask(cap(q_i . k_j / sqrt(d)))) v_j
 //
 // Replaces the TPU kernel `flash_attention` in
-// src/repro/kernels/flash_attention.py (its pl.pallas_call at line 123).
-// q is (b, t, h, d); k and v are (b, s, kvh, d) with h % kvh == 0, all f32
-// or all bf16, each with its own strides (the last dimension contiguous);
-// out is a contiguous (b, t, h, d) of q's type; any head dim 1 <= d <= 128
-// (the dense configs use 64 and openllama-3b's 100).  Every product and sum is
-// f32.  The semantics are the TPU kernel's:
+// src/repro/kernels/flash_attention.py:88 (its pl.pallas_call at line 123,
+// body `_kernel` at line 32).  q is (b, t, h, d); k and v are (b, s, kvh, d)
+// with h % kvh == 0, all f32 or all bf16, each with its own strides (the
+// last dimension contiguous); out is a contiguous (b, t, h, d) of q's type;
+// any head dim 1 <= d <= 128 (the dense configs use 64 and openllama-3b's
+// 100).  The semantics are the TPU kernel's:
 //   * causal masks are aligned top-left: key j is visible to query i when
 //     j <= i, both counted from 0, whatever t and s are;
 //   * `window` > 0 also hides keys j <= i - window; `softcap` > 0 maps a
@@ -26,43 +26,91 @@
 // weights over all s keys, i.e. the mean of v.  (The TPU kernel's answer
 // there depends on its block size.)
 //
-// Bound: f32 operations.  The two products take 4*b*h*t*s*d flops (half of
-// it with a causal mask) against (q + k + v + out) bytes once; at d = 64 and
-// t = s = 2048 that is ~1000 flops a byte, far above the card's ~20 f32
-// flops per byte.  The design, simple and exact first (no tensor cores,
-// TMA or wgmma yet):
-//   * one block of 256 threads per (b*h, 64-row q tile), the q tiles with
-//     the most causal work scheduled first;
-//   * the q tile and one 64-key K and V tile at a time staged in shared
-//     memory as f32, the head dim zero-filled up to DP, the next multiple
-//     of 16 (the zeros add exact zeros to both products), rows padded by
-//     4 more floats against bank conflicts;
-//   * thread (r, c), r = tid / 4, c = tid % 4, owns query row r: the 16
-//     logits of keys c, c+4, ..., c+60 and the output columns
-//     4c + 16j .. 4c + 16j + 3 (those < d are stored); the running max,
-//     denominator and the
-//     accumulator live in registers, the row max and sum are reduced over
-//     the 4 threads of a row with shuffles;
-//   * explicit fmaf for both products (the library is built with
-//     -fmad=false for the optimizers' sake);
-//   * the t and s tails are masked in the tile loads and the logits; no
-//     padding, no copy.
+// Bounds (prefill: b 4, t = s = 2048, 32 q / 8 kv heads, d 64, causal, f32):
+// the two products take 4*b*h*d*t(t+1)/2 = 68.7 GFLOP against 8.4 MB of q,
+// k, v and out, ~8000 flops a byte, so operations bound it: 1.03 ms at the
+// 67 TFLOP/s of f32 on CUDA cores, 0.42 ms for three TF32 products at the
+// 495 TFLOP/s of dense TF32 on the tensor cores.
+//
+// Design:
+//   * Both products run on the tensor cores with mma.sync, S and P in
+//     registers (no P tile in shared memory).  One warp owns 16 query rows;
+//     a block owns BQ rows (BQ / 16 warps) of one (batch, head) and walks
+//     the kv tiles of 64 keys that its rows can see, the q tiles with the
+//     most causal work scheduled first.  The softmax statistics (m, l), the
+//     rescaling and the output accumulator stay f32 in registers.
+//   * f32: split TF32 ("3xTF32").  Plain TF32 keeps 10 mantissa bits
+//     (~5e-4 relative per operand), which cannot hold the 2e-5 that f32
+//     outputs are held to.  Each operand is split as x = hi + lo, hi =
+//     cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), and each product is
+//     lo*hi + hi*lo + hi*hi (m16n8k8, f32 accumulation, the small terms
+//     first); the dropped lo*lo and the rounding of lo leave ~2^-22
+//     relative per product, f32's order.  Q is split once per block into
+//     hi and lo tiles in shared memory.  K and V are split in registers as
+//     each warp loads its fragments, at every head dim: hi and lo of K and V
+//     in two ring stages would take 139 KB at d 64 on top of Q's, leaving
+//     one block of few warps an SM, and 270 KB at d 128, more than a block
+//     may have.  The split costs three ALU instructions a fragment element.
+//   * bf16: one m16n8k16 bf16 MMA with f32 accumulation for Q.K^T; P is
+//     rounded to bf16 for P.V, as FlashAttention does (the denominator l
+//     sums the f32 P); V's fragments come from ldmatrix.trans.
+//   * The S -> P layout.  For m16n8k8 TF32 a thread holds S at keys 2c,
+//     2c+1 of each 8-key group (c = lane % 4), but P as the A operand of
+//     the next product must sit at keys c and c+4.  Instead of a shuffle,
+//     the kernel relabels the keys: A's column c is key 2c and column c+4 is
+//     key 2c+1, and the thread reads V's rows in the same order (B's row c
+//     from key 2c, row c+4 from key 2c+1).  The sum over keys does not care
+//     about their order.  For m16n8k16 bf16 the accumulator of two
+//     neighbouring 8-key groups already is the A layout.
+//   * K/V ring: two stages of 64-key K and V tiles in shared memory, filled
+//     with cp.async, so tile k+1 lands while tile k is multiplied; one
+//     barrier a tile.  The copy width is decided per launch from the
+//     pointers and strides: 16 bytes when every row starts on 16 bytes,
+//     else 4; bf16 rows that start on an odd element (an odd stride) are
+//     copied by plain loads.  Rows past t or s and columns past d land as
+//     zeros (cp.async's zero fill), so the t and s tails are masked, not
+//     padded, and the head dim runs to DP, the next multiple of 16, with
+//     exact zeros in both products.
+//   * Masks are applied only on tiles that cross the diagonal, the window
+//     edge or the end of s; the others take the scale and the cap alone.
+//
+// Tile sizes: f32 with DP <= 64 and bf16 take BQ = 128 (8 warps), f32 with
+// DP > 64 BQ = 64 (4 warps), so that Q's hi and lo and the ring fit one
+// block's shared memory (139 KB at d 64, 203 KB at d 128).
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;          // q rows a block
 constexpr int kBK = 64;          // keys a tile
-constexpr int kFT = 256;         // threads a block: 4 per q row
-constexpr int kPad = 4;          // floats of padding per shared row
-constexpr float kNegInf = -2.0e38f;
-
 constexpr int kMaxD = 128;       // largest head dim
-
-template <int DP>
-constexpr int smem_bytes() {
-  return (3 * kBQ * (DP + kPad) + kBQ * (kBK + kPad)) * static_cast<int>(sizeof(float));
+constexpr float kNegInf = -2.0e38f;
+#ifndef FLASH_BQ
+#define FLASH_BQ 128
+#endif
+#ifndef FLASH_MIN_BLOCKS
+#define FLASH_MIN_BLOCKS 1
+#endif
+#ifndef FLASH_INT_ROUND
+#define FLASH_INT_ROUND 0
+#endif
+#ifndef FLASH_ONE_PRODUCT
+#define FLASH_ONE_PRODUCT 0
+#endif
+#ifndef FLASH_PROBE
+#define FLASH_PROBE 0
+#endif
+#ifndef FLASH_FAST_EXP
+#define FLASH_FAST_EXP 0
+#endif
+__device__ __forceinline__ float exp_(float x) {
+#if FLASH_PROBE == 1
+  return x;
+#elif FLASH_FAST_EXP
+  return __expf(x);
+#else
+  return expf(x);
+#endif
 }
 
 struct Args {
@@ -73,178 +121,374 @@ struct Args {
   long long v_sb, v_ss, v_sh;
   float scale, softcap;
   int causal, window;
+  int vec;                       // bytes a copy: 16, 4, or 2 (plain loads)
 };
 
-// rows [first, first + 64) of src into dst (row stride DP + kPad): the
-// columns past d and the rows past `limit` as zeros
-template <int DP, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long row_stride,
-                                          int first, int limit, int d) {
-  for (int idx = threadIdx.x; idx < kBK * DP; idx += kFT) {
-    const int row = idx / DP, col = idx - row * DP;
+// shared row stride in elements: rows 16 bytes apart modulo 32 words, so
+// the fragment loads of 8 rows by 4 columns hit 32 different banks
+template <typename T> __host__ __device__ constexpr int row_stride(int dp) {
+  return sizeof(T) == 4 ? dp + 4 : dp + 8;
+}
+
+template <typename T> __host__ __device__ constexpr int q_rows(int dp) {
+  return sizeof(T) == 4 && dp > 64 ? 64 : FLASH_BQ;
+}
+
+template <typename T, int DP>
+constexpr int smem_bytes() {
+  constexpr int ld = row_stride<T>(DP);
+  constexpr int q_tiles = sizeof(T) == 4 ? 2 : 1;     // f32: hi and lo
+  return (q_tiles * q_rows<T>(DP) + 4 * kBK) * ld * static_cast<int>(sizeof(T));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows [first, first + nrows) of src into dst (row stride LD): columns
+// d..DP-1 and rows at or past `limit` land as zeros.  VEC bytes a copy; 2
+// means plain loads (bf16 rows that start on an odd element).
+template <typename T, int DP, int LD, int NT, int VEC>
+__device__ __forceinline__ void load_rows_v(T* dst, const T* src, long long stride, int first,
+                                            int limit, int d, int nrows) {
+  constexpr int E = static_cast<int>(sizeof(T));
+  constexpr int PER = VEC / E > 0 ? VEC / E : 1;     // elements a copy
+  constexpr int CHUNKS = DP / PER;
+  for (int idx = threadIdx.x; idx < nrows * CHUNKS; idx += NT) {
+    const int row = idx / CHUNKS, col = (idx - row * CHUNKS) * PER;
     const int g = first + row;
-    dst[row * (DP + kPad) + col] =
-        g < limit && col < d ? to_f32(src[static_cast<long long>(g) * row_stride + col])
-                             : 0.0f;
+    if constexpr (VEC == 2) {
+      dst[row * LD + col] = g < limit && col < d ? src[g * stride + col] : from_f32<T>(0.0f);
+    } else {
+      const int left = (d - col) * E;
+      const int bytes = g < limit && left > 0 ? min(left, VEC) : 0;
+      const T* from = bytes > 0 ? src + g * stride + col : src;
+      if constexpr (VEC == 16) cp_async16(dst + row * LD + col, from, bytes);
+      else cp_async4(dst + row * LD + col, from, bytes);
+    }
   }
 }
 
-__device__ __forceinline__ float row_max4(float x) {
+template <typename T, int DP, int LD, int NT>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, long long stride, int first,
+                                          int limit, int d, int nrows, int vec) {
+  if (vec == 16) load_rows_v<T, DP, LD, NT, 16>(dst, src, stride, first, limit, d, nrows);
+  else if (vec == 4) load_rows_v<T, DP, LD, NT, 4>(dst, src, stride, first, limit, d, nrows);
+  else load_rows_v<T, DP, LD, NT, 2>(dst, src, stride, first, limit, d, nrows);
+}
+
+__device__ __forceinline__ unsigned tf32(float x) {
+#if FLASH_INT_ROUND
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+#else
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+#endif
+}
+// x = hi + lo, both TF32
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32(x);
+  lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const unsigned a[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// c += lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b): the small terms first
+__device__ __forceinline__ void mma_3xtf32(float c[4], const unsigned ah[4],
+                                           const unsigned al[4], float b0, float b1) {
+#if FLASH_ONE_PRODUCT
+  mma_tf32(c, ah, tf32(b0), tf32(b1));
+#else
+  unsigned bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+#endif
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  unsigned r;
+  memcpy(&r, &p, sizeof(r));
+  return r;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
-
-__device__ __forceinline__ float row_sum4(float x) {
+__device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// Fragment coordinates: lane = 4 * g + c.  An f32 accumulator of 16 x 8
+// holds (row g, cols 2c, 2c+1) in [0], [1] and (row g + 8, same cols) in
+// [2], [3].
 template <typename T, int DP>
-__global__ void __launch_bounds__(kFT)
+__global__ void __launch_bounds__(2 * q_rows<T>(DP), FLASH_MIN_BLOCKS)
 flash_kernel(Args a) {
   static_assert(DP % 16 == 0 && DP <= kMaxD, "DP: a multiple of 16, at most 128");
-  constexpr int LD = DP + kPad;         // shared row stride of Q, K, V
-  constexpr int LP = kBK + kPad;        // shared row stride of P
-  constexpr int NO = DP / 16;           // float4 output groups a thread owns
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int BQ = q_rows<T>(DP);
+  constexpr int NT = 2 * BQ;            // 32 threads a 16-row warp
+  constexpr int LD = row_stride<T>(DP);
+  constexpr int NO = DP / 8;            // 8-column output tiles
+  constexpr int NS = kBK / 8;           // 8-key logit tiles
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kBQ * LD;
-  float* Vs = Ks + kBK * LD;
-  float* Ps = Vs + kBK * LD;
+  T* Qs = reinterpret_cast<T*>(smem4);              // f32: Q's hi, then lo
+  T* ring = Qs + (F32 ? 2 : 1) * BQ * LD;           // K0, V0, K1, V1
 
   const int q_tile = gridDim.x - 1 - blockIdx.x;     // most causal work first
   const int bh = blockIdx.y;
   const int bi = bh / a.h, hh = bh - bi * a.h;
   const int kv_head = hh / (a.h / a.kvh);
-  const int q0 = q_tile * kBQ;
-  const int r = threadIdx.x >> 2, c = threadIdx.x & 3;
-  const int qpos = q0 + r;
+  const int q0 = q_tile * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int row0 = q0 + 16 * warp + g;               // rows row0 and row0 + 8
 
   const T* q = static_cast<const T*>(a.q) + bi * a.q_sb + hh * a.q_sh;
   const T* k = static_cast<const T*>(a.k) + bi * a.k_sb + kv_head * a.k_sh;
   const T* v = static_cast<const T*>(a.v) + bi * a.v_sb + kv_head * a.v_sh;
 
-  load_tile<DP>(Qs, q, a.q_st, q0, a.t, a.d);
-
-  float m = kNegInf, l = 0.0f;
-  float acc[4 * NO];
-#pragma unroll
-  for (int i = 0; i < 4 * NO; ++i) acc[i] = 0.0f;
-
+  // the kv tiles the block can see: the TPU kernel's block predicate
   const int n_tiles = (a.s + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    // the TPU kernel's block predicate: any (i, j) of the tile pair visible?
-    if (a.causal && k0 > q0 + kBQ - 1) break;
-    if (a.window > 0 && k0 + kBK - 1 <= q0 - a.window) continue;
+  int kt_lo = 0, kt_hi = n_tiles;
+  if (a.window > 0) kt_lo = max(0, (q0 - a.window + 1) / kBK);
+  if (a.causal) kt_hi = min(n_tiles, (q0 + BQ - 1) / kBK + 1);
 
-    __syncthreads();                      // the previous tile is consumed
-    load_tile<DP>(Ks, k, a.k_ss, k0, a.s, a.d);
-    load_tile<DP>(Vs, v, a.v_ss, k0, a.s, a.d);
+  load_rows<T, DP, LD, NT>(Qs, q, a.q_st, q0, a.t, a.d, BQ, a.vec);
+  cp_async_commit();
+  if (kt_lo < kt_hi) {
+    load_rows<T, DP, LD, NT>(ring, k, a.k_ss, kt_lo * kBK, a.s, a.d, kBK, a.vec);
+    load_rows<T, DP, LD, NT>(ring + kBK * LD, v, a.v_ss, kt_lo * kBK, a.s, a.d, kBK, a.vec);
+  }
+  cp_async_commit();
+  if constexpr (F32) {                 // Q's split, once a block
+    cp_async_wait_all();
     __syncthreads();
-
-    float sc[16];
-#pragma unroll
-    for (int jj = 0; jj < 16; ++jj) sc[jj] = 0.0f;
-#pragma unroll 4
-    for (int kk = 0; kk < DP; kk += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(Qs + r * LD + kk);
-#pragma unroll
-      for (int jj = 0; jj < 16; ++jj) {
-        const float4 kv = *reinterpret_cast<const float4*>(Ks + (c + 4 * jj) * LD + kk);
-        float x = sc[jj];
-        x = fmaf(qv.x, kv.x, x);
-        x = fmaf(qv.y, kv.y, x);
-        x = fmaf(qv.z, kv.z, x);
-        x = fmaf(qv.w, kv.w, x);
-        sc[jj] = x;
-      }
-    }
-
-    float mx = kNegInf;
-#pragma unroll
-    for (int jj = 0; jj < 16; ++jj) {
-      const int kpos = k0 + c + 4 * jj;
-      float x = sc[jj] * a.scale;
-      if (a.softcap > 0.0f) x = a.softcap * tanhf(x / a.softcap);
-      bool ok = kpos < a.s;
-      if (a.causal) ok = ok && kpos <= qpos;
-      if (a.window > 0) ok = ok && kpos > qpos - a.window;
-      sc[jj] = ok ? x : kNegInf;
-      mx = fmaxf(mx, sc[jj]);
-    }
-    const float m_new = fmaxf(m, row_max4(mx));
-    float psum = 0.0f;
-#pragma unroll
-    for (int jj = 0; jj < 16; ++jj) {
-      const float p = expf(sc[jj] - m_new);
-      psum += p;
-      Ps[r * LP + c + 4 * jj] = p;
-    }
-    const float corr = expf(m - m_new);
-    l = corr * l + row_sum4(psum);
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < 4 * NO; ++i) acc[i] *= corr;
-    __syncthreads();                      // the whole P tile is written
-
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      const float4 pv = *reinterpret_cast<const float4*>(Ps + r * LP + kk);
-      const float p4[4] = {pv.x, pv.y, pv.z, pv.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* vrow = Vs + (kk + u) * LD + 4 * c;
-#pragma unroll
-        for (int j = 0; j < NO; ++j) {
-          const float4 vv = *reinterpret_cast<const float4*>(vrow + 16 * j);
-          acc[4 * j + 0] = fmaf(p4[u], vv.x, acc[4 * j + 0]);
-          acc[4 * j + 1] = fmaf(p4[u], vv.y, acc[4 * j + 1]);
-          acc[4 * j + 2] = fmaf(p4[u], vv.z, acc[4 * j + 2]);
-          acc[4 * j + 3] = fmaf(p4[u], vv.w, acc[4 * j + 3]);
-        }
-      }
+    float* hi = reinterpret_cast<float*>(Qs);
+    float* lo = hi + BQ * LD;
+    for (int idx = threadIdx.x; idx < BQ * DP; idx += NT) {
+      const int i = (idx / DP) * LD + idx % DP;
+      unsigned xh, xl;
+      split(hi[i], xh, xl);
+      hi[i] = __uint_as_float(xh);
+      lo[i] = __uint_as_float(xl);
     }
   }
 
-  // Rows that saw no key: the mean of v over all s keys (see the header).
-  const bool dead = m == kNegInf && qpos < a.t;
-  if (__syncthreads_or(dead)) {
-    if (dead) {
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  float o[NO][4];
 #pragma unroll
-      for (int i = 0; i < 4 * NO; ++i) acc[i] = 0.0f;
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();            // tile kt has landed; tile kt-1 is consumed
+    if (kt + 1 < kt_hi && (FLASH_PROBE != 2 || kt == kt_lo)) {
+      T* nxt = ring + ((kt + 1 - kt_lo) & 1) * 2 * kBK * LD;
+      load_rows<T, DP, LD, NT>(nxt, k, a.k_ss, (kt + 1) * kBK, a.s, a.d, kBK, a.vec);
+      load_rows<T, DP, LD, NT>(nxt + kBK * LD, v, a.v_ss, (kt + 1) * kBK, a.s, a.d, kBK,
+                               a.vec);
     }
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int k0 = kt * kBK;
-      __syncthreads();
-      load_tile<DP>(Vs, v, a.v_ss, k0, a.s, a.d);
-      __syncthreads();
-      if (dead) {
-        for (int j = 0; j < kBK && k0 + j < a.s; ++j) {
+    cp_async_commit();
+    const T* Ks = ring + ((kt - kt_lo) & 1) * 2 * kBK * LD;
+    const T* Vs = Ks + kBK * LD;
+    const int k0 = kt * kBK;
+
+    // S = Q K^T, 16 rows x 64 keys a warp
+    float sc[NS][4];
 #pragma unroll
-          for (int g = 0; g < NO; ++g) {
-            const float4 vv = *reinterpret_cast<const float4*>(Vs + j * LD + 4 * c + 16 * g);
-            acc[4 * g + 0] += vv.x;
-            acc[4 * g + 1] += vv.y;
-            acc[4 * g + 2] += vv.z;
-            acc[4 * g + 3] += vv.w;
-          }
-        }
+    for (int j = 0; j < NS; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
+    if constexpr (F32) {
+      const float* qh = reinterpret_cast<const float*>(Qs) + (16 * warp + g) * LD + c;
+      const float* ql = qh + BQ * LD;
+      const float* kr = reinterpret_cast<const float*>(Ks) + g * LD + c;
+#pragma unroll
+      for (int ks = 0; ks < DP / 8; ++ks) {
+        const int x = 8 * ks;
+        const unsigned ah[4] = {__float_as_uint(qh[x]), __float_as_uint(qh[8 * LD + x]),
+                                __float_as_uint(qh[x + 4]), __float_as_uint(qh[8 * LD + x + 4])};
+        const unsigned al[4] = {__float_as_uint(ql[x]), __float_as_uint(ql[8 * LD + x]),
+                                __float_as_uint(ql[x + 4]), __float_as_uint(ql[8 * LD + x + 4])};
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          mma_3xtf32(sc[j], ah, al, kr[8 * j * LD + x], kr[8 * j * LD + x + 4]);
+      }
+    } else {
+      const unsigned* qw = reinterpret_cast<const unsigned*>(Qs + (16 * warp + g) * LD) + c;
+      const unsigned* kw = reinterpret_cast<const unsigned*>(Ks + g * LD) + c;
+      constexpr int LW = LD / 2;        // row stride in 32-bit words
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks) {
+        const int x = 8 * ks;           // word offset of column 16 ks
+        const unsigned qa[4] = {qw[x], qw[8 * LW + x], qw[x + 4], qw[8 * LW + x + 4]};
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          mma_bf16(sc[j], qa, kw[8 * j * LW + x], kw[8 * j * LW + x + 4]);
       }
     }
-    if (dead) l = static_cast<float>(a.s);
-  }
 
-  if (qpos < a.t) {
-    const float inv_l = l == 0.0f ? 1.0f : l;   // the TPU kernel's l == 0 guard
-    T* o = static_cast<T*>(a.out) +
-           ((static_cast<long long>(bi) * a.t + qpos) * a.h + hh) * a.d;
+    // scale, cap and mask; masks only where the tile crosses an edge
+    const bool edge = k0 + kBK > a.s || (a.causal && k0 + kBK - 1 > q0) ||
+                      (a.window > 0 && k0 <= q0 + BQ - 1 - a.window);
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int g = 0; g < NO; ++g) {
+    for (int j = 0; j < NS; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = 4 * c + 16 * g + e;
-        if (col < a.d) o[col] = from_f32<T>(acc[4 * g + e] / inv_l);
+        float x = sc[j][e] * a.scale;
+        if (a.softcap > 0.0f) x = a.softcap * tanhf(x / a.softcap);
+        if (edge) {
+          const int kpos = k0 + 8 * j + 2 * c + (e & 1);
+          const int qpos = row0 + 8 * (e >> 1);
+          bool ok = kpos < a.s;
+          if (a.causal) ok = ok && kpos <= qpos;
+          if (a.window > 0) ok = ok && kpos > qpos - a.window;
+          x = ok ? x : kNegInf;
+        }
+        sc[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      float psum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          sc[j][e] = exp_(sc[j][e] - m_new);
+          psum += sc[j][e];
+        }
+      }
+      corr[r] = exp_(m[r] - m_new);
+      l[r] = corr[r] * l[r] + quad_sum(psum);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= corr[0]; o[n][1] *= corr[0];
+      o[n][2] *= corr[1]; o[n][3] *= corr[1];
+    }
+
+    // O += P V.  P stays in registers as the A operand.
+    if constexpr (FLASH_PROBE == 3) {
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) o[kk % NO][0] += sc[kk][0] + sc[kk][1] + sc[kk][2];
+    } else if constexpr (F32) {
+      // keys relabelled: A's column c is key 2c, column c + 4 key 2c + 1;
+      // V's rows are read in the same order
+      const float* vr = reinterpret_cast<const float*>(Vs) + 2 * c * LD + g;
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        unsigned ph[4], pl[4];
+        split(sc[kk][0], ph[0], pl[0]);
+        split(sc[kk][2], ph[1], pl[1]);
+        split(sc[kk][1], ph[2], pl[2]);
+        split(sc[kk][3], ph[3], pl[3]);
+        const float* vk = vr + 8 * kk * LD;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) mma_3xtf32(o[n], ph, pl, vk[8 * n], vk[LD + 8 * n]);
+      }
+    } else {
+      // ldmatrix.x4.trans: lanes 8i..8i+7 address rows of matrix i = (keys
+      // +0 / +8) x (columns +0 / +8)
+      const int mi = lane >> 3;
+      const T* vl = Vs + ((lane & 7) + 8 * (mi & 1)) * LD + 8 * (mi >> 1);
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        const unsigned pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                                pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                                pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                                pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          unsigned vb[4];
+          ldmatrix_x4_trans(vb, vl + 16 * kk * LD + 8 * n);
+          mma_bf16(o[n], pa, vb[0], vb[1]);
+          mma_bf16(o[n + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+  }
+
+  cp_async_wait_all();          // no copy outlives the block (no tile visited)
+
+  // Rows that saw no key: the mean of v over all s keys (see the header),
+  // read straight from device memory: a rare path.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (m[r] == kNegInf && row0 + 8 * r < a.t) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * n + 2 * c + e;
+          float sum = 0.0f;
+          if (col < a.d)
+            for (int j = 0; j < a.s; ++j) sum += to_f32(v[j * a.v_ss + col]);
+          o[n][2 * r + e] = sum;
+        }
+      }
+      l[r] = static_cast<float>(a.s);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = row0 + 8 * r;
+    if (qpos >= a.t) continue;
+    const float inv_l = l[r] == 0.0f ? 1.0f : l[r];   // the TPU kernel's l == 0 guard
+    T* out = static_cast<T*>(a.out) +
+             ((static_cast<long long>(bi) * a.t + qpos) * a.h + hh) * a.d;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * c + e;
+        if (col < a.d) out[col] = from_f32<T>(o[n][2 * r + e] / inv_l);
       }
     }
   }
@@ -252,12 +496,13 @@ flash_kernel(Args a) {
 
 template <typename T, int DP>
 cudaError_t launch(const Args& a, int b, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<DP>();
+  constexpr int bytes = smem_bytes<T, DP>();
+  constexpr int BQ = q_rows<T>(DP);
   cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.t + kBQ - 1) / kBQ, b * a.h);
-  flash_kernel<T, DP><<<grid, kFT, bytes, stream>>>(a);
+  const dim3 grid((a.t + BQ - 1) / BQ, b * a.h);
+  flash_kernel<T, DP><<<grid, 2 * BQ, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -277,6 +522,19 @@ cudaError_t launch_d(const Args& a, int b, cudaStream_t stream) {
   }
 }
 
+// the widest copy every row start of q, k and v allows: 16 or 4 bytes, or
+// 2 (bf16 rows starting on an odd element: plain loads)
+int copy_bytes(const void* q, const void* k, const void* v, const long long* strides,
+               int elem) {
+  const int widths[2] = {16, 4};
+  for (int vec : widths) {
+    bool ok = aligned(q, vec) && aligned(k, vec) && aligned(v, vec);
+    for (int i = 0; i < 9; ++i) ok = ok && strides[i] * elem % vec == 0;
+    if (ok) return vec;
+  }
+  return 2;
+}
+
 }  // namespace
 
 extern "C" {
@@ -292,9 +550,10 @@ int repro_flash_attention(const void* q, const void* k, const void* v, void* out
   if (b < 1 || t < 1 || s < 1 || kvh < 1 || h % kvh != 0 || b * h > 65535 || d < 1 ||
       d > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = copy_bytes(q, k, v, strides, bf16 ? 2 : 4);
   Args a{q, k, v, out, t, s, h, kvh, d,
          strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
-         strides[6], strides[7], strides[8], scale, softcap, causal, window};
+         strides[6], strides[7], strides[8], scale, softcap, causal, window, vec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = bf16 ? launch_d<__nv_bfloat16>(a, b, st)
                                : launch_d<float>(a, b, st);

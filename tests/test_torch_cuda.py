@@ -10,8 +10,8 @@ the plain version does, so p, m and v agree to rounding of the last bit
 (rtol 1e-6); a bf16 p to one bf16 rounding (rtol 2^-8); every sum (Σg²,
 Σ(x−y)², Σy²) is taken in another order (rtol 1e-5).  rmsnorm and
 flash_attention sum in another order than the plain version: f32 at
-rtol 1e-5 / atol 1e-5 (rmsnorm) and 2e-5 (flash, where exp and the online
-rescaling add a few ulps); bf16 outputs to one bf16 rounding (2^-7
+rtol 1e-5 / atol 1e-5 (rmsnorm) and 2e-5 (flash, where exp, the online
+rescaling and the split-TF32 products add a few ulps); bf16 outputs to one bf16 rounding (2^-7
 relative, 1e-2 absolute).  The list entry points over many buckets are
 held against the plain versions bucket by bucket at the same tolerances,
 and two calls on the same inputs must give the same bits.
@@ -233,6 +233,10 @@ FLASH_CASES = [  # b, t, s, h, kvh, d, causal, window, softcap
     (1, 70, 70, 4, 2, 48, True, 0, 0.0),
     (1, 80, 120, 4, 1, 16, False, 0, 0.0),
     (1, 65, 65, 2, 2, 80, True, 0, 0.0),
+    (4, 2048, 2048, 32, 8, 64, True, 0, 0.0),    # prefill of llama3.2-1b
+    (2, 93, 157, 8, 4, 100, False, 0, 0.0),      # t, s not multiples of 16
+    (1, 70, 90, 4, 1, 33, True, 0, 0.0),         # 4-byte copies; bf16: plain loads
+    (1, 45, 45, 2, 1, 34, False, 0, 30.0),       # bf16: 4-byte copies
 ]
 
 
@@ -250,6 +254,49 @@ def test_cuda_flash_attention_matches_plain_version(cuda, b, t, s, h, kvh, d, ca
     torch.cuda.synchronize()
     tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, **kw), **tol)
+
+
+LARGE_LOGIT_CASES = [  # b, t, s, h, kvh, d, causal
+    (2, 200, 200, 8, 2, 64, True),
+    (1, 300, 300, 4, 1, 128, True),
+    (2, 93, 157, 8, 4, 100, False),
+    (1, 2048, 2048, 4, 1, 64, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,s,h,kvh,d,causal", LARGE_LOGIT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_large_logits(cuda, b, t, s, h, kvh, d, causal, dtype):
+    """q scaled so that the largest |logit| is 30: the worst case of the
+    split-TF32 products, at the unchanged tolerances."""
+    gen = torch.Generator(device=cuda).manual_seed(t * s + d)
+    q, k, v = (torch.randn(b, n, heads, d, device=cuda, generator=gen)
+               for n, heads in ((t, h), (s, kvh), (s, kvh)))
+    kh = torch.repeat_interleave(k, h // kvh, dim=2)
+    top = torch.einsum("bthd,bshd->bhts", q, kh).abs().max() / d ** 0.5
+    q, k, v = ((q * (30.0 / top)).to(dtype), k.to(dtype), v.to(dtype))
+    with torch.inference_mode():
+        got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal=causal), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_repeats_bit_for_bit(cuda, dtype):
+    """Two calls on the same inputs give the same bits (no atomics; every
+    sum in a fixed order)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(2, 300, 8, 64, device=cuda, generator=gen).to(dtype)
+    k, v = (torch.randn(2, 300, 2, 64, device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    with torch.inference_mode():
+        first = flash_attention(q, k, v, causal=True, window=100, softcap=30.0)
+        again = flash_attention(q, k, v, causal=True, window=100, softcap=30.0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 @pytest.mark.cuda

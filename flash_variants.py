@@ -2,6 +2,7 @@
 """Compare compile-time variants of csrc/flash_attention.cu on one card.
 
     python3 flash_variants.py NAME=FLAGS ...   # e.g. base= fast=-DFLASH_FAST_EXP=1
+    python3 flash_variants.py old@path/to/flash.cu=FLAGS ...   # another source
 
 Each variant is the kernel source built with nvcc and the port's flags plus
 its own -D flags (all builds started together), called through its C entry
@@ -33,9 +34,12 @@ def build(variants):
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, flags in variants.items():
-        so = out / f"libflash-{name}.so"
-        cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, *flags.split(), "-o", str(so),
-               str(kernels.CSRC / "flash_attention.cu")]
+        so = out / f"libflash-{name.split('@')[0]}.so"
+        src = kernels.CSRC / "flash_attention.cu"
+        if "@" in name:                    # NAME@PATH: another source
+            src = ROOT / name.split("@", 1)[1]
+        cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, *flags.split(), "-I", str(kernels.CSRC),
+               "-o", str(so), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), so)
     libs = {}
@@ -53,6 +57,9 @@ def build(variants):
     return libs
 
 
+UNSUPPORTED = 801          # cudaErrorNotSupported: a variant that skips a case
+
+
 def call(lib, q, k, v, out):
     b, t, h, d = q.shape
     strides = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (q, k, v) for i in range(3)))
@@ -60,8 +67,11 @@ def call(lib, q, k, v, out):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         int(q.dtype == torch.bfloat16), b, t, k.shape[1], h, k.shape[2], d, strides,
         1.0 / math.sqrt(d), 0.0, 1, 0, torch.cuda.current_stream().cuda_stream)
+    if err == UNSUPPORTED:
+        return False
     if err:
         raise RuntimeError(f"launch failed: {err}")
+    return True
 
 
 def cuda_ms(fn, iters=5):
@@ -93,15 +103,18 @@ def main():
         want = ref.flash_attention_ref(q, k, v, causal=True)
         tol = dict(rtol=2e-5, atol=2e-5) if dt == torch.float32 else dict(rtol=2 ** -7, atol=1e-2)
         key = str(dt)[6:]
+        run = {}
         for n, lib in libs.items():
             out = torch.empty_like(q)
-            call(lib, q, k, v, out)
+            if not call(lib, q, k, v, out):
+                continue
+            run[n] = lib
             torch.cuda.synchronize()
             ok = torch.allclose(out.float(), want.float(), **tol)
             res[n][key] = {"max_abs_err": float((out.float() - want.float()).abs().max()),
                            "within_tol": ok, "ms": []}
         for _ in range(3):
-            for n, lib in libs.items():
+            for n, lib in run.items():
                 res[n][key]["ms"].append(cuda_ms(lambda: call(lib, q, k, v, out)))
     for n in libs:
         print(json.dumps({"variant": n, "flags": variants[n], **res[n]}), flush=True)

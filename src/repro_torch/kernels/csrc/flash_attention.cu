@@ -32,86 +32,54 @@
 // 67 TFLOP/s of f32 on CUDA cores, 0.42 ms for three TF32 products at the
 // 495 TFLOP/s of dense TF32 on the tensor cores.
 //
-// Design:
-//   * Both products run on the tensor cores with mma.sync, S and P in
-//     registers (no P tile in shared memory).  One warp owns 16 query rows;
-//     a block owns BQ rows (BQ / 16 warps) of one (batch, head) and walks
-//     the kv tiles of 64 keys that its rows can see, the q tiles with the
-//     most causal work scheduled first.  The softmax statistics (m, l), the
-//     rescaling and the output accumulator stay f32 in registers.
-//   * f32: split TF32 ("3xTF32").  Plain TF32 keeps 10 mantissa bits
-//     (~5e-4 relative per operand), which cannot hold the 2e-5 that f32
-//     outputs are held to.  Each operand is split as x = hi + lo, hi =
-//     cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), and each product is
-//     lo*hi + hi*lo + hi*hi (m16n8k8, f32 accumulation, the small terms
-//     first); the dropped lo*lo and the rounding of lo leave ~2^-22
-//     relative per product, f32's order.  Q is split once per block into
-//     hi and lo tiles in shared memory.  K and V are split in registers as
-//     each warp loads its fragments, at every head dim: hi and lo of K and V
-//     in two ring stages would take 139 KB at d 64 on top of Q's, leaving
-//     one block of few warps an SM, and 270 KB at d 128, more than a block
-//     may have.  The split costs three ALU instructions a fragment element.
-//   * bf16: one m16n8k16 bf16 MMA with f32 accumulation for Q.K^T; P is
-//     rounded to bf16 for P.V, as FlashAttention does (the denominator l
-//     sums the f32 P); V's fragments come from ldmatrix.trans.
-//   * The S -> P layout.  For m16n8k8 TF32 a thread holds S at keys 2c,
-//     2c+1 of each 8-key group (c = lane % 4), but P as the A operand of
-//     the next product must sit at keys c and c+4.  Instead of a shuffle,
-//     the kernel relabels the keys: A's column c is key 2c and column c+4 is
-//     key 2c+1, and the thread reads V's rows in the same order (B's row c
-//     from key 2c, row c+4 from key 2c+1).  The sum over keys does not care
-//     about their order.  For m16n8k16 bf16 the accumulator of two
-//     neighbouring 8-key groups already is the A layout.
-//   * K/V ring: two stages of 64-key K and V tiles in shared memory, filled
-//     with cp.async, so tile k+1 lands while tile k is multiplied; one
-//     barrier a tile.  The copy width is decided per launch from the
-//     pointers and strides: 16 bytes when every row starts on 16 bytes,
-//     else 4; bf16 rows that start on an odd element (an odd stride) are
-//     copied by plain loads.  Rows past t or s and columns past d land as
-//     zeros (cp.async's zero fill), so the t and s tails are masked, not
-//     padded, and the head dim runs to DP, the next multiple of 16, with
-//     exact zeros in both products.
-//   * Masks are applied only on tiles that cross the diagonal, the window
-//     edge or the end of s; the others take the scale and the cap alone.
+// f32: split TF32 ("3xTF32") on wgmma.  Plain TF32 keeps 10 mantissa bits
+// (~5e-4 relative per operand), which cannot hold the 2e-5 that f32
+// outputs are held to.  Each operand is split as x = hi + lo, hi = x
+// rounded to TF32, lo = x - hi rounded again, and each product is lo*hi +
+// hi*lo + hi*hi with f32 accumulation (the dropped lo*lo and the rounding
+// of lo leave ~2^-22 relative a product, f32's order).
+//   * A block is one or two warpgroups of 64 q rows (BQ 128 up to d 64, else
+//     64) of one (batch, head); it walks the 64-key tiles (32 past d 80) its
+//     rows can see, the q tiles with the most causal work first.
+//   * Q, K and V^T sit in shared memory in the layout wgmma reads without a
+//     swizzle: core matrices of 8 rows x 16 bytes, K-major (the summed
+//     dimension contiguous).  Q and K land in it straight from cp.async.
+//     TF32 wgmma takes B only K-major, so V, which lands row by row, is
+//     transposed by the split pass.  Q is split once a block; K and V once a
+//     tile, by the whole block, into hi and lo planes (not once a warp).
+//   * The S -> P layout: the accumulator of S holds keys 2c, 2c+1 of each
+//     8-key group (c = lane % 4), while P as the register A operand of the
+//     next product must sit at columns c and c+4.  The split pass writes V^T
+//     with its keys relabelled (column c of each group is key 2c, column c+4
+//     key 2c+1), so P is used where it lies; the sum over keys does not care
+//     about their order.
+//   * Software pipeline: S(k) = Q K(k)^T is issued, then P(k-1) V(k-1) behind
+//     it; the softmax of S(k) runs while P(k-1) V(k-1) is on the tensor
+//     cores.  The softmax statistics (m, l), the rescaling and O stay f32 in
+//     registers.
+// bf16: mma.sync (m16n8k16, f32 accumulation), a warp per 16 q rows, 64 q
+// rows and 64-key tiles a block.  P is rounded to bf16 for P.V, as
+// FlashAttention does (the denominator sums the f32 P).  For m16n8k16 the
+// accumulator of two neighbouring 8-key groups already is the A layout; V's
+// fragments come from ldmatrix.trans.  S and P stay in registers.
 //
-// Tile sizes: f32 with DP <= 64 and bf16 take BQ = 128 (8 warps), f32 with
-// DP > 64 BQ = 64 (4 warps), so that Q's hi and lo and the ring fit one
-// block's shared memory (139 KB at d 64, 203 KB at d 128).
+// K/V ring (both): two stages of K and V tiles in shared memory filled with
+// cp.async, so tile k+1 lands while tile k is multiplied.  The copy width is
+// decided per launch from the pointers and strides: 16 bytes when every row
+// starts on 16 bytes, else 4; bf16 rows that start on an odd element are
+// copied by plain loads.  Rows past t or s and columns past d land as zeros
+// (cp.async's zero fill), so the tails are masked, not padded, and the head
+// dim runs to DP, the next multiple of 16, with exact zeros in both
+// products.  Masks are applied only on tiles that cross the diagonal, the
+// window edge or the end of s.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBK = 64;          // keys a tile
-constexpr int kMaxD = 128;       // largest head dim
+constexpr int kMaxD = 128;              // largest head dim
+constexpr int kSmemMax = 232448;        // shared memory a block may have (227 KB)
 constexpr float kNegInf = -2.0e38f;
-#ifndef FLASH_BQ
-#define FLASH_BQ 128
-#endif
-#ifndef FLASH_MIN_BLOCKS
-#define FLASH_MIN_BLOCKS 1
-#endif
-#ifndef FLASH_INT_ROUND
-#define FLASH_INT_ROUND 0
-#endif
-#ifndef FLASH_ONE_PRODUCT
-#define FLASH_ONE_PRODUCT 0
-#endif
-#ifndef FLASH_PROBE
-#define FLASH_PROBE 0
-#endif
-#ifndef FLASH_FAST_EXP
-#define FLASH_FAST_EXP 0
-#endif
-__device__ __forceinline__ float exp_(float x) {
-#if FLASH_PROBE == 1
-  return x;
-#elif FLASH_FAST_EXP
-  return __expf(x);
-#else
-  return expf(x);
-#endif
-}
 
 struct Args {
   const void* q; const void* k; const void* v; void* out;
@@ -123,23 +91,6 @@ struct Args {
   int causal, window;
   int vec;                       // bytes a copy: 16, 4, or 2 (plain loads)
 };
-
-// shared row stride in elements: rows 16 bytes apart modulo 32 words, so
-// the fragment loads of 8 rows by 4 columns hit 32 different banks
-template <typename T> __host__ __device__ constexpr int row_stride(int dp) {
-  return sizeof(T) == 4 ? dp + 4 : dp + 8;
-}
-
-template <typename T> __host__ __device__ constexpr int q_rows(int dp) {
-  return sizeof(T) == 4 && dp > 64 ? 64 : FLASH_BQ;
-}
-
-template <typename T, int DP>
-constexpr int smem_bytes() {
-  constexpr int ld = row_stride<T>(DP);
-  constexpr int q_tiles = sizeof(T) == 4 ? 2 : 1;     // f32: hi and lo
-  return (q_tiles * q_rows<T>(DP) + 4 * kBK) * ld * static_cast<int>(sizeof(T));
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -157,27 +108,37 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// order this thread's shared-memory writes before wgmma's reads of them
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
-// rows [first, first + nrows) of src into dst (row stride LD): columns
-// d..DP-1 and rows at or past `limit` land as zeros.  VEC bytes a copy; 2
-// means plain loads (bf16 rows that start on an odd element).
+// One copy of a tile row's chunk: `bytes` of VEC from src (0: all zeros).
+template <int VEC>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  if constexpr (VEC == 16) cp_async16(dst, src, bytes);
+  else cp_async4(dst, src, bytes);
+}
+
+// Rows [first, first + nrows) of src into dst, row-major with row stride LD:
+// columns d..DP-1 and rows at or past `limit` land as zeros.  VEC bytes a
+// copy; 2 means plain loads (bf16 rows that start on an odd element).
 template <typename T, int DP, int LD, int NT, int VEC>
-__device__ __forceinline__ void load_rows_v(T* dst, const T* src, long long stride, int first,
-                                            int limit, int d, int nrows) {
+__device__ __forceinline__ void rows_v(T* dst, const T* src, long long stride, int first,
+                                       int limit, int d, int nrows) {
   constexpr int E = static_cast<int>(sizeof(T));
   constexpr int PER = VEC / E > 0 ? VEC / E : 1;     // elements a copy
   constexpr int CHUNKS = DP / PER;
   for (int idx = threadIdx.x; idx < nrows * CHUNKS; idx += NT) {
     const int row = idx / CHUNKS, col = (idx - row * CHUNKS) * PER;
     const int g = first + row;
+    T* at = dst + row * LD + col;
     if constexpr (VEC == 2) {
-      dst[row * LD + col] = g < limit && col < d ? src[g * stride + col] : from_f32<T>(0.0f);
+      *at = g < limit && col < d ? src[g * stride + col] : from_f32<T>(0.0f);
     } else {
       const int left = (d - col) * E;
       const int bytes = g < limit && left > 0 ? min(left, VEC) : 0;
-      const T* from = bytes > 0 ? src + g * stride + col : src;
-      if constexpr (VEC == 16) cp_async16(dst + row * LD + col, from, bytes);
-      else cp_async4(dst + row * LD + col, from, bytes);
+      cp_async<VEC>(at, bytes > 0 ? src + g * stride + col : src, bytes);
     }
   }
 }
@@ -185,48 +146,537 @@ __device__ __forceinline__ void load_rows_v(T* dst, const T* src, long long stri
 template <typename T, int DP, int LD, int NT>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, long long stride, int first,
                                           int limit, int d, int nrows, int vec) {
-  if (vec == 16) load_rows_v<T, DP, LD, NT, 16>(dst, src, stride, first, limit, d, nrows);
-  else if (vec == 4) load_rows_v<T, DP, LD, NT, 4>(dst, src, stride, first, limit, d, nrows);
-  else load_rows_v<T, DP, LD, NT, 2>(dst, src, stride, first, limit, d, nrows);
+  if (vec == 16) rows_v<T, DP, LD, NT, 16>(dst, src, stride, first, limit, d, nrows);
+  else if (vec == 4) rows_v<T, DP, LD, NT, 4>(dst, src, stride, first, limit, d, nrows);
+  else rows_v<T, DP, LD, NT, 2>(dst, src, stride, first, limit, d, nrows);
 }
 
+// The same rows of an f32 matrix into the K-major core-matrix layout that
+// wgmma reads: element (r, x) at ((x / 4) * nrows + r) * 4 + x % 4, so 8
+// rows of 4 columns are one 128-byte core matrix.
+template <int DP, int NT, int VEC>
+__device__ __forceinline__ void kmajor_v(float* dst, const float* src, long long stride,
+                                         int first, int limit, int d, int nrows) {
+  constexpr int PER = VEC / 4;
+  for (int idx = threadIdx.x; idx < nrows * (DP / PER); idx += NT) {
+    const int r = idx % nrows, x = (idx / nrows) * PER;   // neighbours take neighbouring rows
+    const int g = first + r;
+    const int left = (d - x) * 4;
+    const int bytes = g < limit && left > 0 ? min(left, VEC) : 0;
+    cp_async<VEC>(dst + ((x >> 2) * nrows + r) * 4 + (x & 3),
+                  bytes > 0 ? src + g * stride + x : src, bytes);
+  }
+}
+
+template <int DP, int NT>
+__device__ __forceinline__ void load_kmajor(float* dst, const float* src, long long stride,
+                                            int first, int limit, int d, int nrows, int vec) {
+  if (vec == 16) kmajor_v<DP, NT, 16>(dst, src, stride, first, limit, d, nrows);
+  else kmajor_v<DP, NT, 4>(dst, src, stride, first, limit, d, nrows);
+}
+
+// x rounded to TF32, to nearest with ties away from zero: the bits of
+// cvt.rna.tf32.f32, from two integer instructions at the full rate (the
+// conversion instruction runs on a slower pipe).
 __device__ __forceinline__ unsigned tf32(float x) {
-#if FLASH_INT_ROUND
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-#else
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-#endif
 }
 // x = hi + lo, both TF32
-__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
-  hi = tf32(x);
-  lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
+__device__ __forceinline__ void split(float x, float& hi, float& lo) {
+  hi = __uint_as_float(tf32(x));
+  lo = __uint_as_float(tf32(__fsub_rn(x, hi)));
+}
+__device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
+  split(x.x, hi.x, lo.x);
+  split(x.y, hi.y, lo.y);
+  split(x.z, hi.z, lo.z);
+  split(x.w, hi.w, lo.w);
 }
 
-__device__ __forceinline__ void mma_tf32(float c[4], const unsigned a[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
-// c += lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b): the small terms first
-__device__ __forceinline__ void mma_3xtf32(float c[4], const unsigned ah[4],
-                                           const unsigned al[4], float b0, float b1) {
-#if FLASH_ONE_PRODUCT
-  mma_tf32(c, ah, tf32(b0), tf32(b1));
-#else
-  unsigned bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
-#endif
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
+
+// The online softmax of one tile of a warp's logits, in the accumulator
+// layout of both MMAs (lane = 4 g + c): s[4j + e] is row row0 + 8 (e >> 1),
+// key k0 + 8j + 2c + (e & 1).  Scales, caps and, on a tile that crosses an
+// edge, masks the logits; turns them into p = exp(x - m_new) in place;
+// updates m and l; returns in corr the rescale of the earlier output.
+template <int NS>
+__device__ __forceinline__ void softmax_tile(float* s, float m[2], float l[2], float corr[2],
+                                             const Args& a, int k0, int row0, int c,
+                                             bool edge) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e] * a.scale;
+      if (a.softcap > 0.0f) x = a.softcap * tanhf(x / a.softcap);
+      if (edge) {
+        const int kpos = k0 + 8 * j + 2 * c + (e & 1);
+        const int qpos = row0 + 8 * (e >> 1);
+        bool ok = kpos < a.s;
+        if (a.causal) ok = ok && kpos <= qpos;
+        if (a.window > 0) ok = ok && kpos > qpos - a.window;
+        x = ok ? x : kNegInf;
+      }
+      s[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    float psum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        s[4 * j + e] = __expf(s[4 * j + e] - m_new);
+        psum += s[4 * j + e];
+      }
+    }
+    corr[r] = __expf(m[r] - m_new);
+    l[r] = corr[r] * l[r] + quad_sum(psum);
+    m[r] = m_new;
+  }
+}
+
+// Rows that saw no key get the mean of v over all s keys (see the header),
+// read straight from device memory: a rare path.  Then o / l, stored.  o is
+// in the accumulator layout, NO groups of 8 columns.
+template <typename T, int NO>
+__device__ __forceinline__ void finish(float* o, const float m[2], float l[2], const Args& a,
+                                       const T* v, int bi, int hh, int row0, int c) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = row0 + 8 * r;
+    if (qpos >= a.t) continue;
+    if (m[r] == kNegInf) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * n + 2 * c + e;
+          float sum = 0.0f;
+          if (col < a.d)
+            for (int j = 0; j < a.s; ++j) sum += to_f32(v[j * a.v_ss + col]);
+          o[4 * n + 2 * r + e] = sum;
+        }
+      }
+      l[r] = static_cast<float>(a.s);
+    }
+    const float inv_l = l[r] == 0.0f ? 1.0f : l[r];   // the TPU kernel's l == 0 guard
+    T* out = static_cast<T*>(a.out) +
+             ((static_cast<long long>(bi) * a.t + qpos) * a.h + hh) * a.d;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * c + e;
+        if (col < a.d) out[col] = from_f32<T>(o[4 * n + 2 * r + e] / inv_l);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- f32: wgmma
+
+// wgmma's shared-memory matrix descriptor, no swizzle: the start address,
+// the byte distance between core matrices along the summed dimension (lbo)
+// and between groups of 8 rows (sbo)
+__device__ __forceinline__ uint64_t desc(const float* p, int lbo, int sbo) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from moving uses of wgmma's registers across a wait
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N> struct Wgmma;   // m64nNk8 TF32, f32 accumulators: N / 2 a thread
+template <> struct Wgmma<16> {
+  // d += A B^T, A in registers
+  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<32> {
+  // d = [d +] A B^T, A and B in shared memory
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  // d += A B^T, A in registers
+  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<48> {
+  // d += A B^T, A in registers
+  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<64> {
+  // d = [d +] A B^T, A and B in shared memory
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  // d += A B^T, A in registers
+  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<80> {
+  // d += A B^T, A in registers
+  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39}, "
+        "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<96> {
+  // d += A B^T, A in registers
+  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<112> {
+  // d += A B^T, A in registers
+  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55}, "
+        "{%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<128> {
+  // d += A B^T, A in registers
+  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// Tile sizes of the f32 kernel by padded head dim: two warpgroups (128 q
+// rows) and 64-key tiles where they fit in shared memory, else one
+// warpgroup, else 32-key tiles.  Shared memory, in floats: Q's hi and lo;
+// two stages of K (landed, then split in place into hi) and one of K's lo;
+// two stages of V as landed; two stages of V^T's hi and lo.
+template <int DP>
+struct F32Tiles {
+  static __host__ __device__ constexpr int bytes(int bq, int bk) { return 4 * (2 * bq * DP + 9 * bk * DP); }
+  static constexpr int BQ = bytes(128, 64) <= kSmemMax ? 128 : 64;
+  static constexpr int BK = bytes(BQ, 64) <= kSmemMax ? 64 : 32;
+  static constexpr int NT = 2 * BQ;                 // a warpgroup per 64 rows
+  static constexpr int KT = BK * DP;                // one K or V plane
+  static constexpr int Q_LO = BQ * DP;
+  static constexpr int K = 2 * BQ * DP;
+  static constexpr int K_LO = K + 2 * KT;
+  static constexpr int V = K_LO + KT;
+  static constexpr int VT = V + 2 * KT;             // stage st: hi at VT + 2 st KT, lo after
+  static constexpr int SMEM = bytes(BQ, BK);
+  static_assert(VT + 4 * KT == SMEM / 4, "shared-memory layout");
+};
+
+template <int DP>
+__global__ void __launch_bounds__(F32Tiles<DP>::NT, 1)
+flash_f32(Args a) {
+  using L = F32Tiles<DP>;
+  static_assert(DP % 16 == 0 && DP <= kMaxD, "DP: a multiple of 16, at most 128");
+  constexpr int BQ = L::BQ, BK = L::BK, NT = L::NT, KT = L::KT;
+  constexpr int NO = DP / 8;            // 8-column groups of O
+  constexpr int NS = BK / 8;            // 8-key groups of S
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+
+  const int q_tile = gridDim.x - 1 - blockIdx.x;     // most causal work first
+  const int bh = blockIdx.y;
+  const int bi = bh / a.h, hh = bh - bi * a.h;
+  const int kv_head = hh / (a.h / a.kvh);
+  const int q0 = q_tile * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int row0 = q0 + 16 * warp + g;               // rows row0 and row0 + 8
+
+  const float* q = static_cast<const float*>(a.q) + bi * a.q_sb + hh * a.q_sh;
+  const float* k = static_cast<const float*>(a.k) + bi * a.k_sb + kv_head * a.k_sh;
+  const float* v = static_cast<const float*>(a.v) + bi * a.v_sb + kv_head * a.v_sh;
+
+  // the kv tiles the block can see: the TPU kernel's block predicate
+  const int n_tiles = (a.s + BK - 1) / BK;
+  int kt_lo = 0, kt_hi = n_tiles;
+  if (a.window > 0) kt_lo = max(0, (q0 - a.window + 1) / BK);
+  if (a.causal) kt_hi = min(n_tiles, (q0 + BQ - 1) / BK + 1);
+
+  auto load_tile = [&](int kt) {
+    const int st = (kt - kt_lo) & 1;
+    load_kmajor<DP, NT>(sm + L::K + st * KT, k, a.k_ss, kt * BK, a.s, a.d, BK, a.vec);
+    load_rows<float, DP, DP, NT>(sm + L::V + st * KT, v, a.v_ss, kt * BK, a.s, a.d, BK, a.vec);
+    cp_async_commit();
+  };
+  // Q: each warpgroup's 64 rows as one K-major block
+  for (int w = 0; w < BQ / 64; ++w)
+    load_kmajor<DP, NT>(sm + w * 64 * DP, q, a.q_st, q0 + 64 * w, a.t, a.d, 64, a.vec);
+  cp_async_commit();
+  if (kt_lo < kt_hi) load_tile(kt_lo);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int i = threadIdx.x; i < BQ * DP / 4; i += NT) {     // Q's split, once a block
+    float4 hi, lo;
+    split4(reinterpret_cast<const float4*>(sm)[i], hi, lo);
+    reinterpret_cast<float4*>(sm)[i] = hi;
+    reinterpret_cast<float4*>(sm + L::Q_LO)[i] = lo;
+  }
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  float o[4 * NO];
+#pragma unroll
+  for (int i = 0; i < 4 * NO; ++i) o[i] = 0.0f;
+  float sc[4 * NS];
+  unsigned ph[NS][4], pl[NS][4];       // P of the previous tile, for its P.V
+  const float* qhi = sm + (warp >> 2) * 64 * DP;
+  const float* qlo = qhi + L::Q_LO;
+
+  // O += P V(tile in stage st), three TF32 products a group of 8 keys
+  auto issue_pv = [&](int st) {
+    const float* vthi = sm + L::VT + st * 2 * KT;
+    const float* vtlo = vthi + KT;
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      const uint64_t bh = desc(vthi + kk * 8 * DP, DP * 16, 128);
+      const uint64_t bl = desc(vtlo + kk * 8 * DP, DP * 16, 128);
+      Wgmma<DP>::rs(o, pl[kk], bh);
+      Wgmma<DP>::rs(o, ph[kk], bl);
+      Wgmma<DP>::rs(o, ph[kk], bh);
+    }
+    wg_commit();
+  };
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();            // tile kt landed; S(kt-1) and P.V(kt-2) are done
+    if (kt + 1 < kt_hi) load_tile(kt + 1);
+    const int st = (kt - kt_lo) & 1;
+    float* khi = sm + L::K + st * KT;
+    float* klo = sm + L::K_LO;
+    const float* vraw = sm + L::V + st * KT;
+    float* vthi = sm + L::VT + st * 2 * KT;
+    float* vtlo = vthi + KT;
+    // split K in place; V transposed and split: element (x, pos) of V^T at
+    // ((pos / 4) * DP + x) * 4 + pos % 4, pos the relabelled key
+    for (int i = threadIdx.x; i < KT / 4; i += NT) {
+      float4 hi, lo;
+      split4(reinterpret_cast<const float4*>(khi)[i], hi, lo);
+      reinterpret_cast<float4*>(khi)[i] = hi;
+      reinterpret_cast<float4*>(klo)[i] = lo;
+    }
+    for (int i = threadIdx.x; i < KT / 4; i += NT) {
+      const int x = i % DP, pq = i / DP;           // positions 4 pq .. 4 pq + 3
+      const int key = 8 * (pq >> 1) + (pq & 1);    // position 4 pq + p is key + 2 p
+      float4 raw = make_float4(vraw[key * DP + x], vraw[(key + 2) * DP + x],
+                               vraw[(key + 4) * DP + x], vraw[(key + 6) * DP + x]);
+      float4 hi, lo;
+      split4(raw, hi, lo);
+      reinterpret_cast<float4*>(vthi)[i] = hi;
+      reinterpret_cast<float4*>(vtlo)[i] = lo;
+    }
+    fence_async_smem();
+    __syncthreads();
+
+    // S(kt) = Q K^T, then P(kt-1) V(kt-1) behind it
+    pin(o);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < DP / 8; ++ks) {
+      const uint64_t ah = desc(qhi + ks * 8 * 64, 64 * 16, 128);
+      const uint64_t al = desc(qlo + ks * 8 * 64, 64 * 16, 128);
+      const uint64_t bh = desc(khi + ks * 8 * BK, BK * 16, 128);
+      const uint64_t bl = desc(klo + ks * 8 * BK, BK * 16, 128);
+      Wgmma<BK>::ss(sc, al, bh, ks > 0);
+      Wgmma<BK>::ss(sc, ah, bl, 1);
+      Wgmma<BK>::ss(sc, ah, bh, 1);
+    }
+    wg_commit();
+    if (kt > kt_lo) {
+      issue_pv(st ^ 1);
+      wg_wait<1>();             // S(kt) is done; P.V(kt-1) may still run
+    } else {
+      wg_wait<0>();
+    }
+    pin(sc);
+
+    const int k0 = kt * BK;
+    const bool edge = k0 + BK > a.s || (a.causal && k0 + BK - 1 > q0) ||
+                      (a.window > 0 && k0 <= q0 + BQ - 1 - a.window);
+    float corr[2];
+    softmax_tile<NS>(sc, m, l, corr, a, k0, row0, c, edge);
+    wg_wait<0>();               // P.V(kt-1) is done: O and P's registers are free
+    pin(o);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[4 * n + 0] *= corr[0]; o[4 * n + 1] *= corr[0];
+      o[4 * n + 2] *= corr[1]; o[4 * n + 3] *= corr[1];
+    }
+    // P as the A operand: column c is key 2c, column c + 4 key 2c + 1
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      const int at[4] = {0, 2, 1, 3};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float hi, lo;
+        split(sc[4 * kk + at[i]], hi, lo);
+        ph[kk][i] = __float_as_uint(hi);
+        pl[kk][i] = __float_as_uint(lo);
+      }
+    }
+  }
+  if (kt_lo < kt_hi) {
+    pin(o);
+    wg_fence();
+    issue_pv((kt_hi - 1 - kt_lo) & 1);
+    wg_wait<0>();
+    pin(o);
+  }
+  finish<float, NO>(o, m, l, a, v, bi, hh, row0, c);
+}
+
+// ----------------------------------------------------------- bf16: mma.sync
 
 __device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], unsigned b0,
                                          unsigned b1) {
@@ -250,37 +700,35 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return r;
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+constexpr int kBQ16 = 64;               // bf16: q rows a block, a warp per 16
+constexpr int kBK16 = 64;               // bf16: keys a tile
+constexpr int kNT16 = 2 * kBQ16;
 
-// Fragment coordinates: lane = 4 * g + c.  An f32 accumulator of 16 x 8
-// holds (row g, cols 2c, 2c+1) in [0], [1] and (row g + 8, same cols) in
-// [2], [3].
-template <typename T, int DP>
-__global__ void __launch_bounds__(2 * q_rows<T>(DP), FLASH_MIN_BLOCKS)
-flash_kernel(Args a) {
+// shared row stride in bf16 elements: rows 16 bytes apart modulo 128, so 8
+// rows' fragment loads hit different banks
+template <int DP>
+__host__ __device__ constexpr int ld16() { return DP + 8; }
+
+template <int DP>
+__host__ __device__ constexpr int smem16() { return (kBQ16 + 4 * kBK16) * ld16<DP>() * 2; }
+
+template <int DP>
+__global__ void __launch_bounds__(kNT16, 1)
+flash_bf16(Args a) {
   static_assert(DP % 16 == 0 && DP <= kMaxD, "DP: a multiple of 16, at most 128");
-  constexpr bool F32 = sizeof(T) == 4;
-  constexpr int BQ = q_rows<T>(DP);
-  constexpr int NT = 2 * BQ;            // 32 threads a 16-row warp
-  constexpr int LD = row_stride<T>(DP);
-  constexpr int NO = DP / 8;            // 8-column output tiles
-  constexpr int NS = kBK / 8;           // 8-key logit tiles
+  using T = __nv_bfloat16;
+  constexpr int LD = ld16<DP>(), LW = LD / 2;       // row stride in elements, in words
+  constexpr int NO = DP / 8, NS = kBK16 / 8;
+  constexpr int STAGE = 2 * kBK16 * LD;             // K, then V
   extern __shared__ float4 smem4[];
-  T* Qs = reinterpret_cast<T*>(smem4);              // f32: Q's hi, then lo
-  T* ring = Qs + (F32 ? 2 : 1) * BQ * LD;           // K0, V0, K1, V1
+  T* Qs = reinterpret_cast<T*>(smem4);
+  T* ring = Qs + kBQ16 * LD;
 
   const int q_tile = gridDim.x - 1 - blockIdx.x;     // most causal work first
   const int bh = blockIdx.y;
   const int bi = bh / a.h, hh = bh - bi * a.h;
   const int kv_head = hh / (a.h / a.kvh);
-  const int q0 = q_tile * BQ;
+  const int q0 = q_tile * kBQ16;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
   const int row0 = q0 + 16 * warp + g;               // rows row0 and row0 + 8
@@ -289,235 +737,108 @@ flash_kernel(Args a) {
   const T* k = static_cast<const T*>(a.k) + bi * a.k_sb + kv_head * a.k_sh;
   const T* v = static_cast<const T*>(a.v) + bi * a.v_sb + kv_head * a.v_sh;
 
-  // the kv tiles the block can see: the TPU kernel's block predicate
-  const int n_tiles = (a.s + kBK - 1) / kBK;
+  const int n_tiles = (a.s + kBK16 - 1) / kBK16;
   int kt_lo = 0, kt_hi = n_tiles;
-  if (a.window > 0) kt_lo = max(0, (q0 - a.window + 1) / kBK);
-  if (a.causal) kt_hi = min(n_tiles, (q0 + BQ - 1) / kBK + 1);
+  if (a.window > 0) kt_lo = max(0, (q0 - a.window + 1) / kBK16);
+  if (a.causal) kt_hi = min(n_tiles, (q0 + kBQ16 - 1) / kBK16 + 1);
 
-  load_rows<T, DP, LD, NT>(Qs, q, a.q_st, q0, a.t, a.d, BQ, a.vec);
+  auto load_tile = [&](int kt) {
+    T* st = ring + ((kt - kt_lo) & 1) * STAGE;
+    load_rows<T, DP, LD, kNT16>(st, k, a.k_ss, kt * kBK16, a.s, a.d, kBK16, a.vec);
+    load_rows<T, DP, LD, kNT16>(st + kBK16 * LD, v, a.v_ss, kt * kBK16, a.s, a.d, kBK16,
+                                a.vec);
+    cp_async_commit();
+  };
+  load_rows<T, DP, LD, kNT16>(Qs, q, a.q_st, q0, a.t, a.d, kBQ16, a.vec);
   cp_async_commit();
-  if (kt_lo < kt_hi) {
-    load_rows<T, DP, LD, NT>(ring, k, a.k_ss, kt_lo * kBK, a.s, a.d, kBK, a.vec);
-    load_rows<T, DP, LD, NT>(ring + kBK * LD, v, a.v_ss, kt_lo * kBK, a.s, a.d, kBK, a.vec);
-  }
-  cp_async_commit();
-  if constexpr (F32) {                 // Q's split, once a block
-    cp_async_wait_all();
-    __syncthreads();
-    float* hi = reinterpret_cast<float*>(Qs);
-    float* lo = hi + BQ * LD;
-    for (int idx = threadIdx.x; idx < BQ * DP; idx += NT) {
-      const int i = (idx / DP) * LD + idx % DP;
-      unsigned xh, xl;
-      split(hi[i], xh, xl);
-      hi[i] = __uint_as_float(xh);
-      lo[i] = __uint_as_float(xl);
-    }
-  }
+  if (kt_lo < kt_hi) load_tile(kt_lo);
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-  float o[NO][4];
+  float o[4 * NO];
 #pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  for (int i = 0; i < 4 * NO; ++i) o[i] = 0.0f;
+  const unsigned* qw = reinterpret_cast<const unsigned*>(Qs + (16 * warp + g) * LD) + c;
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     cp_async_wait_all();
     __syncthreads();            // tile kt has landed; tile kt-1 is consumed
-    if (kt + 1 < kt_hi && (FLASH_PROBE != 2 || kt == kt_lo)) {
-      T* nxt = ring + ((kt + 1 - kt_lo) & 1) * 2 * kBK * LD;
-      load_rows<T, DP, LD, NT>(nxt, k, a.k_ss, (kt + 1) * kBK, a.s, a.d, kBK, a.vec);
-      load_rows<T, DP, LD, NT>(nxt + kBK * LD, v, a.v_ss, (kt + 1) * kBK, a.s, a.d, kBK,
-                               a.vec);
-    }
-    cp_async_commit();
-    const T* Ks = ring + ((kt - kt_lo) & 1) * 2 * kBK * LD;
-    const T* Vs = Ks + kBK * LD;
-    const int k0 = kt * kBK;
+    if (kt + 1 < kt_hi) load_tile(kt + 1);
+    const T* Ks = ring + ((kt - kt_lo) & 1) * STAGE;
+    const T* Vs = Ks + kBK16 * LD;
 
     // S = Q K^T, 16 rows x 64 keys a warp
-    float sc[NS][4];
+    float sc[4 * NS];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
-    if constexpr (F32) {
-      const float* qh = reinterpret_cast<const float*>(Qs) + (16 * warp + g) * LD + c;
-      const float* ql = qh + BQ * LD;
-      const float* kr = reinterpret_cast<const float*>(Ks) + g * LD + c;
+    for (int i = 0; i < 4 * NS; ++i) sc[i] = 0.0f;
+    const unsigned* kw = reinterpret_cast<const unsigned*>(Ks + g * LD) + c;
 #pragma unroll
-      for (int ks = 0; ks < DP / 8; ++ks) {
-        const int x = 8 * ks;
-        const unsigned ah[4] = {__float_as_uint(qh[x]), __float_as_uint(qh[8 * LD + x]),
-                                __float_as_uint(qh[x + 4]), __float_as_uint(qh[8 * LD + x + 4])};
-        const unsigned al[4] = {__float_as_uint(ql[x]), __float_as_uint(ql[8 * LD + x]),
-                                __float_as_uint(ql[x + 4]), __float_as_uint(ql[8 * LD + x + 4])};
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      const int x = 8 * ks;             // word offset of column 16 ks
+      const unsigned qa[4] = {qw[x], qw[8 * LW + x], qw[x + 4], qw[8 * LW + x + 4]};
 #pragma unroll
-        for (int j = 0; j < NS; ++j)
-          mma_3xtf32(sc[j], ah, al, kr[8 * j * LD + x], kr[8 * j * LD + x + 4]);
-      }
-    } else {
-      const unsigned* qw = reinterpret_cast<const unsigned*>(Qs + (16 * warp + g) * LD) + c;
-      const unsigned* kw = reinterpret_cast<const unsigned*>(Ks + g * LD) + c;
-      constexpr int LW = LD / 2;        // row stride in 32-bit words
-#pragma unroll
-      for (int ks = 0; ks < DP / 16; ++ks) {
-        const int x = 8 * ks;           // word offset of column 16 ks
-        const unsigned qa[4] = {qw[x], qw[8 * LW + x], qw[x + 4], qw[8 * LW + x + 4]};
-#pragma unroll
-        for (int j = 0; j < NS; ++j)
-          mma_bf16(sc[j], qa, kw[8 * j * LW + x], kw[8 * j * LW + x + 4]);
-      }
+      for (int j = 0; j < NS; ++j)
+        mma_bf16(sc + 4 * j, qa, kw[8 * j * LW + x], kw[8 * j * LW + x + 4]);
     }
 
-    // scale, cap and mask; masks only where the tile crosses an edge
-    const bool edge = k0 + kBK > a.s || (a.causal && k0 + kBK - 1 > q0) ||
-                      (a.window > 0 && k0 <= q0 + BQ - 1 - a.window);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[j][e] * a.scale;
-        if (a.softcap > 0.0f) x = a.softcap * tanhf(x / a.softcap);
-        if (edge) {
-          const int kpos = k0 + 8 * j + 2 * c + (e & 1);
-          const int qpos = row0 + 8 * (e >> 1);
-          bool ok = kpos < a.s;
-          if (a.causal) ok = ok && kpos <= qpos;
-          if (a.window > 0) ok = ok && kpos > qpos - a.window;
-          x = ok ? x : kNegInf;
-        }
-        sc[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
+    const int k0 = kt * kBK16;
+    const bool edge = k0 + kBK16 > a.s || (a.causal && k0 + kBK16 - 1 > q0) ||
+                      (a.window > 0 && k0 <= q0 + kBQ16 - 1 - a.window);
     float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      float psum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-#pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          sc[j][e] = exp_(sc[j][e] - m_new);
-          psum += sc[j][e];
-        }
-      }
-      corr[r] = exp_(m[r] - m_new);
-      l[r] = corr[r] * l[r] + quad_sum(psum);
-      m[r] = m_new;
-    }
+    softmax_tile<NS>(sc, m, l, corr, a, k0, row0, c, edge);
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      o[n][0] *= corr[0]; o[n][1] *= corr[0];
-      o[n][2] *= corr[1]; o[n][3] *= corr[1];
+      o[4 * n + 0] *= corr[0]; o[4 * n + 1] *= corr[0];
+      o[4 * n + 2] *= corr[1]; o[4 * n + 3] *= corr[1];
     }
 
-    // O += P V.  P stays in registers as the A operand.
-    if constexpr (FLASH_PROBE == 3) {
+    // O += P V, P rounded to bf16 in registers.  ldmatrix.x4.trans: lanes
+    // 8i..8i+7 address rows of matrix i = (keys +0 / +8) x (columns +0 / +8)
+    const int mi = lane >> 3;
+    const T* vl = Vs + ((lane & 7) + 8 * (mi & 1)) * LD + 8 * (mi >> 1);
 #pragma unroll
-      for (int kk = 0; kk < NS; ++kk) o[kk % NO][0] += sc[kk][0] + sc[kk][1] + sc[kk][2];
-    } else if constexpr (F32) {
-      // keys relabelled: A's column c is key 2c, column c + 4 key 2c + 1;
-      // V's rows are read in the same order
-      const float* vr = reinterpret_cast<const float*>(Vs) + 2 * c * LD + g;
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      const float* p = sc + 8 * kk;
+      const unsigned pa[4] = {pack_bf16(p[0], p[1]), pack_bf16(p[2], p[3]),
+                              pack_bf16(p[4], p[5]), pack_bf16(p[6], p[7])};
 #pragma unroll
-      for (int kk = 0; kk < NS; ++kk) {
-        unsigned ph[4], pl[4];
-        split(sc[kk][0], ph[0], pl[0]);
-        split(sc[kk][2], ph[1], pl[1]);
-        split(sc[kk][1], ph[2], pl[2]);
-        split(sc[kk][3], ph[3], pl[3]);
-        const float* vk = vr + 8 * kk * LD;
-#pragma unroll
-        for (int n = 0; n < NO; ++n) mma_3xtf32(o[n], ph, pl, vk[8 * n], vk[LD + 8 * n]);
-      }
-    } else {
-      // ldmatrix.x4.trans: lanes 8i..8i+7 address rows of matrix i = (keys
-      // +0 / +8) x (columns +0 / +8)
-      const int mi = lane >> 3;
-      const T* vl = Vs + ((lane & 7) + 8 * (mi & 1)) * LD + 8 * (mi >> 1);
-#pragma unroll
-      for (int kk = 0; kk < NS / 2; ++kk) {
-        const unsigned pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                                pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                                pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                                pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-#pragma unroll
-        for (int n = 0; n < NO; n += 2) {
-          unsigned vb[4];
-          ldmatrix_x4_trans(vb, vl + 16 * kk * LD + 8 * n);
-          mma_bf16(o[n], pa, vb[0], vb[1]);
-          mma_bf16(o[n + 1], pa, vb[2], vb[3]);
-        }
+      for (int n = 0; n < NO; n += 2) {
+        unsigned vb[4];
+        ldmatrix_x4_trans(vb, vl + 16 * kk * LD + 8 * n);
+        mma_bf16(o + 4 * n, pa, vb[0], vb[1]);
+        mma_bf16(o + 4 * (n + 1), pa, vb[2], vb[3]);
       }
     }
   }
-
   cp_async_wait_all();          // no copy outlives the block (no tile visited)
-
-  // Rows that saw no key: the mean of v over all s keys (see the header),
-  // read straight from device memory: a rare path.
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (m[r] == kNegInf && row0 + 8 * r < a.t) {
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * n + 2 * c + e;
-          float sum = 0.0f;
-          if (col < a.d)
-            for (int j = 0; j < a.s; ++j) sum += to_f32(v[j * a.v_ss + col]);
-          o[n][2 * r + e] = sum;
-        }
-      }
-      l[r] = static_cast<float>(a.s);
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qpos = row0 + 8 * r;
-    if (qpos >= a.t) continue;
-    const float inv_l = l[r] == 0.0f ? 1.0f : l[r];   // the TPU kernel's l == 0 guard
-    T* out = static_cast<T*>(a.out) +
-             ((static_cast<long long>(bi) * a.t + qpos) * a.h + hh) * a.d;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 8 * n + 2 * c + e;
-        if (col < a.d) out[col] = from_f32<T>(o[n][2 * r + e] / inv_l);
-      }
-    }
-  }
+  finish<T, NO>(o, m, l, a, v, bi, hh, row0, c);
 }
 
-template <typename T, int DP>
-cudaError_t launch(const Args& a, int b, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<T, DP>();
-  constexpr int BQ = q_rows<T>(DP);
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// ------------------------------------------------------------------- launch
+
+template <int DP>
+cudaError_t launch(const Args& a, int b, int bf16, cudaStream_t stream) {
+  const auto kernel = bf16 ? flash_bf16<DP> : flash_f32<DP>;
+  const int smem = bf16 ? smem16<DP>() : F32Tiles<DP>::SMEM;
+  const int bq = bf16 ? kBQ16 : F32Tiles<DP>::BQ;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.t + BQ - 1) / BQ, b * a.h);
-  flash_kernel<T, DP><<<grid, 2 * BQ, bytes, stream>>>(a);
+  const dim3 grid((a.t + bq - 1) / bq, b * a.h);
+  kernel<<<grid, 2 * bq, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // the head dim padded to the next multiple of 16
-template <typename T>
-cudaError_t launch_d(const Args& a, int b, cudaStream_t stream) {
+cudaError_t launch_d(const Args& a, int b, int bf16, cudaStream_t stream) {
   switch ((a.d + 15) / 16) {
-    case 1: return launch<T, 16>(a, b, stream);
-    case 2: return launch<T, 32>(a, b, stream);
-    case 3: return launch<T, 48>(a, b, stream);
-    case 4: return launch<T, 64>(a, b, stream);
-    case 5: return launch<T, 80>(a, b, stream);
-    case 6: return launch<T, 96>(a, b, stream);
-    case 7: return launch<T, 112>(a, b, stream);
-    case 8: return launch<T, 128>(a, b, stream);
+    case 1: return launch<16>(a, b, bf16, stream);
+    case 2: return launch<32>(a, b, bf16, stream);
+    case 3: return launch<48>(a, b, bf16, stream);
+    case 4: return launch<64>(a, b, bf16, stream);
+    case 5: return launch<80>(a, b, bf16, stream);
+    case 6: return launch<96>(a, b, bf16, stream);
+    case 7: return launch<112>(a, b, bf16, stream);
+    case 8: return launch<128>(a, b, bf16, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -554,10 +875,7 @@ int repro_flash_attention(const void* q, const void* k, const void* v, void* out
   Args a{q, k, v, out, t, s, h, kvh, d,
          strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
          strides[6], strides[7], strides[8], scale, softcap, causal, window, vec};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bf16 ? launch_d<__nv_bfloat16>(a, b, st)
-                               : launch_d<float>(a, b, st);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_d(a, b, bf16, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -27,9 +27,9 @@ exit (nothing is caught):
               d {64, 100, 2048, 2050, 8192} x (f32/f32, bf16/bf16,
               bf16/f32) and unaligned views; flash over t != s, tails that
               are not a multiple of 64, GQA groups 1, 4, 8, head dims 16,
-              32, 64, 100 (openllama-3b's), 128, causal or not, window
-              0/100, softcap 0/30, f32 and bf16; tolerances printed and
-              asserted.  Then every dense config the port supports, at
+              32, 33 (4-byte copies; bf16 plain loads), 64, 100
+              (openllama-3b's), 128, causal or not, window 0/100, softcap
+              0/30, f32 and bf16; tolerances printed and asserted.  Then every dense config the port supports, at
               full width and 1 layer: the forward with grad mode off
               (training's eval loss; 1 flash and 3 rmsnorm launches)
               against the plain forward, and prefill against streamed
@@ -78,7 +78,9 @@ exit (nothing is caught):
               `fused_adamw_stats` and `fused_stats` as one list call and in
               the earlier pattern of one call a bucket, in turns with the
               library call; the list calls, rmsnorm and flash_attention
-              also held against their plain versions there.  Then the
+              also held against their plain versions there; flash_attention
+              also beside its split-TF32 tensor-core bound, and on bf16
+              copies beside SDPA on the same copies.  Then the
               step's tail (`worker_variance_stats_buffers` and the sharded
               AdamW update) in both calling patterns, host clock, at J = 1
               and on the J = 2 shards.
@@ -110,6 +112,9 @@ import torch  # noqa: E402
 MEM_BW = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12,
           "H200": 4.8e12}
 F32_FLOPS = 67e12
+# dense TF32 on the tensor cores (H100 SXM): flash_attention's f32 products
+# run as three TF32 products each (split TF32)
+TF32_FLOPS = 495e12
 # per element: fused AdamW reads p, g, m, v and writes p, m, v (~20 flops);
 # the stats kernels read x and y (d = x - y, d*d, + and y*y, +: 5 flops;
 # sqdiff_norm 3)
@@ -503,7 +508,7 @@ def check_serving_kernels(dev):
         (2, 300, 300, True, 100, 30.0), (1, 96, 150, False, 0, 0.0),
         (1, 130, 200, False, 100, 30.0), (1, 520, 520, True, 0, 0.0)]
     i = 0
-    for d in (16, 32, 64, 100, 128):
+    for d in (16, 32, 33, 64, 100, 128):       # 33: 4-byte copies; bf16 plain loads
         for h, kvh in ((8, 8), (8, 2), (8, 1)):
             for dt in (f32, bf16):
                 b, t, sl, causal, window, cap = shapes[i % len(shapes)]
@@ -769,9 +774,26 @@ def time_serving_kernels(dev, bw):
                 is_causal=True, enable_gqa=True), 5) for _ in range(2)],
             "bound_bytes_ms": 2 * (q.numel() + k.numel()) * 4 / bw * 1e3,
             # q.k and p.v, 2 flops a multiply-add each, over the visible
-            # (query, key) pairs of the causal mask: t(t+1)/2 a head
+            # (query, key) pairs of the causal mask: t(t+1)/2 a head; on the
+            # CUDA cores in f32, and as the kernel runs them: three TF32
+            # products each on the tensor cores
             "bound_ops_ms": 4 * b * h * hd * t * (t + 1) / 2 / F32_FLOPS * 1e3,
+            "bound_tc_ms": 3 * 4 * b * h * hd * t * (t + 1) / 2 / TF32_FLOPS * 1e3,
             "shape": [b, t, h, kvh, hd]}
+        del want, got
+        # the kernel on bf16 copies, with SDPA on the same copies as a
+        # second yardstick (timed only: the port never calls it)
+        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+        want = ref.flash_attention_ref(qb, kb, vb, causal=True)
+        got = flash_attention(qb, kb, vb, causal=True)
+        torch.testing.assert_close(got, want, **SERVE_TOL["bf16"])
+        out["flash_attention"]["bf16"] = {
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "ms": [cuda_ms(lambda: flash_attention(qb, kb, vb, causal=True), 5)
+                   for _ in range(2)],
+            "library_bf16_ms": [cuda_ms(lambda: F.scaled_dot_product_attention(
+                qb.transpose(1, 2), kb.transpose(1, 2), vb.transpose(1, 2),
+                is_causal=True, enable_gqa=True), 5) for _ in range(2)]}
     return out
 
 
@@ -1212,14 +1234,17 @@ def main() -> int:
                      "flash_attention": serve_launches["flash_attention"]}
     entries = []
     for k, t in timed.items():
-        bound = max(t["bound_bytes_ms"], t["bound_ops_ms"])
+        # the operations each kernel does, at their type's rate: flash's
+        # are TF32 products on the tensor cores
+        ops_ms = t.get("bound_tc_ms", t["bound_ops_ms"])
+        bound = max(t["bound_bytes_ms"], ops_ms)
         entries.append({
             "name": k, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{sources[k]}",
             "replaces": replaces[k], "launches": path_launches[k],
             "max_abs_err": err[k], "ms": min(t["ms"]), "plain_ms": min(t["plain_ms"]),
             "bound_ms": bound,
-            "bound_by": "bytes" if t["bound_bytes_ms"] >= t["bound_ops_ms"] else "operations",
+            "bound_by": "bytes" if t["bound_bytes_ms"] >= ops_ms else "operations",
             "library_ms": min(t["library_ms"])})
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

@@ -500,7 +500,9 @@ template <> struct Wgmma<128> {
 // two stages of V as landed; two stages of V^T's hi and lo.
 template <int DP>
 struct F32Tiles {
-  static __host__ __device__ constexpr int bytes(int bq, int bk) { return 4 * (2 * bq * DP + 9 * bk * DP); }
+  static __host__ __device__ constexpr int bytes(int bq, int bk) {
+    return 4 * (2 * bq * DP + 9 * bk * DP);
+  }
   static constexpr int BQ = bytes(128, 64) <= kSmemMax ? 128 : 64;
   static constexpr int BK = bytes(BQ, 64) <= kSmemMax ? 64 : 32;
   static constexpr int NT = 2 * BQ;                 // a warpgroup per 64 rows

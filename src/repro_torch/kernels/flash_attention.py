@@ -1,5 +1,6 @@
-"""CUDA kernel: forward attention with an online softmax — causal
-(top-left aligned), sliding window, logit soft-capping, GQA.
+"""CUDA kernel: forward attention with an online softmax on the tensor
+cores (split TF32 for f32, bf16 MMA for bf16) — causal (top-left aligned),
+sliding window, logit soft-capping, GQA.
 
 Replaces the TPU kernel `flash_attention` of
 `repro/kernels/flash_attention.py`, the reference's drop-in for

@@ -31,8 +31,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
+# -split-compile=0: the front end and ptxas work on a source's kernels in
+# parallel, a job a core; flash_attention.cu's 16 kernels would otherwise
+# take most of a build
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 def nvcc() -> str:

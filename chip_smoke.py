@@ -84,6 +84,37 @@ exit (nothing is caught):
               step's tail (`worker_variance_stats_buffers` and the sharded
               AdamW update) in both calling patterns, host clock, at J = 1
               and on the J = 2 shards.
+9. the training surface beyond the main path:
+   estimators — eq. 3 (`per_sample_norm_test`, per-sample gradients by
+              vmap) and eq. 4 (`exact_variance_test_holds`) on the
+              microllama smoke config, b = 8, the card against the CPU
+              (rtol 1e-5; booleans equal).
+   mixed    — the four residency combinations of both steps on the card,
+              microllama-300m at full width and 2 layers (ACCUM-NORM in
+              this process, FSDP-Norm on 2 gloo ranks), 2 steps each, held
+              against the card's tree/tree step (metrics rtol 1e-5, params
+              rtol and atol 1e-5).
+   local-sgd — one flat-resident local-SGD round (H = 2, flat stats) on 2
+              gloo ranks, the card against the CPU (metrics at the
+              card-vs-CPU tolerance); per rank one `fused_stats` launch a
+              round and one `fused_adamw_stats` a local step per dtype
+              group.
+   resume-accum — full-width, full-depth microllama-300m, ACCUM-NORM,
+              flat stats and params: an uninterrupted 6-step run; the same
+              job through `python -m repro_torch.launch.train` with a
+              checkpoint every 2 steps, killed by the fault harness
+              (SIGKILL) at the top of step 5; `run_training(resume=True)`
+              to step 6.  Losses, batches, var_l1, eval losses and the
+              step-6 checkpoints (params, moments, count, controller state)
+              must be bit-identical; the resumed path's launch counts (one
+              `fused_adamw_stats` a step per dtype group; one eval's flash
+              and rmsnorm) are asserted; free space, checkpoint bytes and
+              the save and restore times are printed, and the checkpoint
+              directory is removed, passed or failed.
+   resume-fsdp — the same with FSDP-Norm on 2 gloo ranks sharing the card
+              (full depth): 6 steps; 4 steps with checkpoints, then a fresh
+              `run_training(resume=True)` to 6, in one process group; the
+              flat shards are gathered on save and re-split on resume.
 
 Every process the run started (nvcc, the ranks and the resource tracker
 that spawning them starts) must have ended by then; a child still there
@@ -797,6 +828,448 @@ def time_serving_kernels(dev, bw):
     return out
 
 
+# crash-safe training: the jobs of phases resume-accum and resume-fsdp.
+# total_samples is fixed (TRAIN_JOB's 6 x 32), so a run cut short at step 4
+# sees the same learning rates as the 6-step run; an eval at steps 3 and 6
+# puts rmsnorm and flash_attention (grad mode off) on the resumed path too
+RESUME_JOB = dict(TRAIN_JOB, total_samples=6 * 32, eval_every=3, eval_batches=1)
+RESUME_FSDP_JOB = dict(RESUME_JOB, step_impl="fsdp_norm", mesh_data=2,
+                       dist_backend="gloo")
+# the mixed and local-SGD phases: microllama-300m at full width, 2 layers
+SMALL_LAYERS = 2
+LOCAL_H = 2
+# a residency combination against tree/tree on the card, 2 steps: metrics
+# and params (f32; AdamW moves an entry whose gradient is within a few eps
+# of zero by up to lr = 1e-3 on last-bit differences in the clip scale)
+MIXED_TOL = 1e-5
+# estimators: eq. 3 and eq. 4 on the card against the CPU
+EST_RTOL = 1e-5
+
+
+def cli_args(job: dict) -> list:
+    """`python -m repro_torch.launch.train` arguments for a TrainJob dict."""
+    args = []
+    for k, v in job.items():
+        if k == "smoke":
+            args += [] if v else ["--full-size"]
+        elif isinstance(v, bool):
+            args += [f"--{k.replace('_', '-')}"] if v else []
+        else:
+            args += [f"--{k.replace('_', '-')}", str(v)]
+    return args
+
+
+def same_checkpoint(dir_a: str, dir_b: str, step: int) -> int:
+    """Raise unless the two checkpoints of `step` hold bit-identical arrays
+    (params, moments, count) and equal controller state and samples
+    cursor; returns the npz's bytes."""
+    import numpy as np
+    name = f"ckpt_{step:08d}"
+    a, b = (np.load(Path(d, f"{name}.npz")) for d in (dir_a, dir_b))
+    if sorted(a.files) != sorted(b.files):
+        raise AssertionError(f"checkpoint entries differ: {a.files} vs {b.files}")
+    for k in a.files:
+        x, y = a[k], b[k]
+        if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+            raise AssertionError(f"checkpoint entry {k} differs between {dir_a} "
+                                 f"and {dir_b}")
+    ma, mb = (json.loads(Path(d, f"{name}.json").read_text()) for d in (dir_a, dir_b))
+    for k in ("controller", "samples", "step"):
+        if ma[k] != mb[k]:
+            raise AssertionError(f"checkpoint {k} differs: {ma[k]} vs {mb[k]}")
+    return Path(dir_a, f"{name}.npz").stat().st_size
+
+
+def same_suffix(resumed: dict, ref: dict, k: int):
+    """Raise unless the resumed run's history equals the uninterrupted run's
+    from step k+1 on, bit for bit."""
+    if resumed["resumed_from"] != k:
+        raise AssertionError(f"resumed from {resumed['resumed_from']}, not {k}")
+    for key in ("loss", "global_batch", "samples", "var_l1", "val_loss"):
+        got, want = resumed[key], ref[key][k:]
+        if [repr(x) for x in got] != [repr(x) for x in want]:
+            raise AssertionError(f"resumed {key} {got} != uninterrupted {want}")
+
+
+class CheckpointTimer:
+    """Times the checkpoint work of `run_training` in this process: the
+    gather and conversion to the on-disk layout, the npz write (fsync
+    included), the read, and the conversion back to the job's residency on
+    the card (host clock; the copy to the card ends in a sync)."""
+
+    def __init__(self):
+        from repro_torch.launch import train as T
+        self.T, self.secs, self.saved = T, {}, []
+        L = T._CheckpointLayout
+        self.patched = [(T, "save_checkpoint"), (T, "restore_checkpoint"),
+                        (L, "to_reference"), (L, "from_reference")]
+        self.orig = [getattr(o, n) for o, n in self.patched]
+        for (obj, name), fn in zip(self.patched, self.orig):
+            setattr(obj, name, self.timed(name, fn))
+
+    def timed(self, name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.secs.setdefault(name, []).append(round(time.perf_counter() - t0, 3))
+            return out
+        return run
+
+    def close(self):
+        for (obj, name), fn in zip(self.patched, self.orig):
+            setattr(obj, name, fn)
+
+
+def resume_accum(smi, ops, layout):
+    """Phase resume-accum: full-width microllama-300m, ACCUM-NORM, flat
+    stats and params.  An uninterrupted 6-step run (one checkpoint, at
+    the end); the same job in a child process with a checkpoint every 2
+    steps, killed by the fault harness (SIGKILL) at the top of step 5;
+    `run_training(resume=True)` to step 6.  Losses, batches, var_l1 and the
+    eval losses must equal the uninterrupted run's bit for bit, and so
+    must the step-6 checkpoints (params, moments, count, controller state,
+    samples cursor).  The checkpoint directory is removed at the end,
+    passed or failed."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.store import latest_step
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainJob, run_training
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(tmp).free
+    say("resume-accum", part="start", nvidia_smi=smi, tmpdir=tmp, free_bytes=free)
+    timer = CheckpointTimer()
+    try:
+        t0 = time.time()
+        ref = run_training(TrainJob(**RESUME_JOB, checkpoint_dir=f"{tmp}/ref"))
+        ref = {k: ref[k] for k in ("loss", "global_batch", "samples", "var_l1",
+                                   "val_loss", "time")}
+        gc.collect()
+        torch.cuda.empty_cache()          # the child needs the card's memory
+        run = dict(RESUME_JOB, checkpoint_dir=f"{tmp}/run", checkpoint_every=2)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   REPRO_FAULTS=json.dumps([{"site": "train.step", "at": 5,
+                                             "action": "die"}]))
+        t1 = time.time()
+        child = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                                *cli_args(run)], cwd=ROOT, env=env,
+                               capture_output=True, text=True, timeout=600)
+        child_s = time.time() - t1
+        if child.returncode != -9:
+            raise AssertionError(f"the child was to die by SIGKILL at step 5; exit "
+                                 f"{child.returncode}\n{child.stdout[-2000:]}\n"
+                                 f"{child.stderr[-4000:]}")
+        if latest_step(run["checkpoint_dir"]) != 4:
+            raise AssertionError(f"latest checkpoint {latest_step(run['checkpoint_dir'])}"
+                                 f", expected 4: {os.listdir(run['checkpoint_dir'])}")
+        ops.reset_launch_counts()
+        resumed = run_training(TrainJob(**run, resume=True))
+        launches = ops.launch_counts()
+        same_suffix(resumed, ref, 4)
+        groups = adamw_groups(layout)
+        layers = get_config(TRAIN_JOB["arch"]).num_layers
+        want = {k: 0 for k in KERNELS} | {"fused_adamw_stats": 2 * groups,
+                                          "flash_attention": layers,
+                                          "rmsnorm": 2 * layers + 1}
+        if launches != want:
+            raise AssertionError(f"resumed path launched {launches}, expected {want}")
+        nbytes = same_checkpoint(f"{tmp}/ref", run["checkpoint_dir"], 6)
+        written = sum(f.stat().st_size for f in Path(tmp).rglob("ckpt_*"))
+        step_ms = [round(1e3 * (b - a), 3)
+                   for a, b in zip([0.0] + resumed["time"][:-1], resumed["time"])]
+        say("resume-accum", nvidia_smi=smi, bit_identical=True, killed_at_step=5,
+            resumed_from=4, loss=resumed["loss"], global_batch=resumed["global_batch"],
+            val_loss=resumed["val_loss"], launches=launches,
+            resumed_step_ms=step_ms, checkpoint_bytes=nbytes, bytes_written=written,
+            checkpoints=sorted(str(p.relative_to(tmp)) for p in Path(tmp).rglob("*.npz")),
+            seconds=timer.secs, child_s=round(child_s, 3),
+            phase_s=round(time.time() - t0, 3), free_bytes_before=free)
+    finally:
+        timer.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def resume_fsdp_rank(job, root):
+    """One rank of phase resume-fsdp: the uninterrupted 6-step run (one
+    checkpoint, at the end), a 4-step run with a checkpoint every 2 steps,
+    and a fresh `run_training(resume=True)` to step 6, in one process
+    group.  Returns rank 0's histories."""
+    from repro_torch.launch.train import TrainJob, run_training
+    keep = ("loss", "global_batch", "samples", "var_l1", "val_loss",
+            "resumed_from", "time", "ranks")
+    runs = (("ref", dict(checkpoint_dir=f"{root}/ref")),
+            ("first", dict(steps=4, checkpoint_dir=f"{root}/run",
+                           checkpoint_every=2)),
+            ("resumed", dict(checkpoint_dir=f"{root}/run", checkpoint_every=2,
+                             resume=True)))
+    out = {}
+    for name, over in runs:
+        t0 = time.time()
+        hist = run_training(TrainJob(**{**job, **over}))
+        out[name] = {k: hist[k] for k in keep} | {"wall_s": time.time() - t0}
+        del hist
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def resume_fsdp(smi, fsdp_layout):
+    """Phase resume-fsdp: two gloo ranks share the card, FSDP-Norm on
+    full-width microllama-300m with flat stats and params: the param and
+    moment shards are gathered into whole buffers on save (rank 0 writes)
+    and re-split on resume.  The resumed run and its step-6 checkpoint must
+    equal the uninterrupted run's bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_workers
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(tmp).free
+    try:
+        t0 = time.time()
+        out = spawn_workers(resume_fsdp_rank, 2, RESUME_FSDP_JOB, tmp, backend="gloo")
+        same_suffix(out["resumed"], out["ref"], 4)
+        nbytes = same_checkpoint(f"{tmp}/ref", f"{tmp}/run", 6)
+        layers = get_config(TRAIN_JOB["arch"]).num_layers
+        want = {k: 0 for k in KERNELS} | {
+            "fused_stats": 2, "fused_adamw_stats": 2 * adamw_groups(fsdp_layout),
+            "flash_attention": layers, "rmsnorm": 2 * layers + 1}
+        got = [r["launches"] for r in out["resumed"]["ranks"]]
+        if got != [want, want]:
+            raise AssertionError(f"resumed ranks launched {got}, expected {want} each")
+        res = out["resumed"]
+        step_ms = [round(1e3 * (b - a), 3)
+                   for a, b in zip([0.0] + res["time"][:-1], res["time"])]
+        say("resume-fsdp", nvidia_smi=smi, workers=2, backend="gloo",
+            layers=layers, bit_identical=True, resumed_from=4, loss=res["loss"],
+            global_batch=res["global_batch"], val_loss=res["val_loss"],
+            launches=got, resumed_step_ms=step_ms, checkpoint_bytes=nbytes,
+            bytes_written=sum(f.stat().st_size for f in Path(tmp).rglob("ckpt_*")),
+            run_wall_s={k: round(v["wall_s"], 3) for k, v in out.items()},
+            phase_s=round(time.time() - t0, 3), free_bytes_before=free)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def small_config():
+    from repro_torch.configs import get_config
+    return get_config(TRAIN_JOB["arch"]).replace(num_layers=SMALL_LAYERS)
+
+
+def mixed_local_rank(cpu_params, batches, local_batch):
+    """One rank of phases mixed and local-sgd (2 gloo ranks on the card and
+    on the CPU).  mixed: FSDP-Norm's four residency combinations, 2 steps
+    each on the card.  local-sgd: one flat-resident round (H local steps,
+    flat stats) on the CPU and on the card, with its launch counts.
+    Returns every rank's results (a list)."""
+    import torch.distributed as dist
+    from repro_torch.distributed.local_step import make_local_sgd_step
+    from repro_torch.distributed.sharding import gather_flat_buffers, shard_flat_buffers
+    from repro_torch.distributed.train_step import batch_to_device, make_fsdp_norm_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import num_workers, rank_device, worker_index
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig, init_adamw, init_adamw_flat
+    from repro_torch.tree import tree_leaves, tree_map
+
+    model = build_model(small_config())
+    J, rank = num_workers(), worker_index()
+    dev = rank_device("cuda", rank)
+    out = {"mixed": {}, "local": {}}
+    for stats_impl in ("tree", "flat"):
+        for params_impl in ("tree", "flat"):
+            params = tree_map(lambda x: x.to(dev, copy=True), cpu_params)
+            wrap = make_fsdp_norm_step(model, AdamWConfig(), stats_impl=stats_impl,
+                                       params_impl=params_impl, params_like=params,
+                                       device=dev)
+            layout = wrap.flat_layout
+            opt = (init_adamw_flat(params, shard_divisor=J, layout=layout, device=dev)
+                   if stats_impl == "flat" else init_adamw(params))
+            if params_impl == "flat":
+                params = tuple(shard_flat_buffers(layout.flatten(params)))
+            mets = []
+            for b in batches:
+                params, opt, m = wrap(b)(params, opt, batch_to_device(b, dev), 1e-3)
+                mets.append({k: float(m[k]) for k in METRICS})
+            full = (layout.unflatten(gather_flat_buffers(list(params)))
+                    if params_impl == "flat" else params)
+            out["mixed"][f"{stats_impl}/{params_impl}"] = {
+                "metrics": mets, "params": [x.detach().cpu() for x in tree_leaves(full)]}
+            del params, opt, full
+    for d in ("cpu", "cuda"):
+        dv = rank_device(d, rank)
+        params = tree_map(lambda x: x.to(dv, copy=True), cpu_params)
+        wrap = make_local_sgd_step(model, AdamWConfig(), stats_impl="flat",
+                                   params_impl="flat", params_like=params, device=dv)
+        opt = init_adamw_flat(params, layout=wrap.flat_layout, device=dv)
+        pb = tuple(wrap.flat_layout.flatten(params))
+        ops.reset_launch_counts()
+        pb, opt, m = wrap(local_batch)(pb, opt, batch_to_device(local_batch, dv), 1e-3)
+        launches = ops.launch_counts()
+        out["local"][d] = {"metrics": {k: float(v) for k, v in m.items()},
+                           "launches": launches,
+                           "groups": adamw_groups(wrap.flat_layout),
+                           "params": [x.detach().cpu() for x in pb]}
+    every = [None] * J
+    dist.all_gather_object(every, {"mixed": {k: v["metrics"] for k, v in out["mixed"].items()},
+                                   "local": {k: {kk: vv for kk, vv in v.items()
+                                                 if kk != "params"}
+                                             for k, v in out["local"].items()}})
+    every[rank]["mixed_params"] = {k: v["params"] for k, v in out["mixed"].items()}
+    every[rank]["local_params"] = {k: v["params"] for k, v in out["local"].items()}
+    return every
+
+
+def max_rel(a, b) -> float:
+    return max(float((x.float() - y.float()).abs().max() /
+                     y.float().abs().max().clamp_min(1e-30)) for x, y in zip(a, b))
+
+
+def mixed_and_local(smi, ops, dev):
+    """Phases mixed and local-sgd.  mixed: both mixed residency
+    combinations (and flat/flat) of both steps on the card, microllama-300m
+    at full width and 2 layers, held against the card's tree/tree step:
+    2 steps, metrics at rtol 1e-5, final params at rtol and atol 1e-5;
+    ACCUM-NORM in this process,
+    FSDP-Norm on 2 gloo ranks.  local-sgd: one flat-resident round of
+    H = 2 local steps with flat stats on 2 gloo ranks, the card against the
+    CPU's plain route (metrics at REF_RTOL); each rank's launches: one
+    `fused_stats` a round and one `fused_adamw_stats` a local step per
+    dtype group."""
+    import numpy as np
+    from repro_torch.core.schedule import BatchPlan
+    from repro_torch.data.pipeline import MarkovTokens, make_batch
+    from repro_torch.distributed.train_step import batch_to_device, make_accum_norm_step
+    from repro_torch.launch.mesh import spawn_workers
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig, init_adamw, init_adamw_flat
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = small_config()
+    model = build_model(cfg)
+    cpu_params = model.init(0, "cpu")
+    src = MarkovTokens(vocab_size=cfg.vocab_size, seed=0)
+    t0 = time.time()
+    # ACCUM-NORM, this process
+    plan = BatchPlan(global_batch=8, micro_batch=4, accum_steps=2, workers=1)
+    batches = [make_batch(src, t, plan, 128) for t in range(2)]
+    accum = {}
+    for stats_impl in ("tree", "flat"):
+        for params_impl in ("tree", "flat"):
+            params = tree_map(lambda x: x.to(dev, copy=True), cpu_params)
+            wrap = make_accum_norm_step(model, AdamWConfig(), stats_impl=stats_impl,
+                                        params_impl=params_impl, params_like=params,
+                                        device=dev)
+            layout = wrap.flat_layout
+            opt = (init_adamw_flat(params, layout=layout, device=dev)
+                   if stats_impl == "flat" else init_adamw(params))
+            if params_impl == "flat":
+                params = tuple(layout.flatten(params))
+            mets = []
+            for b in batches:
+                params, opt, m = wrap(b)(params, opt, batch_to_device(b, dev), 1e-3)
+                mets.append({k: float(m[k]) for k in METRICS})
+            full = layout.unflatten(list(params)) if params_impl == "flat" else params
+            accum[f"{stats_impl}/{params_impl}"] = (
+                mets, [x.detach().clone() for x in tree_leaves(full)])
+            del params, opt, full
+    # FSDP-Norm and local-SGD, two gloo ranks
+    fplan = BatchPlan(global_batch=8, micro_batch=2, accum_steps=2, workers=2)
+    fbatches = [make_batch(src, t, fplan, 128) for t in range(2)]
+    lplan = BatchPlan(global_batch=4, micro_batch=2, accum_steps=1, workers=2)
+    lb = [make_batch(src, 10 + s, lplan, 64) for s in range(LOCAL_H)]
+    local_batch = {k: np.stack([b[k][0] for b in lb]) for k in lb[0]}
+    ranks = spawn_workers(mixed_local_rank, 2, cpu_params, fbatches, local_batch,
+                          backend="gloo")
+    errs, bad = {}, []
+    for step_impl, runs in (("accum_norm", accum),
+                            ("fsdp_norm", {k: (v, ranks[0]["mixed_params"][k])
+                                           for k, v in ranks[0]["mixed"].items()})):
+        o_mets, o_params = runs["tree/tree"]
+        for combo, (mets, params) in runs.items():
+            tag = f"{step_impl}/{combo}"
+            for a, b in zip(mets, o_mets):
+                bad += [f"{tag} {k}: {a[k]} vs {b[k]}" for k in METRICS
+                        if not math.isclose(a[k], b[k], rel_tol=MIXED_TOL, abs_tol=1e-7)]
+            errs[tag] = max(float((x.float().cpu() - y.float().cpu()).abs().max())
+                            for x, y in zip(params, o_params))
+            bad += [f"{tag} params" for x, y in zip(params, o_params)
+                    if not torch.allclose(x.float().cpu(), y.float().cpu(),
+                                          rtol=MIXED_TOL, atol=MIXED_TOL)][:1]
+    say("mixed", nvidia_smi=smi, layers=SMALL_LAYERS, steps=2, rtol=MIXED_TOL,
+        params_atol=MIXED_TOL, params_max_abs_diff=errs,
+        fsdp_workers=2, metrics={"accum_norm": {k: v[0] for k, v in accum.items()},
+                                 "fsdp_norm": ranks[0]["mixed"]})
+    if bad:
+        raise AssertionError(f"mixed residency vs tree/tree on the card: {bad}")
+    for rank, r in enumerate(ranks):
+        card, cpu = r["local"]["cuda"], r["local"]["cpu"]
+        for k in ("loss", "var_l1", "grad_sqnorm"):
+            if not close(card["metrics"][k], cpu["metrics"][k], REF_RTOL):
+                raise AssertionError(f"rank {rank} local round, card vs CPU {k}: "
+                                     f"{card['metrics'][k]} vs {cpu['metrics'][k]}")
+        if cpu["launches"] != {k: 0 for k in KERNELS}:
+            raise AssertionError(f"the CPU round launched {cpu['launches']}")
+        want = {k: 0 for k in KERNELS} | {"fused_stats": 1,
+                                          "fused_adamw_stats": LOCAL_H * card["groups"]}
+        if card["launches"] != want:
+            raise AssertionError(f"rank {rank} local round launched "
+                                 f"{card['launches']}, expected {want}")
+        if not card["metrics"]["var_l1"] > 0:
+            raise AssertionError(f"no update divergence: {card['metrics']}")
+    local = ranks[0]["local_params"]
+    say("local-sgd", nvidia_smi=smi, layers=SMALL_LAYERS, H=LOCAL_H, workers=2,
+        rtol=REF_RTOL, card=ranks[0]["local"]["cuda"]["metrics"],
+        cpu=ranks[0]["local"]["cpu"]["metrics"],
+        launches=[r["local"]["cuda"]["launches"] for r in ranks],
+        params_rel_err=max_rel(local["cuda"], local["cpu"]),
+        phase_s=round(time.time() - t0, 3))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def estimators(smi, dev):
+    """Phase estimators: eq. 3 (`per_sample_norm_test`, exact per-sample
+    gradients by vmap) and eq. 4 (`exact_variance_test_holds`) on the
+    microllama smoke config, b = 8, on the card against the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.norm_test import exact_variance_test_holds, per_sample_norm_test
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_map
+
+    cfg = get_smoke_config(TRAIN_JOB["arch"])
+    model = build_model(cfg)
+    cpu_params = model.init(0, "cpu")
+    gen = torch.Generator().manual_seed(17)
+    toks = torch.randint(0, cfg.vocab_size, (8, 33), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss = lambda p, ex: model.loss(p, {k: v[None] for k, v in ex.items()})[0]
+    out = {}
+    for d in ("cpu", "cuda"):
+        params = tree_map(lambda x: x.to(d, copy=True), cpu_params)
+        b = {k: v.to(d) for k, v in batch.items()}
+        res = per_sample_norm_test(loss, params, b, 0.2)
+        grads = torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))(params, b)
+        holds = [bool(exact_variance_test_holds(grads, eta)) for eta in (0.5, 1, 2, 4, 8)]
+        out[d] = ({k: float(res[k]) for k in ("T", "lhs_over_b", "var_l1",
+                                              "grad_sqnorm")}, holds)
+    for k, v in out["cuda"][0].items():
+        if not close(v, out["cpu"][0][k], EST_RTOL):
+            raise AssertionError(f"per_sample_norm_test {k}: card {v} vs CPU "
+                                 f"{out['cpu'][0][k]}")
+    if out["cuda"][1] != out["cpu"][1]:
+        raise AssertionError(f"exact_variance_test_holds: card {out['cuda'][1]} "
+                             f"vs CPU {out['cpu'][1]}")
+    say("estimators", nvidia_smi=smi, b=8, rtol=EST_RTOL, card=out["cuda"][0],
+        cpu=out["cpu"][0], exact_test_holds=out["cuda"][1])
+
+
 def child_processes() -> dict:
     """{pid: command line} of this process's children that have not been
     reaped, those of every thread."""
@@ -822,6 +1295,7 @@ def main() -> int:
     from repro_torch.kernels.fused_stats import fused_stats, fused_stats_buckets
     from repro_torch.kernels.sqdiff_norm import sqdiff_norm
 
+    t_start = time.time()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1213,6 +1687,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     say("time-tail", nvidia_smi=smi, **time_tail(dev, sizes))
+
+    # the training surface beyond the main path: the exact estimators, mixed
+    # residency, local-SGD, and crash-safe resume in both steps
+    estimators(smi, dev)
+    mixed_and_local(smi, ops, dev)
+    resume_accum(smi, ops, layout)
+    resume_fsdp(smi, fsdp_layout)
     left = child_processes()
     if left:
         raise AssertionError(f"processes the run started are still there: {left}")
@@ -1246,6 +1727,7 @@ def main() -> int:
             "bound_ms": bound,
             "bound_by": "bytes" if t["bound_bytes_ms"] >= ops_ms else "operations",
             "library_ms": min(t["library_ms"])})
+    say("total", seconds=round(time.time() - t_start, 3))
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

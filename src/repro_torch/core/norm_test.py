@@ -3,6 +3,9 @@
 pair (var_l1, grad_sqnorm) from which the controller computes
 T_k = var_l1 / (η² · grad_sqnorm):
 
+* `per_sample_norm_test` — eq. (3): exact per-sample gradients through
+  `torch.func.vmap(torch.func.grad(...))` (single-device / validation
+  scale only; the paper explains why this is impractical at LLM scale).
 * `worker_variance_stats` and its flat-buffer forms — eq. (5)
   DDP-/FSDP-Norm: the variance of the J workers' minibatch gradients.  A
   worker is a `torch.distributed` rank (`launch/mesh.py`); where the
@@ -12,6 +15,9 @@ T_k = var_l1 / (η² · grad_sqnorm):
 * `accum_variance_stats` — beyond-paper ACCUM-NORM: variance across the M
   gradient-accumulation microbatch gradients, rescaled onto the per-worker
   minibatch scale of eq. (5).
+
+`exact_variance_test_holds` is the exact-variance test (eq. 4) on
+materialized per-sample gradients, used to validate the estimators.
 
 The statistics stay 0-d tensors on the device: nothing here reads a value
 on the host.  All reductions are float32 regardless of gradient dtype.
@@ -44,6 +50,35 @@ def tree_sqdiff(tree_a, tree_b) -> torch.Tensor:
     for a, b in zip(la, lb):
         acc = acc + torch.sum(torch.square(a.float() - b.float()))
     return acc
+
+
+# ------------------------------------------------------- eq. (3) exact ----
+
+def per_sample_norm_test(loss_fn, params, batch, eta: float):
+    """Vanilla norm test (eq. 3) with exact per-sample gradients via vmap.
+
+    loss_fn(params, single_example_batch) -> 0-d tensor; `batch` is a
+    tensor or a tree of tensors with a leading example axis.  Returns
+    dict(T, lhs_over_b, var_l1, grad_sqnorm, grad), `grad` the mean
+    gradient tree."""
+    b = tree_leaves(batch)[0].shape[0]
+    per_sample = torch.func.vmap(torch.func.grad(loss_fn),
+                                 in_dims=(None, 0))(params, batch)
+    mean_grad = tree_map(lambda g: torch.mean(g, dim=0), per_sample)
+
+    # ‖Var_i(∇ℓ_i)‖₁ = 1/(b-1) Σ_i ‖∇ℓ_i − ∇L_B‖²  (sum over coordinates)
+    def var_leaf(ps, m):
+        d = ps.float() - m.float()[None]
+        return torch.sum(torch.square(d)) / max(b - 1, 1)
+
+    terms = tree_leaves(tree_map(var_leaf, per_sample, mean_grad))
+    var_l1 = torch.zeros((), dtype=torch.float32, device=terms[0].device)
+    for t in terms:
+        var_l1 = var_l1 + t
+    gsq = tree_sqnorm(mean_grad)
+    stat = var_l1 / b / (eta**2 * gsq + 1e-30)
+    return {"T": var_l1 / (eta**2 * gsq + 1e-30), "lhs_over_b": stat,
+            "var_l1": var_l1, "grad_sqnorm": gsq, "grad": mean_grad}
 
 
 # ------------------------------------------- eq. (5) DDP-/FSDP-Norm ----
@@ -128,3 +163,23 @@ def accum_variance_stats(micro_grads_sq_sum, mean_grad, num_micro,
     var_l1 = torch.where(m > 1, v_m * (workers / torch.clamp(m, min=1.0)),
                          torch.zeros_like(v_m))
     return var_l1, gsq
+
+
+# ----------------------------------------------------- exact variance ----
+
+def exact_variance_test_holds(per_sample_grads, eta: float) -> torch.Tensor:
+    """The exact-variance norm test (eq. 4) on materialized per-sample
+    gradients (a tree, leading sample axis) — used to validate the
+    estimators and Proposition 1's E-SG bound.  A 0-d bool tensor."""
+    mean = tree_map(lambda g: torch.mean(g, dim=0), per_sample_grads)
+    b = tree_leaves(per_sample_grads)[0].shape[0]
+
+    def dev(ps, m):
+        d = ps.float() - m.float()[None]
+        return torch.sum(torch.square(d)) / b   # E‖g_B − ∇L‖² for b=1 draws / b
+
+    terms = tree_leaves(tree_map(dev, per_sample_grads, mean))
+    lhs = torch.zeros((), dtype=torch.float32, device=terms[0].device)
+    for t in terms:
+        lhs = lhs + t
+    return lhs / b <= eta**2 * tree_sqnorm(mean)

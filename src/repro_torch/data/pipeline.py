@@ -14,6 +14,7 @@ Sources
 * `MarkovTokens`  — a fixed random 1st-order Markov chain over the vocab;
                     has learnable structure so smoke-training losses
                     actually fall.
+* `MemmapTokens`  — pre-tokenized int32 corpus on disk (numpy memmap).
 """
 
 from __future__ import annotations
@@ -66,6 +67,41 @@ class MarkovTokens(TokenSource):
             out[:, t] = state
             state = self._succ[state, choices[:, t]]
         return out
+
+
+@dataclasses.dataclass
+class MemmapTokens(TokenSource):
+    """Pre-tokenized flat corpus; sequence-packed sampling WITH replacement
+    (each draw is an independent uniform window start — there is no epoch
+    bookkeeping, so short corpora revisit windows within what would be one
+    epoch).  Requires at least `seq_len + 2` tokens: one window of
+    `seq_len + 1` for the shifted next-token labels, plus one valid start."""
+    path: str
+    vocab_size: int
+    seed: int = 0
+
+    def __post_init__(self):
+        try:
+            self._data = np.memmap(self.path, dtype=np.int32, mode="r")
+        except ValueError as e:   # np.memmap refuses zero-length files
+            raise ValueError(
+                f"MemmapTokens corpus {self.path!r} is empty or unreadable "
+                f"as int32 tokens: {e}") from e
+        if len(self._data) == 0:
+            raise ValueError(f"MemmapTokens corpus {self.path!r} is empty")
+
+    def sequences(self, step, count, seq_len):
+        n_tokens = len(self._data)
+        n_starts = n_tokens - (seq_len + 1)
+        if n_starts <= 0:
+            raise ValueError(
+                f"MemmapTokens corpus {self.path!r} has {n_tokens} tokens, "
+                f"too short to sample a seq_len={seq_len} training window: "
+                f"need at least {seq_len + 2} (seq_len + 1 tokens for the "
+                "shifted next-token labels, plus one valid start)")
+        rng = np.random.default_rng((self.seed, step))
+        starts = rng.integers(0, n_starts, count)
+        return np.stack([np.asarray(self._data[s : s + seq_len + 1]) for s in starts])
 
 
 def make_batch(source: TokenSource, step: int, plan: BatchPlan, seq_len: int,

@@ -199,5 +199,39 @@ class FlatLayout:
                 for n in self.buffer_sizes]
 
 
-__all__ = ["FlatLayout", "Slot", "default_bucket_bytes", "as_torch_dtype",
-           "DEFAULT_BUCKET_BYTES", "CPU_BUCKET_BYTES"]
+def flatten_tree(tree, bucket_bytes: int | None = None,
+                 shard_divisor: int = 1):
+    """One-shot convenience: (layout, buffers)."""
+    layout = FlatLayout.from_tree(tree, bucket_bytes, shard_divisor)
+    return layout, layout.flatten(tree)
+
+
+class FlatParams:
+    """Host-side residency wrapper for flat-resident parameters (DESIGN
+    §10): a `FlatLayout` plus the live bucket buffers.  The train steps
+    take and return the raw buffer tuple (`.buffers`); this wrapper owns
+    the layout so checkpointing can round-trip to the tree view (`to_tree`,
+    bit-exact) and rebuild the residency at another bucket size or worker
+    count (`from_tree`).  The reference registers it as a pytree node; here
+    it is a plain class."""
+
+    __slots__ = ("layout", "buffers")
+
+    def __init__(self, layout: FlatLayout, buffers):
+        self.layout = layout
+        self.buffers = tuple(buffers)
+
+    @classmethod
+    def from_tree(cls, tree, bucket_bytes: int | None = None,
+                  shard_divisor: int = 1):
+        layout = FlatLayout.from_tree(tree, bucket_bytes, shard_divisor)
+        return cls(layout, layout.flatten(tree))
+
+    def to_tree(self):
+        """The tree view (bit-exact; views, no casts)."""
+        return self.layout.unflatten(list(self.buffers))
+
+
+__all__ = ["FlatLayout", "FlatParams", "Slot", "flatten_tree",
+           "default_bucket_bytes", "as_torch_dtype", "DEFAULT_BUCKET_BYTES",
+           "CPU_BUCKET_BYTES"]

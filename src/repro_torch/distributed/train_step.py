@@ -12,7 +12,8 @@
 Both take a stacked-microbatch batch {tokens/labels: (M, B_global, seq)}
 and perform: accumulate grads over M -> statistic -> AdamW -> metrics.
 
-Two residency combinations (`stats_impl`, `params_impl`):
+Two residency switches (`stats_impl`, `params_impl`), all four
+combinations:
 
 * ('tree', 'tree') — the oracle: params are a tree of leaf tensors, the
   gradient accumulates into a tree of f32 tensors, AdamW runs leaf by leaf.
@@ -26,8 +27,15 @@ Two residency combinations (`stats_impl`, `params_impl`):
   FSDP-Norm the params and moments rest as the worker's 1/J shard of each
   bucket: the step all-gathers the params, and each worker updates its
   own shard.
-
-The mixed combinations are still to port (ROADMAP §1, item 1).
+* ('flat', 'tree') — tree-resident params with the flat tail: the mean
+  gradient and the params are packed once a step against the shared
+  layout, the statistic and the AdamW update run on the buffers (under
+  FSDP-Norm on the worker's 1/J shard, its moments a shard too), and the
+  updated params come back as views of the (all-gathered) buffers.
+* ('tree', 'flat') — flat-resident params with the tree-oracle tail: the
+  gradient is born flat, the statistic and AdamW run leaf by leaf on the
+  tree views, and the updated tree is packed back (under FSDP-Norm: the
+  worker's shard of it).
 """
 
 from __future__ import annotations
@@ -36,26 +44,21 @@ import torch
 
 from repro_torch.core.norm_test import (
     accum_variance_stats, paper_faithful_worker_variance, tree_sqnorm,
-    worker_variance_stats, worker_variance_stats_buffers)
+    worker_variance_stats, worker_variance_stats_buffers,
+    worker_variance_stats_flat)
 from repro_torch.distributed.flatbuf import FlatLayout
-from repro_torch.distributed.sharding import gather_flat_buffers, shard_bucket
+from repro_torch.distributed.sharding import (
+    gather_flat_buffers, shard_bucket, shard_flat_buffers)
 from repro_torch.launch.mesh import num_workers, psum, worker_index
 from repro_torch.optim.adamw import (
     AdamWConfig, adamw_update, adamw_update_buffers, clip_scale_from_norm)
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
-
-_MIXED = ("is not ported yet (ROADMAP §1, item 1: the mixed residency "
-          "combinations)")
 
 
 def _check_impls(stats_impl: str, params_impl: str):
     for name, val in (("stats_impl", stats_impl), ("params_impl", params_impl)):
         if val not in ("tree", "flat"):
             raise ValueError(f"{name} must be 'tree' or 'flat', got {val!r}")
-    if stats_impl != params_impl:
-        raise NotImplementedError(
-            f"stats_impl={stats_impl!r} with params_impl={params_impl!r} "
-            f"{_MIXED}")
 
 
 def batch_to_device(batch, device):
@@ -165,11 +168,12 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
     or 'paper' (eq. 5 literal: all-reduce the full (g_j − g)² vector; tree
     residency only, as in the reference).
 
-    Tree path: params and moments are whole trees, replicated on every
-    worker.  Flat path: `params` is the tuple of the worker's 1/J bucket
-    shards (`sharding.shard_flat_buffers` of the packed buffers) and
-    `opt_state` comes from `init_adamw_flat(layout=wrap.flat_layout)`,
-    whose buffers are shards too; both are updated in place and returned.
+    Tree params are whole trees, replicated on every worker; flat params
+    are the tuple of the worker's 1/J bucket shards
+    (`sharding.shard_flat_buffers` of the packed buffers).  Tree stats keep
+    whole moment trees; flat stats take `opt_state` from
+    `init_adamw_flat(layout=wrap.flat_layout)`, whose buffers are shards
+    too.  Flat/flat updates params and moments in place and returns them.
     `batch` holds the GLOBAL batch on the params' device; each worker
     takes its own slice.  Metrics are 0-d f32 tensors, equal on every
     worker.  Without `params_like` the step is built from `model.init(0,
@@ -183,15 +187,20 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
         raise ValueError("variance_impl='paper' (full-vector all-reduce "
                          "baseline) has no flat-buffer path; use "
                          "stats_impl='tree'")
+    if variance_impl == "paper" and params_impl == "flat":
+        raise ValueError("variance_impl='paper' walks tree-resident gradient "
+                         "leaves; use params_impl='tree'")
     if params_like is None:
         params_like = model.init(0, device)
     if device is None:
         device = tree_flatten(params_like)[0][0].device
     device = torch.device(device)
     J, idx = num_workers(), worker_index()
+    # ONE layout per step, shared by the statistics, the AdamW tail and
+    # the residency (None on the pure tree path)
     layout = (FlatLayout.from_tree(params_like, shard_divisor=J, device=device)
-              if params_impl == "flat" else None)
-    bufs = {}        # flat path: persistent full params, g_j and g buffers
+              if "flat" in (stats_impl, params_impl) else None)
+    bufs = {}        # flat params: persistent full params, g_j and g buffers
 
     def step(params, opt_state, batch, lr):
         batch = worker_batch(batch, idx, J)
@@ -218,10 +227,29 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
             acc = g_j
         loss, aux, _, _, w_j = _accumulate(model.loss, tree, batch, False, acc)
         w_sum = worker_mean(g_j, w_j, g)     # g_j stays: the statistic needs it
-        if params_impl == "flat":
+        if params_impl == "flat" and stats_impl == "flat":
             var_l1, gsq = worker_variance_stats_buffers(g_j, g)
             new_params, new_opt, gnorm = _sharded_buffer_update(
                 tuple(params), g, opt_state, opt_cfg, lr, gsq, idx, J)
+        elif params_impl == "flat":
+            # tree-oracle tail on the views, then the worker's shard of the
+            # packed result
+            g_tree = layout.unflatten(g)
+            var_l1, gsq = worker_variance_stats(layout.unflatten(g_j), g_tree)
+            with torch.no_grad():
+                new_tree, new_opt, gnorm = adamw_update(tree, g_tree, opt_state,
+                                                        opt_cfg, lr)
+            new_params = tuple(shard_flat_buffers(layout.flatten(new_tree)))
+        elif stats_impl == "flat":
+            # pack g and the params once; the fused pair hands back the
+            # packed mean gradient, the worker updates its shard, and the
+            # updated shards are gathered into the tree's buffers
+            g_j, g = tree_unflatten(treedef, g_j), tree_unflatten(treedef, g)
+            var_l1, gsq, gb = worker_variance_stats_flat(g_j, g, layout=layout)
+            pb_local = [shard_bucket(b, idx, J) for b in layout.flatten(params)]
+            pb_local, new_opt, gnorm = _sharded_buffer_update(
+                pb_local, gb, opt_state, opt_cfg, lr, gsq, idx, J)
+            new_params = layout.unflatten(gather_flat_buffers(pb_local))
         else:
             g_j, g = tree_unflatten(treedef, g_j), tree_unflatten(treedef, g)
             stats = (paper_faithful_worker_variance if variance_impl == "paper"
@@ -255,9 +283,9 @@ def make_accum_norm_step(model, opt_cfg: AdamWConfig, *,
     step's shared `FlatLayout` (None on the tree path).  The reference also
     returns sharding specs; a single-device step has none.
 
-    On the flat path `params` is the tuple of bucket buffers and
-    `opt_state` comes from `init_adamw_flat(layout=wrap.flat_layout)`; both
-    are updated in place and returned.  `batch` holds tensors on the
+    Flat params are the tuple of bucket buffers; flat stats take
+    `opt_state` from `init_adamw_flat(layout=wrap.flat_layout)`.  Flat/flat
+    updates both in place and returns them.  `batch` holds tensors on the
     params' device (`batch_to_device`); `lr` is a float or 0-d tensor.
     Metrics are 0-d f32 tensors on the device.  Without `params_like` the
     step is built from `model.init(0, device)`: on the CUDA card unless
@@ -270,8 +298,8 @@ def make_accum_norm_step(model, opt_cfg: AdamWConfig, *,
     device = torch.device(device)
     J = 1                      # one device: the data-parallel worker count
     layout = (FlatLayout.from_tree(params_like, shard_divisor=J, device=device)
-              if params_impl == "flat" else None)
-    grad_bufs = []             # persistent f32 gradient buffers (flat path)
+              if "flat" in (stats_impl, params_impl) else None)
+    grad_bufs = []             # persistent f32 gradient buffers (flat params)
 
     def step(params, opt_state, batch, lr):
         if params_impl == "flat":
@@ -284,12 +312,23 @@ def make_accum_norm_step(model, opt_cfg: AdamWConfig, *,
             acc = tree_flatten(layout.unflatten(grad_bufs))[0]
             loss, aux, sq_sum, m_eff, _ = _accumulate(
                 model.loss, tree, batch, True, acc)
-            _, new_mb, new_vb, count, gnorm, gsq = adamw_update_buffers(
-                pb, grad_bufs, list(opt_state["m"]), list(opt_state["v"]),
-                opt_cfg, lr, opt_state["count"])
-            new_params = tuple(pb)
-            new_opt = {"m": tuple(new_mb), "v": tuple(new_vb), "count": count}
-            var_l1, gsq = accum_variance_stats(sq_sum, None, m_eff, J, gsq=gsq)
+            if stats_impl == "flat":
+                _, new_mb, new_vb, count, gnorm, gsq = adamw_update_buffers(
+                    pb, grad_bufs, list(opt_state["m"]), list(opt_state["v"]),
+                    opt_cfg, lr, opt_state["count"])
+                new_params = tuple(pb)
+                new_opt = {"m": tuple(new_mb), "v": tuple(new_vb),
+                           "count": count}
+                var_l1, gsq = accum_variance_stats(sq_sum, None, m_eff, J,
+                                                   gsq=gsq)
+            else:
+                # tree-oracle tail on the views, packed back once
+                g = layout.unflatten(grad_bufs)
+                var_l1, gsq = accum_variance_stats(sq_sum, g, m_eff, J)
+                with torch.no_grad():
+                    new_tree, new_opt, gnorm = adamw_update(
+                        tree, g, opt_state, opt_cfg, lr)
+                new_params = tuple(layout.flatten(new_tree))
         else:
             leaves, treedef = tree_flatten(params)
             acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -297,10 +336,23 @@ def make_accum_norm_step(model, opt_cfg: AdamWConfig, *,
             loss, aux, sq_sum, m_eff, _ = _accumulate(
                 model.loss, params, batch, True, acc)
             g = tree_unflatten(treedef, acc)
-            var_l1, gsq = accum_variance_stats(sq_sum, g, m_eff, J)
-            with torch.no_grad():
-                new_params, new_opt, gnorm = adamw_update(
-                    params, g, opt_state, opt_cfg, lr)
+            if stats_impl == "flat":
+                # pack g and the params once; the fused tail updates the
+                # packed params, whose views are the new tree
+                pb = layout.flatten(params)
+                _, new_mb, new_vb, count, gnorm, gsq = adamw_update_buffers(
+                    pb, layout.flatten(g), list(opt_state["m"]),
+                    list(opt_state["v"]), opt_cfg, lr, opt_state["count"])
+                new_params = layout.unflatten(pb)
+                new_opt = {"m": tuple(new_mb), "v": tuple(new_vb),
+                           "count": count}
+                var_l1, gsq = accum_variance_stats(sq_sum, g, m_eff, J,
+                                                   gsq=gsq)
+            else:
+                var_l1, gsq = accum_variance_stats(sq_sum, g, m_eff, J)
+                with torch.no_grad():
+                    new_params, new_opt, gnorm = adamw_update(
+                        params, g, opt_state, opt_cfg, lr)
         metrics = {"loss": loss, "aux": aux, "var_l1": var_l1,
                    "grad_sqnorm": gsq, "grad_norm": gnorm,
                    "clip_scale": clip_scale_from_norm(gnorm, opt_cfg.grad_clip)}

@@ -18,6 +18,14 @@ otherwise it spawns J local ranks (`launch/mesh.py`) and returns rank 0's
 history.  Every rank runs the same loop and controller on the same
 metrics, so all take the same batch-size decisions.
 
+Crash-safe training (DESIGN §12): `checkpoint_every` > 0 writes a
+crash-atomic checkpoint (params/opt + controller state + samples cursor)
+every N steps, in the reference's on-disk layout (`checkpoint/store.py`),
+and `resume` restarts from the newest complete checkpoint in
+`checkpoint_dir`, reproducing the uninterrupted run's losses bit for bit.
+Under J > 1 workers rank 0 writes the WHOLE state (flat shards gathered
+first) and every rank takes its own shard back on resume.
+
 Runs on the CUDA card unless the job asks for the CPU (`device="cpu"`,
 `--device cpu`).  With no device given and no card present it raises; it
 never falls back to the CPU.  On the card, float32 matmuls and
@@ -36,16 +44,22 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.checkpoint.store import (
+    FLAT_PARAMS_META, flat_params_metadata, latest_step, restore_checkpoint,
+    save_checkpoint)
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.controller import (
-    ControllerConfig, init_controller, controller_update)
+    ControllerConfig, controller_state_as_dict, controller_state_from_dict,
+    init_controller, controller_update)
 from repro_torch.core.schedule import (
     BatchPlan, ConstantSchedule, StagewiseSchedule, accum_free_plan,
     bucket_ladder, parse_ladder, round_plan)
 from repro_torch.data.pipeline import (
     MarkovTokens, UniformTokens, make_batch, pad_to_bucket)
 from repro_torch.distributed.engine import BucketedEngine
+from repro_torch.distributed.flatbuf import FlatLayout
 from repro_torch.distributed.sharding import (
     gather_flat_buffers, shard_flat_buffers)
 from repro_torch.distributed.train_step import (
@@ -55,9 +69,12 @@ from repro_torch.launch.mesh import (
     default_backend, init_workers, num_workers, rank_device, spawn_workers,
     worker_index)
 from repro_torch.models.common import resolve_device
+from repro_torch.models.convert import stack_layers, unstack_layers
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import (
     AdamWConfig, init_adamw, init_adamw_flat, warmup_cosine)
+from repro_torch.testing.faults import fault_point
+from repro_torch.tree import tree_map
 
 
 @dataclass
@@ -116,6 +133,8 @@ class TrainJob:
     eval_every: int = 25
     eval_batches: int = 4
     checkpoint_dir: str = ""
+    # crash-safe training (DESIGN §12): checkpoint_every > 0 saves every N
+    # steps; resume restarts from the newest complete checkpoint
     checkpoint_every: int = 0
     resume: bool = False
     log_path: str = ""
@@ -139,8 +158,6 @@ def _check_supported(job: TrainJob):
         later.append("ACCUM-NORM over several workers (ROADMAP §1, item 7)")
     if job.mesh_model > 1:
         later.append("a model axis, mesh_model > 1 (ROADMAP §1, item 7)")
-    if job.checkpoint_dir or job.checkpoint_every or job.resume:
-        later.append("checkpoint/resume (ROADMAP §1, item 3)")
     if job.coord != "none" or job.aot_warmup or job.compile_cache:
         later.append("coordination, AOT warmup and the compile cache "
                      "(ROADMAP §1, items 2 and 5)")
@@ -152,6 +169,83 @@ def _make_source(job: TrainJob, vocab: int):
     if job.data == "markov":
         return MarkovTokens(vocab_size=vocab, seed=job.data_seed)
     return UniformTokens(vocab_size=vocab, seed=job.data_seed)
+
+
+class _CheckpointLayout:
+    """How the training state is written: in the reference's layout, so a
+    checkpoint crosses between the packages.  Layers are stacked
+    (`models/convert.py::stack_layers`) and flat buffers are packed over
+    that stacked tree at this job's bucket size and worker count; the
+    metadata records that recipe, as the reference's does.  Converting
+    both ways is slicing and copying only, so a restore is bit-exact."""
+
+    def __init__(self, cfg, layout, params_tree, flat_params: bool,
+                 flat_opt: bool, device):
+        self.cfg, self.layout, self.device = cfg, layout, device
+        self.flat_params, self.flat_opt = flat_params, flat_opt
+        meta = tree_map(lambda x: torch.empty_like(x, device="meta"),
+                        params_tree)
+        self.ref_meta = stack_layers(meta, cfg)
+        self.ref_layout = (FlatLayout.from_tree(
+            self.ref_meta, bucket_bytes=layout.bucket_bytes,
+            shard_divisor=layout.shard_divisor) if layout is not None else None)
+
+    def to_reference(self, params, opt_state, rank: int):
+        """The whole state, host tensors, on rank 0 (None on the others);
+        every rank must call it, since it gathers the flat shards."""
+        parts = [(params, self.flat_params), (opt_state["m"], self.flat_opt),
+                 (opt_state["v"], self.flat_opt)]
+        parts = [(gather_flat_buffers(list(x)) if flat else x, flat)
+                 for x, flat in parts]
+        if rank != 0:
+            return None
+
+        def ref(x, flat):
+            if flat:
+                tree = self.layout.unflatten([b.cpu() for b in x])
+                return tuple(self.ref_layout.flatten(stack_layers(tree,
+                                                                  self.cfg)))
+            return stack_layers(tree_map(lambda t: t.detach().cpu(), x),
+                                self.cfg)
+
+        p, m, v = (ref(*part) for part in parts)
+        return {"params": p,
+                "opt": {"m": m, "v": v, "count": opt_state["count"].cpu()}}
+
+    def like(self):
+        """The state's structure, shapes and dtypes (meta tensors)."""
+        def part(flat, dtype=None):
+            if flat:
+                return tuple(torch.empty(n, dtype=dtype or dt, device="meta")
+                             for n, dt in zip(self.ref_layout.buffer_sizes,
+                                              self.ref_layout.buffer_dtypes))
+            if dtype is None:
+                return self.ref_meta
+            return tree_map(lambda t: torch.empty_like(t, dtype=dtype),
+                            self.ref_meta)
+        f32 = torch.float32
+        return {"params": part(self.flat_params),
+                "opt": {"m": part(self.flat_opt, f32),
+                        "v": part(self.flat_opt, f32),
+                        "count": torch.empty((), dtype=torch.int32,
+                                             device="meta")}}
+
+    def from_reference(self, state):
+        """(params, opt_state) in the job's residency on its device: a
+        flat part as this worker's shard of each bucket."""
+        def part(x, flat):
+            if flat:
+                tree = unstack_layers(self.ref_layout.unflatten(list(x)),
+                                      self.cfg)
+                return tuple(shard_flat_buffers(
+                    [b.to(self.device) for b in self.layout.flatten(tree)]))
+            return tree_map(lambda t: t.to(self.device),
+                            unstack_layers(x, self.cfg))
+        opt = state["opt"]
+        return part(state["params"], self.flat_params), {
+            "m": part(opt["m"], self.flat_opt),
+            "v": part(opt["v"], self.flat_opt),
+            "count": opt["count"].to(self.device)}
 
 
 def run_training(job: TrainJob) -> dict:
@@ -199,6 +293,8 @@ def _train(job: TrainJob) -> dict:
                                     params_impl=job.params_impl,
                                     params_like=params, device=device)
     layout = wrap.flat_layout
+    ckpt = _CheckpointLayout(cfg, layout, params, job.params_impl == "flat",
+                             job.stats_impl == "flat", device)
     # flat moments are this worker's 1/J shard of each J-divisible bucket
     opt_state = (init_adamw_flat(params, shard_divisor=workers, layout=layout,
                                  device=device)
@@ -301,13 +397,69 @@ def _train(job: TrainJob) -> dict:
                "time": [], "accum_steps": [], "opt_steps": [],
                "pred_rung": [], "pred_eta": []}
     history["workers"] = workers
-    history["resumed_from"] = None
     samples = 0
     step = 0
 
+    # ------------------------------------------------- crash-safe resume --
+    # Restore the FULL loop state: params/opt (in this job's residency),
+    # the controller state machine, and the step/samples cursors.
+    # Everything else the loop consumes — batches, eval batches, the LR —
+    # is a pure function of those cursors, so the resumed trajectory is
+    # bit-identical to the uninterrupted one.
+    resumed_from = None
+    if job.resume:
+        if not job.checkpoint_dir:
+            raise ValueError("--resume requires --checkpoint-dir")
+        ck = latest_step(job.checkpoint_dir)
+        if ck is not None:
+            state, meta = restore_checkpoint(job.checkpoint_dir, ck,
+                                             ckpt.like())
+            saved_job = meta.get("job", {})
+            for f in ("arch", "step_impl", "stats_impl", "params_impl",
+                      "schedule", "seed", "data_seed"):
+                want, got = str(getattr(job, f)), str(saved_job.get(
+                    f, getattr(job, f)))
+                if got != want:
+                    raise ValueError(
+                        f"--resume config mismatch on {f!r}: checkpoint was "
+                        f"saved with {got}, this job has {want}")
+            params, opt_state = ckpt.from_reference(state)
+            del state
+            step = ck
+            samples = int(meta.get("samples", 0))
+            if "controller" in meta:
+                ctrl = controller_state_from_dict(meta["controller"])
+            resumed_from = ck
+    history["resumed_from"] = resumed_from
+
+    last_saved = [-1]
+
+    def save_state():
+        """Crash-atomic full-state checkpoint at the CURRENT step (no-op
+        without a checkpoint_dir, or when this step is already on disk).
+        Every worker joins the gathers; rank 0 alone writes."""
+        if not job.checkpoint_dir or last_saved[0] == step:
+            return
+        state = ckpt.to_reference(params, opt_state, rank)
+        if rank == 0:
+            meta = {"job": dataclasses.asdict(job), "samples": samples,
+                    "controller": controller_state_as_dict(ctrl)}
+            if job.stats_impl == "flat":
+                # flat moments are raw bucketed buffers: the recipe of the
+                # layout they were packed at
+                meta["flat_layout"] = flat_params_metadata(ckpt.ref_layout)
+            if job.params_impl == "flat":
+                meta[FLAT_PARAMS_META] = flat_params_metadata(ckpt.ref_layout)
+            save_checkpoint(job.checkpoint_dir, step, state, metadata=meta)
+        del state
+        if workers > 1:
+            dist.barrier()         # no rank runs ahead of the commit
+        last_saved[0] = step
+
     t0 = time.time()
-    log_f = open(job.log_path, "w") if job.log_path and rank == 0 else None
-    if log_f:
+    log_f = (open(job.log_path, "a" if resumed_from is not None else "w")
+             if job.log_path and rank == 0 else None)
+    if log_f and resumed_from is None:
         log_f.write("step,samples,global_batch,accum,micro,loss,val_loss,T,var_l1,grad_sqnorm,wall_s\n")
 
     def seq_len_for(samples_done: int) -> int:
@@ -323,6 +475,9 @@ def _train(job: TrainJob) -> dict:
 
     try:
         while samples < total_samples and step < job.steps:
+            # injection site: the Nth call is the Nth step of the RUN, not
+            # of this process — kill rules key on it
+            fault_point("train.step", step=step + 1)
             plan = (schedule.plan_for(samples, total_samples)
                     if schedule is not None else ctrl.plan)
             batch_np = make_batch(source, step, plan, seq_len_for(samples))
@@ -410,6 +565,11 @@ def _train(job: TrainJob) -> dict:
                     f"{val:.4f},{t_stat:.1f},{var_l1:.4g},{gsq:.4g},"
                     f"{time.time()-t0:.1f}\n")
                 log_f.flush()
+            # save AFTER the step's metrics land (log line k precedes
+            # checkpoint k: a resumed log never skips a line)
+            if job.checkpoint_every and step % job.checkpoint_every == 0:
+                save_state()
+        save_state()
     finally:
         if log_f:
             log_f.close()

@@ -11,6 +11,10 @@ Both directions work on any tree with the parameter structure — gradients
 and optimizer moments too — and take / return numpy arrays on the
 reference side, so neither package imports the other.
 
+`stack_layers` / `unstack_layers` are the two hops on torch tensors;
+the training loop also writes its checkpoints in the reference's layout
+with them, so a checkpoint crosses between the packages.
+
 Decode caches convert the same way: the reference's
 {"prefix": [...], "scanned": [leaves of shape (L, b, ...)]} against the
 port's per-layer list (`cache_from_jax`, `cache_to_jax`).
@@ -43,40 +47,40 @@ def _to_numpy(t: torch.Tensor):
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig, device="cpu") -> dict:
     """The port's parameter tree from the reference's (numpy leaves)."""
-    pattern = cfg.block_pattern
-    layers = [tree_map(lambda a: _to_torch(a, device), p)
-              for p in np_tree.get("prefix_blocks", [])]
-    for r in range(cfg.num_repeats):
-        for j in range(len(pattern)):
-            layers.append(tree_map(lambda a: _to_torch(np.asarray(a)[r], device),
-                                   np_tree["blocks"][j]))
-    out = {"embed": tree_map(lambda a: _to_torch(a, device), np_tree["embed"]),
-           "layers": layers,
-           "final_norm": tree_map(lambda a: _to_torch(a, device),
-                                  np_tree["final_norm"])}
-    if "unembed" in np_tree:
-        out["unembed"] = tree_map(lambda a: _to_torch(a, device),
-                                  np_tree["unembed"])
-    return out
+    return unstack_layers(tree_map(lambda a: _to_torch(a, device), np_tree), cfg)
 
 
 def params_to_jax(params: dict, cfg: ModelConfig) -> dict:
     """Inverse of `params_from_jax`: the reference's tree, numpy leaves."""
+    return tree_map(_to_numpy, stack_layers(params, cfg))
+
+
+def stack_layers(tree: dict, cfg: ModelConfig) -> dict:
+    """The reference's layout of a port tree with the parameter structure
+    (params, gradients, moments; torch leaves on the tree's device)."""
     n_prefix = len(cfg.prefix_pattern)
-    layers = params["layers"]
-    out = {"embed": tree_map(_to_numpy, params["embed"]),
-           "final_norm": tree_map(_to_numpy, params["final_norm"])}
+    layers = tree["layers"]
+    out = {k: v for k, v in tree.items() if k != "layers"}
     if n_prefix:
-        out["prefix_blocks"] = [tree_map(_to_numpy, p)
-                                for p in layers[:n_prefix]]
+        out["prefix_blocks"] = list(layers[:n_prefix])
     pattern = len(cfg.block_pattern)
     scanned = layers[n_prefix:]
-    out["blocks"] = [
-        tree_map(lambda *xs: np.stack([_to_numpy(x) for x in xs]),
-                 *scanned[j::pattern])
-        for j in range(pattern)]
-    if "unembed" in params:
-        out["unembed"] = tree_map(_to_numpy, params["unembed"])
+    out["blocks"] = [tree_map(lambda *xs: torch.stack(xs), *scanned[j::pattern])
+                     for j in range(pattern)]
+    return out
+
+
+def unstack_layers(tree: dict, cfg: ModelConfig) -> dict:
+    """Inverse of `stack_layers`: the port's per-layer tree, each leaf its
+    own tensor (a copy of its slice of the stacked leaf)."""
+    pattern = cfg.block_pattern
+    layers = list(tree.get("prefix_blocks", []))
+    for r in range(cfg.num_repeats):
+        for j in range(len(pattern)):
+            layers.append(tree_map(lambda a: a[r].clone(), tree["blocks"][j]))
+    out = {k: v for k, v in tree.items()
+           if k not in ("blocks", "prefix_blocks")}
+    out["layers"] = layers
     return out
 
 

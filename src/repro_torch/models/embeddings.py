@@ -6,6 +6,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.common import normal_init
 
@@ -15,7 +16,13 @@ def init_embedding(gen, vocab: int, d: int, dtype, device):
 
 
 def embed_tokens(params, tokens, scale: bool, d_model: int):
-    x = params["table"][tokens.long()]
+    # F.embedding, not indexing: the backward of `table[tokens]` accumulates
+    # with parallel float atomics on the CPU once a batch holds 32768
+    # elements or more, so repeated tokens summed in a different order from
+    # run to run; F.embedding's backward adds each table row's gradients in
+    # token order on the CPU and sorts on the card — the same bits every
+    # run, which bit-exact resume needs
+    x = F.embedding(tokens.long(), params["table"])
     if scale:
         x = x * torch.tensor(math.sqrt(d_model), dtype=x.dtype)
     return x

@@ -114,7 +114,9 @@ def init_adamw_flat(params, *, shard_divisor: int = 1, layout=None,
     of shard divisor J > 1 each buffer is this worker's 1/J shard of its
     bucket — the port's form of the reference's moments sharded over the
     data axes: a worker holds only its own shard, and since the moments
-    start at zero the shard needs no worker index."""
+    start at zero the shard needs no worker index.  (A resumed run's
+    moments are not zero: `launch/train.py` takes each worker's shard of
+    the restored full buffers.)"""
     from repro_torch.distributed.flatbuf import FlatLayout
     leaves = tree_flatten(params)[0]
     if device is None:
@@ -126,6 +128,30 @@ def init_adamw_flat(params, *, shard_divisor: int = 1, layout=None,
                                       dtype=torch.float32, device=device)
                           for n in layout.buffer_sizes)
     return {"m": zeros(), "v": zeros(), "count": _count(device)}
+
+
+def flat_opt_state(params_like, state, *, shard_divisor: int = 1,
+                   layout=None):
+    """Convert a tree optimizer state to the flat layout (tests/migration):
+    whole buffers, not a worker's shard."""
+    from repro_torch.distributed.flatbuf import FlatLayout
+    if layout is None:
+        layout = FlatLayout.from_tree(params_like, shard_divisor=shard_divisor)
+    return {"m": tuple(layout.flatten(state["m"])),
+            "v": tuple(layout.flatten(state["v"])),
+            "count": state["count"]}
+
+
+def unflat_opt_state(params_like, state, *, shard_divisor: int = 1,
+                     layout=None):
+    """Inverse of `flat_opt_state` (bit-exact; the moments are views of the
+    buffers)."""
+    from repro_torch.distributed.flatbuf import FlatLayout
+    if layout is None:
+        layout = FlatLayout.from_tree(params_like, shard_divisor=shard_divisor)
+    return {"m": layout.unflatten(list(state["m"])),
+            "v": layout.unflatten(list(state["v"])),
+            "count": state["count"]}
 
 
 def adamw_update_buffers(pb, gb, mb, vb, cfg: AdamWConfig, lr, count, *,

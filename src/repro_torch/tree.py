@@ -61,6 +61,26 @@ def tree_leaves(tree):
     return tree_flatten(tree)[0]
 
 
+def tree_paths(tree):
+    """[(key, leaf)] in leaf order, `key` the "/"-joined dict keys and list
+    or tuple indices from the root — the checkpoint key the reference
+    builds from `jax.tree_util.tree_flatten_with_path`."""
+    out = []
+
+    def rec(x, path):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                rec(x[k], path + (str(k),))
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                rec(v, path + (str(i),))
+        elif x is not None:
+            out.append(("/".join(path), x))
+
+    rec(tree, ())
+    return out
+
+
 def tree_map(fn, tree, *rest):
     """Apply `fn` leafwise over congruent trees."""
     leaves, treedef = tree_flatten(tree)

@@ -105,7 +105,7 @@ def test_port_imports_no_jax_and_no_reference():
                 f"{f.relative_to(REPO)} imports {mod}"
 
 
-def test_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch):
+def test_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.run_training(ttrain.TrainJob(arch="llama3.2-1b",
@@ -117,9 +117,14 @@ def test_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch):
     assert ttrain.TrainJob().step_impl == "fsdp_norm"
     assert hist["workers"] == 1 and len(hist["loss"]) == 2
     assert all(np.isfinite(hist["loss"])) and hist["var_l1"] == [0.0, 0.0]
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        ttrain.run_training(ttrain.TrainJob(device="cpu", step_impl="accum_norm",
-                                            checkpoint_every=5))
+    # checkpointing is ported: periodic saves land beside the final one
+    ck = tmp_path / "ck"
+    ttrain.run_training(ttrain.TrainJob(device="cpu", step_impl="accum_norm",
+                                        steps=2, seq_len=16, eval_every=0,
+                                        checkpoint_dir=str(ck),
+                                        checkpoint_every=1))
+    assert sorted(f.name for f in ck.glob("*.npz")) == [
+        "ckpt_00000001.npz", "ckpt_00000002.npz"]
     for kw, item in ((dict(step_impl="accum_norm", mesh_data=2), "item 7"),
                      (dict(mesh_model=2), "item 7"),
                      (dict(coord="file"), "items 2 and 5")):

@@ -31,7 +31,8 @@ from repro.models import build_model as jbuild
 from repro.optim.adamw import (AdamWConfig as JAdamW, init_adamw as jinit,
                                init_adamw_flat as jinit_flat)
 from repro_torch.configs import get_smoke_config
-from repro_torch.distributed.train_step import batch_to_device, make_accum_norm_step
+from repro_torch.distributed.train_step import (
+    batch_to_device, make_accum_norm_step, make_fsdp_norm_step)
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import AdamWConfig, init_adamw, init_adamw_flat
@@ -135,10 +136,20 @@ def test_padded_batch_gives_the_same_step(impl):
 
 
 def test_mixed_residency_waits_for_slice_2():
+    """The mixed combinations build (their numbers are held in
+    tests/test_torch_residency.py) and unknown values still raise, as does
+    the reference's rejection of the paper-literal variance over flat
+    params."""
     model = build_model(get_smoke_config(ARCH))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_accum_norm_step(model, AdamWConfig(), stats_impl="flat",
-                             params_impl="tree")
-    with pytest.raises(ValueError):
-        make_accum_norm_step(model, AdamWConfig(), stats_impl="x",
-                             params_impl="x")
+    params = model.init(0, "cpu")
+    for make in (make_accum_norm_step, make_fsdp_norm_step):
+        for stats_impl, params_impl in (("flat", "tree"), ("tree", "flat")):
+            wrap = make(model, AdamWConfig(), stats_impl=stats_impl,
+                        params_impl=params_impl, params_like=params)
+            assert wrap.flat_layout is not None
+        with pytest.raises(ValueError):
+            make(model, AdamWConfig(), stats_impl="x", params_impl="x",
+                 params_like=params)
+    with pytest.raises(ValueError, match="params_impl='tree'"):
+        make_fsdp_norm_step(model, AdamWConfig(), variance_impl="paper",
+                            params_impl="flat", params_like=params)

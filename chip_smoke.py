@@ -29,11 +29,28 @@ exit (nothing is caught):
               are not a multiple of 64, GQA groups 1, 4, 8, head dims 16,
               32, 33 (4-byte copies; bf16 plain loads), 64, 100
               (openllama-3b's), 128, causal or not, window 0/100, softcap
-              0/30, f32 and bf16; tolerances printed and asserted.  Then every dense config the port supports, at
-              full width and 1 layer: the forward with grad mode off
-              (training's eval loss; 1 flash and 3 rmsnorm launches)
-              against the plain forward, and prefill against streamed
-              decode.
+              0/30, f32 and bf16; tolerances printed and asserted.
+   archs    — every registered config at full width, depth cut
+              (ARCH_LAYERS: 1 layer for the dense Llama family; gemma2 one
+              local and one global layer, 2 312 151 552 parameters;
+              nemotron-4 2 layers; phi3-mini its full 32; dbrx 2 MoE
+              layers, 7 751 331 840; deepseek-v2 its dense MLA prefix layer
+              and one MLA + MoE layer): the forward with grad mode off
+              (training's eval loss; its flash and rmsnorm launches as
+              `forward_kernel_launches` computes them from the config)
+              against the plain forward, prefill against the same tokens
+              streamed through decode (MoE at a capacity where no pair
+              drops), and a long prefill at the published capacity
+              (2 x 2048; gemma2 one prompt of 8192, beyond its 4096
+              window), three runs timed, with its launches and peak
+              memory.  Each model is freed before the next.
+   moe      — the dbrx and deepseek-v2 smoke configs: two identical
+              forward and backward passes give bit-identical gradients;
+              then 4 ACCUM-NORM steps of deepseek-v2 smoke through
+              `run_training` on the card and on the CPU from the same
+              parameters: the batch trajectory equal, losses and var_l1
+              within REF_RTOL, one `fused_adamw_stats` a step per dtype
+              group.
 4. ref      — two ACCUM-NORM steps of the microllama smoke config on the
               card (kernels) and on the CPU (plain versions) from the same
               parameters; the metrics must agree.
@@ -180,6 +197,21 @@ SERVE_TOL = {"rmsnorm_f32": dict(rtol=1e-5, atol=1e-5),
 SERVE_REL = 1e-4
 # a forward with grad mode off (the kernels) vs with it on (plain), same card
 EVAL_RTOL = 1e-5
+# phase archs: depth kept at full width (default 1: the dense Llama family);
+# gemma2 one local and one global layer, deepseek-v2 its dense prefix layer
+# and one MoE layer, phi3-mini its full depth
+ARCH_LAYERS = {"gemma2-27b": 2, "nemotron-4-15b": 2, "phi3-mini-3.8b": 32,
+               "dbrx-132b": 2, "deepseek-v2-236b": 2}
+ARCH_PREFILL = {"gemma2-27b": (1, 8192), "nemotron-4-15b": (2, 2048),
+                "phi3-mini-3.8b": (2, 2048), "dbrx-132b": (2, 2048),
+                "deepseek-v2-236b": (2, 2048)}
+ARCH_CHECK_LEN = 64       # prefill vs streamed decode
+MOE_SMOKE = ("dbrx-132b", "deepseek-v2-236b")
+MOE_TRAIN_JOB = dict(arch="deepseek-v2-236b", smoke=True, schedule="adaptive",
+                     step_impl="accum_norm", stats_impl="flat", params_impl="flat",
+                     seq_len=64, base_global_batch=4, max_global_batch=32,
+                     base_micro_batch=2, max_micro_batch=4, base_accum=2, steps=4,
+                     eval_every=0)
 KERNELS = ("fused_adamw_stats", "fused_adamw", "fused_stats", "sqdiff_norm",
            "rmsnorm", "flash_attention")
 
@@ -494,7 +526,7 @@ def rel_err(got, want) -> float:
 
 
 def caches_rel_err(a, b) -> float:
-    return max(rel_err(x[k], y[k]) for x, y in zip(a, b) for k in ("k", "v"))
+    return max(rel_err(x[k], y[k]) for x, y in zip(a, b) for k in y)
 
 
 def check_serving_kernels(dev):
@@ -561,19 +593,68 @@ def check_serving_kernels(dev):
     say("serve-check", max_abs_err=err)
 
 
-def check_dense_configs(ops, dev):
-    """Phase serve-check, last part: every dense config of the port at full
-    width and 1 layer.  A forward with grad mode off (training's eval loss)
-    runs the kernels and must agree with the plain forward under grad mode;
-    prefill must agree with the same tokens streamed through decode."""
+def prefill_gemm_flops(cfg, b: int, t: int) -> int:
+    """Floating-point operations of the weight products of one prefill of
+    b x t tokens (2 a multiply-add): every layer's projections, dense MLP
+    or — at the capacity the config dispatches at — router, experts and
+    shared experts, and the last token's logits.  The attention products
+    (flash, MLA's einsums) are not counted."""
+    from repro_torch.models.moe import _capacity
+    from repro_torch.models.transformer import layer_plan
+
+    d, n = cfg.d_model, b * t
+    macs = b * cfg.vocab_size * d                        # last-token logits
+    for kind, moe_layer in layer_plan(cfg):
+        if kind == "mla":
+            m, h = cfg.mla, cfg.num_heads
+            qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+            q = (d * m.q_lora_rank + m.q_lora_rank * h * qk if m.q_lora_rank
+                 else d * h * qk)
+            macs += n * (q + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                         + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)
+                         + h * m.v_head_dim * d)
+        else:
+            q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+            macs += n * (2 * d * q + 2 * d * kv)
+        if moe_layer:
+            m = cfg.moe
+            slots = b * m.num_experts * _capacity(t, m, m.capacity_factor)
+            macs += n * d * m.num_experts + slots * 3 * d * m.d_expert
+            macs += n * 3 * d * m.num_shared_experts * m.shared_d_expert
+        else:
+            macs += n * (3 if cfg.mlp_kind in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+    return 2 * macs
+
+
+def check_archs(smi, ops, dev):
+    """Phase archs: every registered config at full width, depth cut to
+    ARCH_LAYERS (1 layer for the dense Llama family).  Per config: the
+    forward with grad mode off (the kernels; launches as
+    `forward_kernel_launches` computes them from the config) against the
+    plain forward under grad mode; prefill against the same tokens
+    streamed through decode (an MoE config at a capacity where no pair
+    drops); then a long prefill at the published capacity (ARCH_PREFILL:
+    2 x 2048, gemma2 one prompt of 8192 so its local layers mask beyond
+    their 4096 window), three runs timed, with its launches.  Each model
+    is freed before the next.  Returns the launch counts of the no-grad
+    forwards and the long prefills, summed."""
+    import dataclasses
     from repro_torch.configs import ALL_ARCHS, get_config
     from repro_torch.distributed.serve_step import make_decode_step, make_prefill
     from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import forward_kernel_launches
+    from repro_torch.tree import tree_leaves
 
+    total = {k: 0 for k in KERNELS}
     for arch in ALL_ARCHS:
-        cfg = get_config(arch).replace(num_layers=1)
+        t_arch = time.time()
+        cfg = get_config(arch).replace(num_layers=ARCH_LAYERS.get(arch, 1))
         model = build_model(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         params = model.init(0, dev)
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        want = {k: 0 for k in KERNELS} | forward_kernel_launches(cfg)
         gen = torch.Generator(device=dev).manual_seed(1)
         tokens = torch.randint(0, cfg.vocab_size, (2, 100), device=dev, generator=gen)
         labels = torch.randint(0, cfg.vocab_size, (2, 100), device=dev, generator=gen)
@@ -583,24 +664,136 @@ def check_dense_configs(ops, dev):
         with torch.no_grad():
             fast = float(model.loss(params, batch)[0])
         launches = ops.launch_counts()
-        if (launches["flash_attention"], launches["rmsnorm"]) != (1, 3):
-            raise AssertionError(f"{arch}: no-grad forward launched {launches}")
+        if launches != want:
+            raise AssertionError(f"{arch}: no-grad forward launched {launches}, "
+                                 f"expected {want}")
         if not close(fast, plain, EVAL_RTOL):
             raise AssertionError(f"{arch}: no-grad loss {fast} vs plain {plain}")
-        logits, caches = make_prefill(model)(params, {"tokens": tokens})
-        step = make_decode_step(model)
-        cache = model.init_cache(2, tokens.shape[1], device=dev)
-        for i in range(tokens.shape[1]):
-            dec, cache = step(params, cache, tokens[:, i], i)
+        for k in KERNELS:
+            total[k] += launches[k]
+        # prefill vs decode: a prefill row drops the pairs over its capacity
+        # that a one-token decode row keeps, so MoE runs where none drops
+        check = model if cfg.moe is None else build_model(cfg.replace(
+            moe=dataclasses.replace(cfg.moe,
+                                    capacity_factor=float(cfg.moe.num_experts))))
+        toks = tokens[:, :ARCH_CHECK_LEN]
+        logits, caches = make_prefill(check)(params, {"tokens": toks})
+        step = make_decode_step(check)
+        cache = check.init_cache(2, ARCH_CHECK_LEN, device=dev)
+        for i in range(ARCH_CHECK_LEN):
+            dec, cache = step(params, cache, toks[:, i], i)
         errs = {"last_logits": rel_err(logits, dec), "caches": caches_rel_err(caches, cache)}
         if max(errs.values()) > SERVE_REL:
             raise AssertionError(f"{arch}: prefill vs streamed decode {errs} > {SERVE_REL}")
-        say("serve-check", arch=arch, layers=1, head_dim=cfg.head_dim,
-            eval_loss={"no_grad": fast, "plain": plain}, rtol=EVAL_RTOL,
-            rel_tol=SERVE_REL, rel_errs=errs)
-        del params, logits, caches, cache, dec
+        del logits, caches, cache, dec
+        # the long prefill, at the published capacity
+        b, t = ARCH_PREFILL.get(arch, (0, 0))
+        long_run = {}
+        if b:
+            prompt = torch.randint(0, cfg.vocab_size, (b, t), device=dev, generator=gen)
+            prefill = make_prefill(model)
+            ms = []
+            for _ in range(3):
+                ops.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, _ = prefill(params, {"tokens": prompt})
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                launches = ops.launch_counts()
+                if launches != want:
+                    raise AssertionError(f"{arch}: prefill {b} x {t} launched "
+                                         f"{launches}, expected {want}")
+                if (logits.shape != (b, cfg.vocab_size)
+                        or not torch.isfinite(logits).all()):
+                    raise AssertionError(f"{arch}: prefill logits are not finite "
+                                         "of the expected shape")
+                del logits
+            for k in KERNELS:
+                total[k] += launches[k]
+            flops = prefill_gemm_flops(cfg, b, t)
+            long_run = dict(prefill_batch=b, prefill_tokens=t, prefill_ms=ms,
+                            prefill_tok_per_s=b * t / (min(ms) / 1e3),
+                            prefill_gemm_tflop=flops / 1e12,
+                            prefill_gemm_tflop_per_s=flops / 1e12 / (min(ms) / 1e3),
+                            prefill_launches=launches)
+        say("archs", nvidia_smi=smi, arch=arch, layers=cfg.num_layers,
+            kinds=list(cfg.prefix_pattern + cfg.block_pattern * cfg.num_repeats),
+            params=n_params, param_bytes=4 * n_params, head_dim=cfg.head_dim,
+            launches_per_forward=want, eval_loss={"no_grad": fast, "plain": plain},
+            rtol=EVAL_RTOL, rel_tol=SERVE_REL, rel_errs=errs, **long_run,
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            seconds=round(time.time() - t_arch, 3))
+        del params, model, check
         gc.collect()
         torch.cuda.empty_cache()
+    return total
+
+
+def moe_on_card(smi, ops, dev):
+    """Phase moe: two identical forward and backward passes of each MoE
+    smoke config give the same gradient bits; then ACCUM-NORM through the
+    loop (MOE_TRAIN_JOB) on the card and on the CPU from the same
+    parameters: the batch trajectory equal, the losses and var_l1 within
+    REF_RTOL, one `fused_adamw_stats` a step per dtype group on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.flatbuf import FlatLayout
+    from repro_torch.launch.train import TrainJob, run_training
+    from repro_torch.models import model as model_mod
+    from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+
+    for arch in MOE_SMOKE:
+        model = model_mod.build_model(get_smoke_config(arch))
+        params = model.init(0, dev)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        tokens = torch.randint(0, model.cfg.vocab_size, (8, 257), device=dev,
+                               generator=gen)
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        leaves, treedef = tree_flatten(params)
+
+        def grads():
+            xs = [x.detach().clone().requires_grad_(True) for x in leaves]
+            loss = model.loss(tree_unflatten(treedef, xs), batch)[0]
+            return loss, torch.autograd.grad(loss, xs)
+
+        (l1, g1), (l2, g2) = grads(), grads()
+        same = [torch.equal(a, b) for a, b in zip(g1, g2)]
+        if not all(same) or not torch.equal(l1, l2):
+            raise AssertionError(f"{arch}: repeated gradients differ in "
+                                 f"{same.count(False)} of {len(same)} leaves")
+        say("moe", arch=arch, tokens=list(batch["tokens"].shape), loss=l1.item(),
+            leaves=len(g1), bit_identical=True)
+        del params, g1, g2, leaves
+
+    job = dict(MOE_TRAIN_JOB)
+    cpu_params = model_mod.build_model(get_smoke_config(job["arch"])).init(0, "cpu")
+    # the card's generator draws other numbers than the CPU's from one
+    # seed, so both runs start from the CPU's draw
+    real_init = model_mod.Model.init
+    model_mod.Model.init = lambda self, seed=0, device=None: tree_map(
+        lambda x: x.to(device, copy=True), cpu_params)
+    try:
+        cpu = run_training(TrainJob(**job, device="cpu"))
+        ops.reset_launch_counts()
+        card = run_training(TrainJob(**job, device=str(dev)))
+        launches = ops.launch_counts()
+    finally:
+        model_mod.Model.init = real_init
+    groups = adamw_groups(FlatLayout.from_tree(card["final_params"], device=dev))
+    if launches != {k: 0 for k in KERNELS} | {"fused_adamw_stats": job["steps"] * groups}:
+        raise AssertionError(f"MoE ACCUM-NORM launched {launches}")
+    if card["global_batch"] != cpu["global_batch"]:
+        raise AssertionError(f"batch trajectory: card {card['global_batch']} vs "
+                             f"CPU {cpu['global_batch']}")
+    for k in ("loss", "var_l1"):
+        for a, b in zip(card[k], cpu[k]):
+            if not close(a, b, REF_RTOL):
+                raise AssertionError(f"MoE ACCUM-NORM {k}: card {card[k]} vs CPU {cpu[k]}")
+    say("moe", nvidia_smi=smi, arch=job["arch"], step_impl="accum_norm",
+        launches=launches, rtol=REF_RTOL, global_batch=card["global_batch"],
+        loss={"cuda": card["loss"], "cpu": cpu["loss"]},
+        var_l1={"cuda": card["var_l1"], "cpu": cpu["var_l1"]})
+    return launches
 
 
 def serve_ref(smi):
@@ -1394,7 +1587,8 @@ def main() -> int:
         device=dev)
     list_err = check_bucket_kernels(dev, tol, hyper, sum_rtol, shard_layout)
     check_serving_kernels(dev)
-    check_dense_configs(ops, dev)
+    arch_launches = check_archs(smi, ops, dev)
+    moe_on_card(smi, ops, dev)
 
     # 4. the card's step against the CPU's on a small model -------------------
     from repro_torch.core.schedule import BatchPlan
@@ -1709,10 +1903,11 @@ def main() -> int:
                 "flash_attention": "src/repro/kernels/flash_attention.py:88"}
     # launches: the FSDP main path's run (both ranks) for the flat kernels,
     # the tree run of phase 5 (both ranks, on the card) for the per-tensor
-    # ones, serving's path (prefill, run_serving, continuous) for the rest
+    # ones, serving's path (prefill, run_serving, continuous) and the archs
+    # phase's forwards and prefills for the rest
     path_launches = {**fsdp_launches, **tree_launches,
-                     "rmsnorm": serve_launches["rmsnorm"],
-                     "flash_attention": serve_launches["flash_attention"]}
+                     **{k: serve_launches[k] + arch_launches[k]
+                        for k in ("rmsnorm", "flash_attention")}}
     entries = []
     for k, t in timed.items():
         # the operations each kernel does, at their type's rate: flash's

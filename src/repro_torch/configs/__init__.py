@@ -1,9 +1,10 @@
-"""Architecture registry of the port: the dense Llama-family configs it
-supports.  `get_config(name)` / `get_smoke_config(name)`.
+"""Architecture registry of the port: the decoder configs it supports
+(dense, local/global, MoE and MLA).  `get_config(name)` /
+`get_smoke_config(name)`.
 
-The other architectures of `repro/configs` (MoE, MLA, SSM, RG-LRU,
-encoder-decoder, VLM) arrive with the remaining-architectures slice;
-asking for one raises `KeyError`.
+The other architectures of `repro/configs` (SSM, RG-LRU, encoder-decoder,
+VLM) arrive with the remaining-architectures slice; asking for one raises
+`KeyError`.
 """
 
 from __future__ import annotations
@@ -14,6 +15,11 @@ from repro_torch.models.config import ModelConfig
 
 # arch id -> module name
 _REGISTRY = {
+    "dbrx-132b": "dbrx_132b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "gemma2-27b": "gemma2_27b",
+    "nemotron-4-15b": "nemotron_4_15b",
     "llama3.2-1b": "llama3_2_1b",
     # the paper's own experiment models
     "microllama-300m": "microllama_300m",

@@ -16,8 +16,10 @@ written in place:
   (a copy would mean the step's writes were lost);
 * `move_slot` and `reset_slot` copy and zero slot rows in place.
 
-The cache is the model's per-layer list of {"k", "v"}, every leaf
-(slots, length, kv_heads, head_dim): the slot axis is 0 throughout.
+The cache is the model's per-layer list of {"k", "v"} (every leaf
+(slots, length, kv_heads, head_dim)) or, for an MLA layer, {"c_kv",
+"k_rope"} (leaves (slots, length, rank)): the slot axis is 0 throughout,
+and the slot operations touch every leaf whatever its layer kind.
 """
 
 from __future__ import annotations

@@ -108,6 +108,11 @@ def _rank_main(fn, args, rank, world, backend, rundir, threads):
         out = fn(*args)
         if rank == 0:
             torch.save(_to_cpu(out), Path(rundir, "result.pt"))
+        # no rank closes its sockets before every rank is through the
+        # group's connection handshake: a rank whose `fn` returns at once
+        # can otherwise exit while a slower peer is still connecting, and
+        # fail that peer's init ("Connection closed by peer")
+        dist.barrier()
         dist.destroy_process_group()
     except BaseException:
         Path(rundir, f"error{rank}.txt").write_text(traceback.format_exc())

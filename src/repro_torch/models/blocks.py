@@ -1,9 +1,10 @@
-"""Dense decoder block: pre/post norms, attention, dense MLP, residuals
-(the dense subset of `repro/models/blocks.py`):
+"""Decoder block: dispatch over layer kinds (attn / local / mla), pre/post
+norms, dense-MLP or MoE feed-forward, residuals (counterpart of
+`repro/models/blocks.py`, decoder subset):
 
-* `block_full(params, x, positions, cfg, kind, causal, collect_cache)`
-      -> (x, cache | None)                      # training / prefill
-* `block_decode(params, x, cache, pos, cfg, kind, ring)`
+* `block_full(params, x, positions, cfg, kind, moe_layer, causal,
+  collect_cache)` -> (x, aux, cache | None)      # training / prefill
+* `block_decode(params, x, cache, pos, cfg, kind, moe_layer, ring)`
       -> (x, cache)                             # one token a row
 * `init_block`, `init_block_cache`
 """
@@ -13,26 +14,25 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.config import ModelConfig, ATTN, LOCAL_ATTN
+from repro_torch.models import mla as mla_lib
+from repro_torch.models.config import (
+    ModelConfig, ATTN, LOCAL_ATTN, MLA_ATTN, RGLRU, SSD)
 from repro_torch.models.mlp import init_mlp, apply_mlp
+from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.norms import init_norm, apply_norm
 
 LATER = {
-    "mla": "MLA attention arrives with the remaining-architectures slice",
-    "rglru": "RG-LRU blocks arrive with the remaining-architectures slice",
-    "ssd": "SSD (Mamba-2) blocks arrive with the remaining-architectures slice",
-    "moe": "MoE feed-forward arrives with the remaining-architectures slice",
+    RGLRU: "RG-LRU blocks arrive with the remaining-architectures slice",
+    SSD: "SSD (Mamba-2) blocks arrive with the remaining-architectures slice",
 }
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise NotImplementedError for any part of `cfg` the port's dense
-    decoder does not implement yet, naming the slice that brings it."""
+    """Raise NotImplementedError for any part of `cfg` the port's decoder
+    does not implement yet, naming the slice that brings it."""
     for kind in cfg.prefix_pattern + cfg.block_pattern:
-        if kind not in (ATTN, LOCAL_ATTN):
+        if kind in LATER:
             raise NotImplementedError(f"{cfg.name}: {LATER[kind]}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: {LATER['moe']}")
     if cfg.encoder is not None or cfg.frontend.kind != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoder and modality frontends arrive with the "
@@ -45,25 +45,32 @@ def check_supported(cfg: ModelConfig):
         raise NotImplementedError(f"{cfg.name}: remat={cfg.remat!r}")
 
 
-def init_block(gen, cfg: ModelConfig, kind: str, device):
+def _check_kind(cfg: ModelConfig, kind: str):
+    if kind in LATER:
+        raise NotImplementedError(f"{cfg.name}: {LATER[kind]}")
+    if kind not in (ATTN, LOCAL_ATTN, MLA_ATTN):
+        raise ValueError(kind)
+
+
+def init_block(gen, cfg: ModelConfig, kind: str, moe_layer: bool, device):
     d, dtype = cfg.d_model, cfg.p_dtype
-    p = {"pre_norm": init_norm(d, cfg.norm_kind, dtype, device),
-         "attn": attn_lib.init_attention(gen, d, cfg.num_heads,
-                                         cfg.num_kv_heads, cfg.head_dim,
-                                         dtype, device)}
+    p = {"pre_norm": init_norm(d, cfg.norm_kind, dtype, device)}
+    if kind == MLA_ATTN:
+        p["attn"] = mla_lib.init_mla(gen, d, cfg.num_heads, cfg.mla, dtype,
+                                     device)
+    else:
+        p["attn"] = attn_lib.init_attention(gen, d, cfg.num_heads,
+                                            cfg.num_kv_heads, cfg.head_dim,
+                                            dtype, device)
     if cfg.post_attn_norm:
         p["post_norm"] = init_norm(d, cfg.norm_kind, dtype, device)
     if cfg.mlp_kind != "none":
         p["mlp_norm"] = init_norm(d, cfg.norm_kind, dtype, device)
-        p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype, device)
+        p["mlp"] = (init_moe(gen, d, cfg.moe, dtype, device) if moe_layer
+                    else init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype, device))
         if cfg.post_attn_norm:
             p["post_mlp_norm"] = init_norm(d, cfg.norm_kind, dtype, device)
     return p
-
-
-def _check_kind(cfg: ModelConfig, kind: str):
-    if kind not in (ATTN, LOCAL_ATTN):
-        raise NotImplementedError(f"{cfg.name}: {LATER[kind]}")
 
 
 def _rope_theta(cfg: ModelConfig) -> float:
@@ -71,25 +78,38 @@ def _rope_theta(cfg: ModelConfig) -> float:
 
 
 def block_full(params, x, positions, cfg: ModelConfig, kind: str,
-               causal: bool = True, collect_cache: bool = False):
-    """Returns (x, cache): cache is the layer's post-RoPE {"k", "v"} when
-    `collect_cache`, else None."""
+               moe_layer: bool = False, causal: bool = True,
+               collect_cache: bool = False):
+    """Returns (x, aux, cache): aux is the MoE load-balance loss (0 for a
+    dense layer); cache, when `collect_cache`, is the layer's decode cache
+    of length t — post-RoPE {"k", "v"}, or MLA's {"c_kv", "k_rope"} —
+    else None."""
     h = apply_norm(params["pre_norm"], x, cfg.norm_kind)
-    window = cfg.sliding_window if kind == LOCAL_ATTN else 0
-    mixed = attn_lib.attend_full(
-        params["attn"], h, positions, rope_theta=_rope_theta(cfg),
-        softcap=cfg.attn_logit_softcap, window=window, causal=causal,
-        qk_norm=cfg.qk_norm, return_kv=collect_cache)
     cache = None
-    if collect_cache:
-        mixed, k, v = mixed
-        cache = {"k": k, "v": v}
-    return _block_tail(params, x, mixed, cfg), cache
+    if kind == MLA_ATTN:
+        mixed = mla_lib.mla_full(params["attn"], h, positions, cfg.mla,
+                                 causal=causal, return_latents=collect_cache)
+        if collect_cache:
+            mixed, c_kv, k_rope = mixed
+            cache = {"c_kv": c_kv, "k_rope": k_rope}
+    else:
+        window = cfg.sliding_window if kind == LOCAL_ATTN else 0
+        mixed = attn_lib.attend_full(
+            params["attn"], h, positions, rope_theta=_rope_theta(cfg),
+            softcap=cfg.attn_logit_softcap, window=window, causal=causal,
+            qk_norm=cfg.qk_norm, return_kv=collect_cache)
+        if collect_cache:
+            mixed, k, v = mixed
+            cache = {"k": k, "v": v}
+    x, aux = _block_tail(params, x, mixed, cfg, moe_layer, capacity_factor=None)
+    return x, aux, cache
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                      dtype, device):
     _check_kind(cfg, kind)
+    if kind == MLA_ATTN:
+        return mla_lib.init_mla_cache(batch, cache_len, cfg.mla, dtype, device)
     length = min(cache_len, cfg.sliding_window) if kind == LOCAL_ATTN \
         else cache_len
     return attn_lib.init_cache(batch, length, cfg.num_kv_heads, cfg.head_dim,
@@ -97,27 +117,42 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
 
 
 def block_decode(params, x, cache, pos, cfg: ModelConfig, kind: str,
-                 ring: bool = False):
-    """One token a row; the cache is updated in place.  Returns (x, cache)."""
+                 moe_layer: bool = False, ring: bool = False):
+    """One token a row; the cache is updated in place.  Returns (x, cache).
+    An MoE layer dispatches each row's one token at capacity factor
+    max(2, cfg's), as the reference does, so no pair drops."""
     _check_kind(cfg, kind)
     h = apply_norm(params["pre_norm"], x, cfg.norm_kind)
-    # local-attn caches are rings by construction (length == window)
-    mixed, cache = attn_lib.attend_decode(
-        params["attn"], h, cache, pos, rope_theta=_rope_theta(cfg),
-        softcap=cfg.attn_logit_softcap, ring=ring or kind == LOCAL_ATTN,
-        qk_norm=cfg.qk_norm)
-    return _block_tail(params, x, mixed, cfg), cache
+    if kind == MLA_ATTN:
+        mixed, cache = mla_lib.mla_decode(params["attn"], h, cache, pos,
+                                          cfg.mla, ring=ring)
+    else:
+        # local-attn caches are rings by construction (length == window)
+        mixed, cache = attn_lib.attend_decode(
+            params["attn"], h, cache, pos, rope_theta=_rope_theta(cfg),
+            softcap=cfg.attn_logit_softcap, ring=ring or kind == LOCAL_ATTN,
+            qk_norm=cfg.qk_norm)
+    capacity = max(2.0, cfg.moe.capacity_factor) if moe_layer else None
+    return _block_tail(params, x, mixed, cfg, moe_layer,
+                       capacity_factor=capacity)[0], cache
 
 
-def _block_tail(params, x, mixed, cfg: ModelConfig):
-    """Post-attention norm, residual, MLP (with its norms), residual."""
+def _block_tail(params, x, mixed, cfg: ModelConfig, moe_layer: bool,
+                capacity_factor):
+    """Post-attention norm, residual, dense MLP or MoE (with its norms),
+    residual.  Returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.post_attn_norm:
         mixed = apply_norm(params["post_norm"], mixed, cfg.norm_kind)
     x = x + mixed
     if cfg.mlp_kind != "none":
         h = apply_norm(params["mlp_norm"], x, cfg.norm_kind)
-        h = apply_mlp(params["mlp"], h, cfg.mlp_kind)
+        if moe_layer:
+            h, aux = moe_apply(params["mlp"], h, cfg.moe,
+                               capacity_factor=capacity_factor)
+        else:
+            h = apply_mlp(params["mlp"], h, cfg.mlp_kind)
         if cfg.post_attn_norm:
             h = apply_norm(params["post_mlp_norm"], h, cfg.norm_kind)
         x = x + h
-    return x
+    return x, aux

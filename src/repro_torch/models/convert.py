@@ -5,7 +5,9 @@ pattern along a leading repeat axis (`params["blocks"][j]`, leaves of shape
 (L, ...), from its vmapped init) and keeps heterogeneous prefix layers in
 `params["prefix_blocks"]`.  The port keeps one dict per layer, in execution
 order, under `params["layers"]`.  Leaf shapes inside a layer are the same
-in both, so conversion is unstacking (and stacking back), nothing else.
+in both — MoE layers' 3-D expert tensors and `shared` subtree, MLA's
+projections and norms included — so conversion is unstacking (and
+stacking back), nothing else.
 
 Both directions work on any tree with the parameter structure — gradients
 and optimizer moments too — and take / return numpy arrays on the
@@ -17,7 +19,8 @@ with them, so a checkpoint crosses between the packages.
 
 Decode caches convert the same way: the reference's
 {"prefix": [...], "scanned": [leaves of shape (L, b, ...)]} against the
-port's per-layer list (`cache_from_jax`, `cache_to_jax`).
+port's per-layer list (`cache_from_jax`, `cache_to_jax`), a layer's
+cache {"k", "v"} or MLA's {"c_kv", "k_rope"}.
 """
 
 from __future__ import annotations

@@ -1,0 +1,168 @@
+"""DeepSeek-V2 Multi-head Latent Attention (MLA) — counterpart of
+`repro/models/mla.py`.
+
+Training and prefill use the expanded form; decode uses the *absorbed*
+form that attends directly in the compressed latent space: the cache holds
+only `c_kv` (rank 512 in deepseek-v2) and the shared RoPE key, not per-head
+K and V.  The attention is plain einsum and softmax, as in the reference
+(MLA's q·k dim differs from its v dim, and the reference never sends it
+through its flash kernel); `q_norm` and `kv_norm` are RMSNorms, so on the
+card with grad mode off they run the `rmsnorm` kernel.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.attention import NEG_INF, causal_mask
+from repro_torch.models.common import normal_init
+from repro_torch.models.config import MLAConfig
+from repro_torch.models.embeddings import apply_rope
+from repro_torch.models.norms import apply_norm, init_norm
+
+Q_CHUNK = 512
+CHUNK_THRESHOLD = 2048   # query-chunked attention for t >= this
+
+
+def init_mla(gen, d_model: int, num_heads: int, m: MLAConfig, dtype, device):
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    init = lambda shape: normal_init(gen, shape, dtype, device)
+    p = {}
+    if m.q_lora_rank:
+        p["w_dq"] = init((d_model, m.q_lora_rank))
+        p["q_norm"] = init_norm(m.q_lora_rank, "rmsnorm", dtype, device)
+        p["w_uq"] = init((m.q_lora_rank, num_heads, qk_dim))
+    else:
+        p["w_q"] = init((d_model, num_heads, qk_dim))
+    p["w_dkv"] = init((d_model, m.kv_lora_rank))
+    p["kv_norm"] = init_norm(m.kv_lora_rank, "rmsnorm", dtype, device)
+    p["w_krope"] = init((d_model, m.qk_rope_head_dim))
+    p["w_uk"] = init((m.kv_lora_rank, num_heads, m.qk_nope_head_dim))
+    p["w_uv"] = init((m.kv_lora_rank, num_heads, m.v_head_dim))
+    p["w_o"] = init((num_heads, m.v_head_dim, d_model))
+    return p
+
+
+def _queries(params, x, positions, m: MLAConfig):
+    if "w_dq" in params:
+        cq = torch.einsum("btd,dr->btr", x, params["w_dq"].to(x.dtype))
+        cq = apply_norm(params["q_norm"], cq, "rmsnorm")
+        q = torch.einsum("btr,rhk->bthk", cq, params["w_uq"].to(x.dtype))
+    else:
+        q = torch.einsum("btd,dhk->bthk", x, params["w_q"].to(x.dtype))
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, 10000.0)
+    return q_nope, q_rope
+
+
+def _latents(params, x, positions, m: MLAConfig):
+    c_kv = torch.einsum("btd,dr->btr", x, params["w_dkv"].to(x.dtype))
+    c_kv = apply_norm(params["kv_norm"], c_kv, "rmsnorm")
+    k_rope = torch.einsum("btd,dr->btr", x, params["w_krope"].to(x.dtype))
+    # the shared RoPE key: one head
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, 10000.0)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _scale(m: MLAConfig) -> float:
+    """1/sqrt(q·k dim), rounded in f32 as the reference computes it."""
+    dim = np.float32(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    return float(np.float32(1.0) / np.sqrt(dim))
+
+
+def _mla_attend(q_nope, q_rope, k_nope, k_rope, v, m: MLAConfig,
+                causal: bool, offset: int = 0):
+    """One (possibly chunked) MLA attention: q over the full kv."""
+    t, s = q_nope.shape[1], k_nope.shape[1]
+    logits = torch.einsum("bthn,bshn->bhts", q_nope, k_nope)
+    logits = logits + torch.einsum("bthr,bsr->bhts", q_rope, k_rope)
+    logits = logits.float() * _scale(m)
+    if causal:
+        mask = causal_mask(t, s, offset=offset, device=logits.device)
+        logits = logits.masked_fill(~mask[None, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhts,bshv->bthv", probs, v)
+
+
+def mla_full(params, x, positions, m: MLAConfig, causal: bool = True,
+             q_chunk: int = Q_CHUNK, return_latents: bool = False):
+    """Expanded-form MLA over a full sequence (training / prefill).  From
+    t >= 2048 (a multiple of `q_chunk`) the queries run in chunks, each
+    recomputed in the backward pass (the reference's checkpointed scan).
+    With `return_latents` it returns (out, c_kv, k_rope) — the prefill
+    cache."""
+    b, t, _ = x.shape
+    q_nope, q_rope = _queries(params, x, positions, m)
+    c_kv, k_rope = _latents(params, x, positions, m)
+    k_nope = torch.einsum("btr,rhn->bthn", c_kv, params["w_uk"].to(x.dtype))
+    v = torch.einsum("btr,rhv->bthv", c_kv, params["w_uv"].to(x.dtype))
+    if t >= CHUNK_THRESHOLD and t % q_chunk == 0:
+        def body(qn, qr, k_nope, k_rope, v, c):
+            return _mla_attend(qn, qr, k_nope, k_rope, v, m, causal,
+                               offset=c * q_chunk)
+
+        out = torch.cat([
+            checkpoint(body, q_nope[:, c * q_chunk:(c + 1) * q_chunk],
+                       q_rope[:, c * q_chunk:(c + 1) * q_chunk],
+                       k_nope, k_rope, v, c, use_reentrant=False)
+            for c in range(t // q_chunk)], dim=1)
+    else:
+        out = _mla_attend(q_nope, q_rope, k_nope, k_rope, v, m, causal)
+    out = torch.einsum("bthv,hvd->btd", out, params["w_o"].to(x.dtype))
+    return (out, c_kv, k_rope) if return_latents else out
+
+
+def init_mla_cache(batch: int, cache_len: int, m: MLAConfig, dtype, device):
+    return {"c_kv": torch.zeros((batch, cache_len, m.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, cache_len, m.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_decode(params, x, cache, pos, m: MLAConfig, ring: bool = False):
+    """Absorbed-form single-token decode against the latent cache.  `pos`
+    is a scalar position (an int or a 0-d tensor) or a (b,) integer tensor
+    of per-row positions (continuous batching: each row writes and masks
+    its own timeline).  The new latents are written into `cache`'s tensors
+    IN PLACE, as in `attention.attend_decode`.  Returns (out, cache)."""
+    b = x.shape[0]
+    c_cache, r_cache = cache["c_kv"], cache["k_rope"]
+    cache_len = c_cache.shape[1]
+    per_row = torch.is_tensor(pos) and pos.dim() == 1
+    if per_row:
+        pos = pos.to(device=x.device, dtype=torch.long)
+        positions = pos[:, None]
+    else:
+        pos = int(pos)
+        positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    q_nope, q_rope = _queries(params, x, positions, m)            # (b,1,h,*)
+    c_new, kr_new = _latents(params, x, positions, m)             # (b,1,r)
+    slot = pos % cache_len if ring else pos
+    if per_row:
+        rows = torch.arange(b, device=x.device)
+        c_cache.index_put_((rows, slot), c_new[:, 0].to(c_cache.dtype))
+        r_cache.index_put_((rows, slot), kr_new[:, 0].to(r_cache.dtype))
+    else:
+        # the reference's dynamic_update_slice clamps the start in range
+        slot = min(max(slot, 0), cache_len - 1)
+        c_cache[:, slot:slot + 1].copy_(c_new)
+        r_cache[:, slot:slot + 1].copy_(kr_new)
+    # absorb W_uk into the query: attend in latent space
+    q_lat = torch.einsum("bthn,rhn->bthr", q_nope, params["w_uk"].to(x.dtype))
+    c_kv, k_rope = c_cache.to(x.dtype), r_cache.to(x.dtype)
+    logits = torch.einsum("bthr,bsr->bhts", q_lat, c_kv)
+    logits = logits + torch.einsum("bthr,bsr->bhts", q_rope, k_rope)
+    logits = logits.float() * _scale(m)
+    kpos = torch.arange(cache_len, device=x.device)
+    ppos = pos[:, None] if per_row else pos
+    valid = kpos <= ppos
+    if ring:
+        valid = valid | (ppos >= cache_len)
+    mask = valid[:, None, None, :] if per_row else valid[None, None, None, :]
+    probs = torch.softmax(logits.masked_fill(~mask, NEG_INF), dim=-1).to(x.dtype)
+    out_lat = torch.einsum("bhts,bsr->bthr", probs, c_kv)
+    out = torch.einsum("bthr,rhv->bthv", out_lat, params["w_uv"].to(x.dtype))
+    out = torch.einsum("bthv,hvd->btd", out, params["w_o"].to(x.dtype))
+    return out, cache

@@ -1,11 +1,12 @@
-"""Decoder-only transformer stack: init, forward, masked cross-entropy,
-prefill and KV-cache decode (counterpart of `repro/models/transformer.py`,
-dense decoder subset).
+"""Decoder-only transformer stack: init, forward, masked cross-entropy
+with the MoE aux loss, prefill and KV-cache decode (counterpart of
+`repro/models/transformer.py`, decoder subset).
 
 The reference scans stacked per-layer parameters (`blocks`, a leading
-repeat axis); the port keeps one parameter dict per layer in `layers` and
-runs a Python loop.  Likewise the decode cache is a list with one
-{"k", "v"} per layer, where the reference stacks `scanned` caches.
+repeat axis) after unscanned `prefix_blocks`; the port keeps one parameter
+dict per layer in `layers`, in execution order, and runs a Python loop.
+Likewise the decode cache is a list with one cache per layer ({"k", "v"},
+or MLA's {"c_kv", "k_rope"}), where the reference stacks `scanned` caches.
 `models/convert.py` maps between the two layouts.
 
 Cross-entropy can run in sequence chunks (`cfg.xent_chunk`), each chunk's
@@ -20,7 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import resolve_device
-from repro_torch.models.config import ATTN, ModelConfig
+from repro_torch.models.config import ATTN, LOCAL_ATTN, MLA_ATTN, ModelConfig
 from repro_torch.models.embeddings import init_embedding, embed_tokens, unembed
 from repro_torch.models.norms import init_norm, apply_norm
 
@@ -29,6 +30,34 @@ def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
     """Kind of every layer in execution order (prefix, then the repeats of
     the block pattern)."""
     return cfg.prefix_pattern + cfg.block_pattern * cfg.num_repeats
+
+
+def forward_kernel_launches(cfg: ModelConfig) -> dict:
+    """Launches of the forward-only kernels in one forward of `cfg` on the
+    card with grad mode off (prefill, the eval loss): `flash_attention` once
+    an attention layer (MLA attends in plain PyTorch), `rmsnorm` once a
+    norm where the model's norms are RMSNorm (LayerNorm has no kernel),
+    plus MLA's `q_norm` and `kv_norm`, which are RMSNorm in every config.
+    A decode step runs the same rmsnorms and no flash_attention."""
+    rms = cfg.norm_kind == "rmsnorm"
+    per_layer = 1 + (cfg.mlp_kind != "none")
+    if cfg.post_attn_norm:
+        per_layer *= 2
+    flash, norms = 0, rms                                  # the final norm
+    for kind in layer_kinds(cfg):
+        flash += kind in (ATTN, LOCAL_ATTN)
+        norms += per_layer * rms
+        if kind == MLA_ATTN:
+            norms += 1 + bool(cfg.mla.q_lora_rank)
+    return {"flash_attention": flash, "rmsnorm": norms}
+
+
+def layer_plan(cfg: ModelConfig) -> list[tuple[str, bool]]:
+    """(kind, moe_layer) of every layer in execution order: prefix layers
+    stay dense, pattern layers take MoE when `cfg.moe` is set."""
+    return ([(kind, False) for kind in cfg.prefix_pattern]
+            + [(kind, cfg.moe is not None)
+               for kind in cfg.block_pattern] * cfg.num_repeats)
 
 
 # ------------------------------------------------------------------ init ----
@@ -42,8 +71,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(seed)
     params = {"embed": init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                       cfg.p_dtype, device)}
-    params["layers"] = [blk.init_block(gen, cfg, kind, device)
-                        for kind in layer_kinds(cfg)]
+    params["layers"] = [blk.init_block(gen, cfg, kind, moe_layer, device)
+                        for kind, moe_layer in layer_plan(cfg)]
     params["final_norm"] = init_norm(cfg.d_model, cfg.norm_kind, cfg.p_dtype,
                                      device)
     if not cfg.tie_embeddings:
@@ -54,28 +83,31 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
 
 # ----------------------------------------------------------------- stack ----
 
-def _block_x(p, x, positions, cfg, kind):
-    return blk.block_full(p, x, positions, cfg, kind)[0]
+def _block(p, x, positions, cfg, kind, moe_layer):
+    return blk.block_full(p, x, positions, cfg, kind, moe_layer)[:2]
 
 
 def run_stack(params, x, positions, cfg: ModelConfig,
               collect_cache: bool = False):
     """All layers, then the final norm.  Returns (hidden, aux, caches):
-    caches is the per-layer list of post-RoPE {"k", "v"} when
-    `collect_cache` (prefill), else None."""
+    aux is the MoE load-balance loss summed over layers (0 for a dense
+    model); caches is the per-layer list of decode caches of length t
+    when `collect_cache` (prefill), else None."""
     caches = [] if collect_cache else None
-    for p, kind in zip(params["layers"], layer_kinds(cfg)):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, (kind, moe_layer) in zip(params["layers"], layer_plan(cfg)):
         if collect_cache:
-            x, cache = blk.block_full(p, x, positions, cfg, kind,
-                                      collect_cache=True)
+            x, a, cache = blk.block_full(p, x, positions, cfg, kind, moe_layer,
+                                         collect_cache=True)
             caches.append(cache)
         elif cfg.remat == "full":
-            x = checkpoint(_block_x, p, x, positions, cfg, kind,
-                           use_reentrant=False)
+            x, a = checkpoint(_block, p, x, positions, cfg, kind, moe_layer,
+                              use_reentrant=False)
         else:
-            x = _block_x(p, x, positions, cfg, kind)
+            x, a = _block(p, x, positions, cfg, kind, moe_layer)
+        aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg.norm_kind)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), caches
+    return x, aux, caches
 
 
 # ------------------------------------------------------------------ loss ----
@@ -145,8 +177,8 @@ def forward(params, batch, cfg: ModelConfig):
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
-    """Mean next-token cross entropy (+ aux, zero for dense models).
-    labels use -1 as mask."""
+    """Mean next-token cross entropy plus the MoE aux loss (zero for dense
+    models).  labels use -1 as mask."""
     hidden, aux = forward(params, batch, cfg)
     loss = token_loss(params, hidden, batch["labels"], cfg)
     return loss + aux, {"xent": loss, "aux": aux}
@@ -154,7 +186,8 @@ def loss_fn(params, batch, cfg: ModelConfig):
 
 def prefill(params, batch, cfg: ModelConfig):
     """Prefill for serving: returns (last-token logits (b, vocab), caches),
-    caches the per-layer post-RoPE {"k", "v"} of length t."""
+    caches the per-layer decode caches of length t (post-RoPE {"k", "v"},
+    MLA's {"c_kv", "k_rope"})."""
     hidden, _, caches = run_stack(params, *_assemble_inputs(params, batch, cfg),
                                   cfg, collect_cache=True)
     logits = _logits(params, hidden[:, -1:, :], cfg)
@@ -165,15 +198,16 @@ def prefill(params, batch, cfg: ModelConfig):
 
 def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
                       ring: bool = False, device=None) -> list:
-    """Fresh decode cache: one zeroed {"k", "v"} of (batch, length, kv_heads,
-    head_dim) per layer, on `device` (default: the CUDA card).  ring=True
-    (the long_500k serving mode) bounds full-attention caches to
-    cfg.long_context_window; local-attention caches are window-long rings
-    by construction."""
+    """Fresh decode cache, one per layer on `device` (default: the CUDA
+    card): a zeroed {"k", "v"} of (batch, length, kv_heads, head_dim), or
+    for an MLA layer {"c_kv": (batch, length, kv_lora_rank), "k_rope":
+    (batch, length, qk_rope_head_dim)}.  ring=True (the long_500k serving
+    mode) bounds full-attention and MLA caches to cfg.long_context_window;
+    local-attention caches are window-long rings by construction."""
     device = resolve_device(device)
 
     def length(kind):
-        if ring and kind == ATTN:
+        if ring and kind in (ATTN, MLA_ATTN):
             return min(cache_len, cfg.long_context_window)
         return cache_len
 
@@ -188,8 +222,9 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
     position or a (b,) tensor of per-row positions (continuous batching).
     The cache is updated IN PLACE.  Returns (logits (b, vocab), cache)."""
     x = _embed(params, tokens[:, None], cfg)
-    for i, (p, kind) in enumerate(zip(params["layers"], layer_kinds(cfg))):
+    for i, (p, (kind, moe_layer)) in enumerate(zip(params["layers"],
+                                                   layer_plan(cfg))):
         x, cache[i] = blk.block_decode(p, x, cache[i], pos, cfg, kind,
-                                       ring=ring)
+                                       moe_layer, ring=ring)
     x = apply_norm(params["final_norm"], x, cfg.norm_kind)
     return _logits(params, x, cfg)[:, 0], cache

@@ -333,7 +333,18 @@ def test_training_resumes_across_packages(tmp_path, impl):
     the resumed step's loss and validation loss agree with the writer's
     own resume to rtol 1e-5, the batch trajectory and the final
     controller state exactly."""
-    kw = dict(RESUME, stats_impl=impl, params_impl=impl)
+    _resume_across(tmp_path, dict(RESUME, stats_impl=impl, params_impl=impl))
+
+
+def test_deepseek_training_resumes_across_packages(tmp_path):
+    """The same on the deepseek-v2 smoke config (a dense MLA prefix layer,
+    then MLA + MoE: 3-D expert leaves and a shared expert in the
+    checkpoint, the aux loss in every step's loss), flat residency."""
+    _resume_across(tmp_path, dict(RESUME, arch="deepseek-v2-236b",
+                                  stats_impl="flat", params_impl="flat"))
+
+
+def _resume_across(tmp_path, kw):
     runs = {"jax": lambda **o: jrun(JJob(**{**kw, **o})),
             "port": lambda **o: run_training(TrainJob(device="cpu", **{**kw, **o}))}
     for writer, reader in (("jax", "port"), ("port", "jax")):

@@ -17,6 +17,8 @@ held against the plain versions bucket by bucket at the same tolerances,
 and two calls on the same inputs must give the same bits.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -31,6 +33,7 @@ from repro_torch.kernels.fused_stats import fused_stats, fused_stats_buckets
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.sqdiff_norm import sqdiff_norm
 from repro_torch.models.model import build_model
+from repro_torch.models.transformer import forward_kernel_launches
 
 SIZES = [1, 17, 1_000_003]
 DTYPE_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
@@ -267,15 +270,18 @@ LARGE_LOGIT_CASES = [  # b, t, s, h, kvh, d, causal
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,s,h,kvh,d,causal", LARGE_LOGIT_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_flash_attention_large_logits(cuda, b, t, s, h, kvh, d, causal, dtype):
-    """q scaled so that the largest |logit| is 30: the worst case of the
+@pytest.mark.parametrize("logit", [30.0, 50.0])
+def test_cuda_flash_attention_large_logits(cuda, b, t, s, h, kvh, d, causal, dtype,
+                                           logit):
+    """q scaled so that the largest |logit| is 30, and 50 (gemma2-27b's
+    attention softcap admits logits up to 50): the worst case of the
     split-TF32 products, at the unchanged tolerances."""
     gen = torch.Generator(device=cuda).manual_seed(t * s + d)
     q, k, v = (torch.randn(b, n, heads, d, device=cuda, generator=gen)
                for n, heads in ((t, h), (s, kvh), (s, kvh)))
     kh = torch.repeat_interleave(k, h // kvh, dim=2)
     top = torch.einsum("bthd,bshd->bhts", q, kh).abs().max() / d ** 0.5
-    q, k, v = ((q * (30.0 / top)).to(dtype), k.to(dtype), v.to(dtype))
+    q, k, v = ((q * (logit / top)).to(dtype), k.to(dtype), v.to(dtype))
     with torch.inference_mode():
         got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -321,13 +327,19 @@ def _rel(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_cuda_dense_configs_forward_without_grad_and_prefill(cuda, arch):
-    """Every dense config at its full width, one layer: a forward with grad
-    mode off (training's eval loss) runs the kernels and agrees with the
-    plain forward under grad mode; prefill (kernels) agrees with the same
-    tokens streamed through decode (plain grouped attention).  f32 through
-    the model: 1e-5 on the loss, 1e-4 of the largest magnitude on logits
-    and caches (sums in another order over 2000-3200 wide rows)."""
-    model = build_model(get_config(arch).replace(num_layers=1))
+    """Every registered config at its full width and the fewest layers
+    that hold each of its layer kinds (its prefix and one block pattern):
+    a forward with grad mode off (training's eval loss) runs the kernels —
+    the launches `forward_kernel_launches` computes from the config — and
+    agrees with the plain forward under grad mode; prefill (kernels)
+    agrees with the same tokens streamed through decode (plain attention),
+    an MoE model at a capacity where no pair drops (a prefill row drops
+    what a one-token decode row keeps).  f32 through the model: 1e-5 on
+    the loss, 1e-4 of the largest magnitude on logits and caches (sums in
+    another order over 2000-6144 wide rows)."""
+    cfg = get_config(arch)
+    cfg = cfg.replace(num_layers=len(cfg.prefix_pattern) + len(cfg.block_pattern))
+    model = build_model(cfg)
     params = model.init(0, cuda)
     gen = torch.Generator(device=cuda).manual_seed(1)
     vocab = model.cfg.vocab_size
@@ -339,8 +351,12 @@ def test_cuda_dense_configs_forward_without_grad_and_prefill(cuda, arch):
     with torch.no_grad():
         fast = model.loss(params, batch)[0]
     counts = ops.launch_counts()
-    assert (counts["flash_attention"], counts["rmsnorm"]) == (1, 3), counts
+    assert {k: counts[k] for k in ("flash_attention", "rmsnorm")} == \
+        forward_kernel_launches(cfg), counts
     torch.testing.assert_close(fast, plain.detach(), rtol=1e-5, atol=0)
+    if cfg.moe is not None:
+        model = build_model(cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts))))
     logits, caches = make_prefill(model)(params, {"tokens": tokens})
     step = make_decode_step(model)
     cache = model.init_cache(2, tokens.shape[1], device=cuda)
@@ -349,4 +365,4 @@ def test_cuda_dense_configs_forward_without_grad_and_prefill(cuda, arch):
     torch.cuda.synchronize()
     assert _rel(logits, dec) <= 1e-4
     for got, want in zip(caches, cache):
-        assert max(_rel(got[k], want[k]) for k in ("k", "v")) <= 1e-4
+        assert max(_rel(got[k], want[k]) for k in want) <= 1e-4

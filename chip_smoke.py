@@ -43,7 +43,15 @@ exit (nothing is caught):
               drops), and a long prefill at the published capacity
               (2 x 2048; gemma2 one prompt of 8192, beyond its 4096
               window), three runs timed, with its launches and peak
-              memory.  Each model is freed before the next.
+              memory.  Each model is freed before the next; then
+              rmsnorm and flash_attention against their plain versions at
+              every shape and option that long prefill gave them (gemma2's
+              window 4096 and softcap 50 at t 8192, phi3's head dim 96,
+              48/8 heads at d 128, MLA's norms at 512 and 1536; inputs from
+              a seed, SERVE_TOL), and gemma2's flash calls once more with
+              q scaled to |logit| 50, held against f64 at SERVE_TOL, the
+              kernel's and the plain version's errors against f64
+              printed.
    moe      — the dbrx and deepseek-v2 smoke configs: two identical
               forward and backward passes give bit-identical gradients;
               then 4 ACCUM-NORM steps of deepseek-v2 smoke through
@@ -141,6 +149,7 @@ without the rest of the repository beside it, it fails before printing any
 result.
 """
 
+import contextlib
 import gc
 import json
 import math
@@ -626,6 +635,134 @@ def prefill_gemm_flops(cfg, b: int, t: int) -> int:
     return 2 * macs
 
 
+def forward_kernel_launches(cfg) -> dict:
+    """Launches of the forward-only kernels in one forward of `cfg` on the
+    card with grad mode off (prefill, the eval loss): `flash_attention` once
+    an attention layer (MLA attends in plain PyTorch), `rmsnorm` once a
+    norm where the model's norms are RMSNorm (LayerNorm has no kernel),
+    plus MLA's `q_norm` and `kv_norm`, which are RMSNorm in every config.
+    A decode step runs the same rmsnorms and no flash_attention.  Counted
+    from the config alone, so that a model that stops reaching a kernel
+    fails the phase; `tests/test_torch_archs.py` holds it against the
+    calls a forward makes."""
+    from repro_torch.models.config import ATTN, LOCAL_ATTN, MLA_ATTN
+    from repro_torch.models.transformer import layer_kinds
+
+    rms = cfg.norm_kind == "rmsnorm"
+    per_layer = 1 + (cfg.mlp_kind != "none")
+    if cfg.post_attn_norm:
+        per_layer *= 2
+    flash, norms = 0, rms                                  # the final norm
+    for kind in layer_kinds(cfg):
+        flash += kind in (ATTN, LOCAL_ATTN)
+        norms += per_layer * rms
+        if kind == MLA_ATTN:
+            norms += 1 + bool(cfg.mla.q_lora_rank)
+    return {"flash_attention": flash, "rmsnorm": norms}
+
+
+@contextlib.contextmanager
+def recorded_kernel_calls(ops):
+    """Within the block, the distinct shapes and options of the model's
+    `ops.flash_attention` and `ops.rmsnorm` calls, each once, in order.
+    The calls go through unchanged, so the wrappers count as ever."""
+    calls = {"flash_attention": [], "rmsnorm": []}
+    real_flash, real_norm = ops.flash_attention, ops.rmsnorm
+
+    def note(kernel, key):
+        if key not in calls[kernel]:
+            calls[kernel].append(key)
+
+    def flash(q, k, v, **kw):
+        note("flash_attention", (tuple(q.shape), tuple(k.shape), q.dtype,
+                                 tuple(sorted(kw.items()))))
+        return real_flash(q, k, v, **kw)
+
+    def norm(x, scale, eps=1e-6):
+        note("rmsnorm", (tuple(x.shape), x.dtype, scale.dtype, eps))
+        return real_norm(x, scale, eps)
+
+    ops.flash_attention, ops.rmsnorm = flash, norm
+    try:
+        yield calls
+    finally:
+        ops.flash_attention, ops.rmsnorm = real_flash, real_norm
+
+
+def by_kv_head(fn, q, k, v):
+    """`fn` over one kv head and its group of q heads at a time, the
+    results joined over heads: bounds the (t, s) logits of a long prompt."""
+    g = q.shape[2] // k.shape[2]
+    return torch.cat([fn(q[:, :, j * g:(j + 1) * g], k[:, :, j:j + 1], v[:, :, j:j + 1])
+                      for j in range(k.shape[2])], dim=2)
+
+
+def check_path_shapes(calls, dev) -> dict:
+    """The kernels against their plain versions at the shapes and options
+    the main path gave them (`recorded_kernel_calls` of a long prefill),
+    on inputs drawn from a seed, at SERVE_TOL.  An f32 flash call with a
+    softcap is run again with q scaled so that the largest |q.k|/sqrt(d)
+    equals the softcap (gemma2-27b's 50, which its logits may reach) and
+    held against the same attention in f64 at SERVE_TOL (there the plain
+    f32 version's own error nears that tolerance); the kernel's and the
+    plain version's errors against f64 are printed beside each other.
+    Returns each kernel's max abs error against its plain version."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    err = {"rmsnorm": 0.0, "flash_attention": 0.0}
+    tol = lambda dt, k: SERVE_TOL[k] if dt == torch.float32 else SERVE_TOL["bf16"]
+    abs_err = lambda a, b: float((a.double() - b.double()).abs().max())
+    for i, (shape, xd, sd, eps) in enumerate(calls["rmsnorm"]):
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        x = torch.randn(shape, device=dev, generator=gen).to(xd)
+        scale = (1 + 0.1 * torch.randn(shape[-1], device=dev, generator=gen)).to(sd)
+        with torch.inference_mode():
+            got = rmsnorm(x, scale, eps)
+        want = ref.rmsnorm_ref(x, scale, eps)
+        torch.testing.assert_close(got, want, **tol(xd, "rmsnorm_f32"))
+        err["rmsnorm"] = max(err["rmsnorm"], abs_err(got, want))
+        say("archs", kernel="rmsnorm", shape=list(shape), x=str(xd), scale=str(sd),
+            max_abs_err=abs_err(got, want))
+        del x, got, want
+    for i, (qs, ks, dt, kw) in enumerate(calls["flash_attention"]):
+        kw = dict(kw)
+        gen = torch.Generator(device=dev).manual_seed(200 + i)
+        q, k, v = (torch.randn(s, device=dev, generator=gen) for s in (qs, ks, ks))
+        plain = lambda q, k, v: ref.flash_attention_ref(q, k, v, **kw)
+        with torch.inference_mode():
+            got = flash_attention(q.to(dt), k.to(dt), v.to(dt), **kw)
+            want = by_kv_head(plain, q.to(dt), k.to(dt), v.to(dt))
+        torch.testing.assert_close(got, want, **tol(dt, "flash_f32"))
+        err["flash_attention"] = max(err["flash_attention"], abs_err(got, want))
+        row = dict(kernel="flash_attention", q=list(qs), k=list(ks), dtype=str(dt),
+                   **kw, max_abs_err=abs_err(got, want))
+        del got, want
+        if dt == torch.float32 and kw.get("softcap", 0.0) > 0:
+            g = qs[2] // ks[2]
+            top = max(float(torch.einsum("bthd,bsd->bhts", q[:, :, j * g:(j + 1) * g],
+                                         k[:, :, j]).abs().max())
+                      for j in range(ks[2])) / qs[-1] ** 0.5
+            q = q * (kw["softcap"] / top)
+            exact = lambda q, k, v: ref.flash_attention_ref(
+                q.double(), k.double(), v.double(), **kw)
+            with torch.inference_mode():
+                got = flash_attention(q, k, v, **kw)
+                want = by_kv_head(plain, q, k, v)
+                f64 = by_kv_head(exact, q, k, v)
+            row["at_softcap_logit"] = {
+                "max_logit": kw["softcap"], "kernel_vs_plain": abs_err(got, want),
+                "kernel_vs_f64": abs_err(got, f64), "plain_vs_f64": abs_err(want, f64),
+                "limit": SERVE_TOL["flash_f32"]}
+        say("archs", **row)
+        if "at_softcap_logit" in row:
+            torch.testing.assert_close(got.double(), f64, **SERVE_TOL["flash_f32"])
+            del got, want, f64
+        del q, k, v
+    return err
+
+
 def check_archs(smi, ops, dev):
     """Phase archs: every registered config at full width, depth cut to
     ARCH_LAYERS (1 layer for the dense Llama family).  Per config: the
@@ -636,16 +773,19 @@ def check_archs(smi, ops, dev):
     drops); then a long prefill at the published capacity (ARCH_PREFILL:
     2 x 2048, gemma2 one prompt of 8192 so its local layers mask beyond
     their 4096 window), three runs timed, with its launches.  Each model
-    is freed before the next.  Returns the launch counts of the no-grad
-    forwards and the long prefills, summed."""
+    is freed before the next, and the kernels are then held against their
+    plain versions at the shapes that prefill gave them
+    (`check_path_shapes`).  Returns the launch counts of the no-grad
+    forwards and the long prefills, summed, and the kernels' max abs errors
+    at those shapes."""
     import dataclasses
     from repro_torch.configs import ALL_ARCHS, get_config
     from repro_torch.distributed.serve_step import make_decode_step, make_prefill
     from repro_torch.models.model import build_model
-    from repro_torch.models.transformer import forward_kernel_launches
     from repro_torch.tree import tree_leaves
 
     total = {k: 0 for k in KERNELS}
+    path_err = {"rmsnorm": 0.0, "flash_attention": 0.0}
     for arch in ALL_ARCHS:
         t_arch = time.time()
         cfg = get_config(arch).replace(num_layers=ARCH_LAYERS.get(arch, 1))
@@ -689,15 +829,19 @@ def check_archs(smi, ops, dev):
         # the long prefill, at the published capacity
         b, t = ARCH_PREFILL.get(arch, (0, 0))
         long_run = {}
+        calls = {"flash_attention": [], "rmsnorm": []}
         if b:
             prompt = torch.randint(0, cfg.vocab_size, (b, t), device=dev, generator=gen)
             prefill = make_prefill(model)
             ms = []
-            for _ in range(3):
+            for run in range(3):
                 ops.reset_launch_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                logits, _ = prefill(params, {"tokens": prompt})
+                # the first run notes the kernels' shapes and options
+                with (recorded_kernel_calls(ops) if run == 0
+                      else contextlib.nullcontext(calls)) as calls:
+                    logits, _ = prefill(params, {"tokens": prompt})
                 torch.cuda.synchronize()
                 ms.append(1e3 * (time.perf_counter() - t0))
                 launches = ops.launch_counts()
@@ -727,7 +871,11 @@ def check_archs(smi, ops, dev):
         del params, model, check
         gc.collect()
         torch.cuda.empty_cache()
-    return total
+        # the kernels at the long prefill's shapes, the model freed
+        for k, e in check_path_shapes(calls, dev).items():
+            path_err[k] = max(path_err[k], e)
+        torch.cuda.empty_cache()
+    return total, path_err
 
 
 def moe_on_card(smi, ops, dev):
@@ -1587,7 +1735,7 @@ def main() -> int:
         device=dev)
     list_err = check_bucket_kernels(dev, tol, hyper, sum_rtol, shard_layout)
     check_serving_kernels(dev)
-    arch_launches = check_archs(smi, ops, dev)
+    arch_launches, arch_err = check_archs(smi, ops, dev)
     moe_on_card(smi, ops, dev)
 
     # 4. the card's step against the CPU's on a small model -------------------
@@ -1865,9 +2013,10 @@ def main() -> int:
         "adamw_bound_ms": 28 * sizes[big] / bw * 1e3,
         "stats_bound_ms": 8 * sizes[big] / bw * 1e3, "elements": sizes[big]}
     # rmsnorm and flash_attention: the error at prefill's shapes, f32, as
-    # the other kernels' at the main path's (the sweeps print their own)
+    # the other kernels' at the main path's, and at the shapes the archs
+    # phase's long prefills gave them (the sweeps print their own)
     serve_timed = time_serving_kernels(dev, bw)
-    err.update({k: t["max_abs_err"] for k, t in serve_timed.items()})
+    err.update({k: max(t["max_abs_err"], arch_err[k]) for k, t in serve_timed.items()})
     timed.update(serve_timed)
     # the share of the byte bound each streaming loop reaches on one bucket
     t_big["fused_adamw_stats_share"] = t_big["adamw_bound_ms"] / t_big["fused_adamw_stats_ms"]

@@ -3,7 +3,6 @@
 for one or more checkouts of this repository in turns.
 
     python3 flash_probe.py [TREE ...]     # default: this checkout
-    python3 flash_probe.py --accuracy     # f32 error against f64 at large logits
 
 Each TREE is the root of a checkout (for instance a parent commit unpacked
 with `git archive` into a git-ignored directory).  Each is run in a fresh
@@ -15,13 +14,6 @@ its max abs error against the plain version, and prefill of 4 x 2048 tokens
 through all 16 layers (host clock around a synchronised call; 3 runs after
 a 64-token warm-up).  Trees listed in turns (A B B A) compare on one card.
 Needs a CUDA card; fails without one.
-
-`--accuracy` holds this checkout's f32 flash kernel and its plain f32
-version against the same attention in f64 on the card, over the card
-test's large-logit cases (`tests/test_torch_cuda.py::LARGE_LOGIT_CASES`)
-with q scaled so that the largest |logit| is 30 and 50 (gemma2-27b's
-attention softcap): the max abs error of kernel - plain, kernel - f64 and
-plain - f64, one JSON line a case.
 """
 
 import json
@@ -90,63 +82,7 @@ def one(tree: Path) -> dict:
     return out
 
 
-LARGE_LOGIT_CASES = [  # b, t, s, h, kvh, d, causal (the card test's)
-    (2, 200, 200, 8, 2, 64, True),
-    (1, 300, 300, 4, 1, 128, True),
-    (2, 93, 157, 8, 4, 100, False),
-    (1, 2048, 2048, 4, 1, 64, True),
-]
-
-
-def attention_f64(q, k, v, causal):
-    """The plain version's attention (kv heads in `repeat_interleave`
-    order, scale 1/sqrt(d), top-left causal mask), every step in f64."""
-    import torch
-    group = q.shape[2] // k.shape[2]
-    k, v = (torch.repeat_interleave(x, group, dim=2).double() for x in (k, v))
-    t, s, d = q.shape[1], k.shape[1], q.shape[3]
-    logits = torch.einsum("bthd,bshd->bhts", q.double(), k) / d ** 0.5
-    if causal:
-        mask = torch.arange(s, device=q.device)[None] <= torch.arange(
-            t, device=q.device)[:, None]
-        logits = logits.masked_fill(~mask, float("-inf"))
-    return torch.einsum("bhts,bshd->bthd", torch.softmax(logits, -1), v)
-
-
-def accuracy():
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("flash_probe: no CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    for b, t, s, h, kvh, d, causal in LARGE_LOGIT_CASES:
-        for logit in (30.0, 50.0):
-            gen = torch.Generator(device=dev).manual_seed(t * s + d)
-            q, k, v = (torch.randn(b, n, heads, d, device=dev, generator=gen)
-                       for n, heads in ((t, h), (s, kvh), (s, kvh)))
-            kh = torch.repeat_interleave(k, h // kvh, dim=2)
-            top = torch.einsum("bthd,bshd->bhts", q, kh).abs().max() / d ** 0.5
-            q = q * (logit / top)
-            with torch.inference_mode():
-                got = flash_attention(q, k, v, causal=causal)
-            plain = ref.flash_attention_ref(q, k, v, causal=causal)
-            exact = attention_f64(q, k, v, causal)
-            err = lambda a, b_: float((a.double() - b_.double()).abs().max())
-            print(json.dumps({"b": b, "t": t, "s": s, "h": h, "kvh": kvh, "d": d,
-                              "causal": causal, "max_logit": logit,
-                              "kernel_vs_plain": err(got, plain),
-                              "kernel_vs_f64": err(got, exact),
-                              "plain_vs_f64": err(plain, exact)}), flush=True)
-
-
 def main() -> int:
-    if sys.argv[1:2] == ["--accuracy"]:
-        accuracy()
-        return 0
     if sys.argv[1:2] == ["--one"]:
         print(json.dumps(one(Path(sys.argv[2]).resolve())), flush=True)
         return 0

@@ -38,6 +38,17 @@
 // rounded to TF32, lo = x - hi rounded again, and each product is lo*hi +
 // hi*lo + hi*hi with f32 accumulation (the dropped lo*lo and the rounding
 // of lo leave ~2^-22 relative a product, f32's order).
+//   * Accumulation: wgmma adds each k8 step into its f32 accumulator, and
+//     those additions lose more than round-to-nearest: an O accumulated by
+//     wgmma across every tile of gemma2-27b's global layer (t 8192, q
+//     scaled to |logit| 50) erred 9.2e-5 against f64, the plain f32
+//     version 2.5e-5 (chip_smoke.py; H100 80GB HBM3 at 700 W).  So
+//     each tile's P.V lands in a fresh accumulator OT, which the CUDA cores
+//     add to O (rounded to nearest) before the rescale; and within both
+//     products the small terms (lo*hi, hi*lo) go first, while the sum is
+//     small, and hi*hi last.  The kernel then errs less than the plain f32
+//     version against f64 (chip_smoke.py's `archs` shapes; the card test's
+//     large logits).
 //   * A block is one or two warpgroups of 64 q rows (BQ 128 up to d 64, else
 //     64) of one (batch, head); it walks the 64-key tiles (32 past d 80) its
 //     rows can see, the q tiles with the most causal work first.
@@ -315,15 +326,16 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
 
 template <int N> struct Wgmma;   // m64nNk8 TF32, f32 accumulators: N / 2 a thread
 template <> struct Wgmma<16> {
-  // d += A B^T, A in registers
-  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b) {
+  // d = [d +] A B^T, A in registers
+  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b,
+                                          int acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7}, "
         "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };
 template <> struct Wgmma<32> {
@@ -339,8 +351,9 @@ template <> struct Wgmma<32> {
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "l"(a), "l"(b), "r"(acc));
   }
-  // d += A B^T, A in registers
-  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b) {
+  // d = [d +] A B^T, A in registers
+  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b,
+                                          int acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
@@ -349,12 +362,13 @@ template <> struct Wgmma<32> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };
 template <> struct Wgmma<48> {
-  // d += A B^T, A in registers
-  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b) {
+  // d = [d +] A B^T, A in registers
+  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b,
+                                          int acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
@@ -364,7 +378,7 @@ template <> struct Wgmma<48> {
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };
 template <> struct Wgmma<64> {
@@ -384,8 +398,9 @@ template <> struct Wgmma<64> {
           "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(acc));
   }
-  // d += A B^T, A in registers
-  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b) {
+  // d = [d +] A B^T, A in registers
+  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b,
+                                          int acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
@@ -398,12 +413,13 @@ template <> struct Wgmma<64> {
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };
 template <> struct Wgmma<80> {
-  // d += A B^T, A in registers
-  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b) {
+  // d = [d +] A B^T, A in registers
+  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b,
+                                          int acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
@@ -418,12 +434,13 @@ template <> struct Wgmma<80> {
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };
 template <> struct Wgmma<96> {
-  // d += A B^T, A in registers
-  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b) {
+  // d = [d +] A B^T, A in registers
+  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b,
+                                          int acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
@@ -439,12 +456,13 @@ template <> struct Wgmma<96> {
           "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
           "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };
 template <> struct Wgmma<112> {
-  // d += A B^T, A in registers
-  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b) {
+  // d = [d +] A B^T, A in registers
+  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b,
+                                          int acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
@@ -463,12 +481,13 @@ template <> struct Wgmma<112> {
           "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };
 template <> struct Wgmma<128> {
-  // d += A B^T, A in registers
-  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b) {
+  // d = [d +] A B^T, A in registers
+  static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b,
+                                          int acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
@@ -489,7 +508,7 @@ template <> struct Wgmma<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };
 
@@ -567,15 +586,16 @@ flash_f32(Args a) {
   }
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-  float o[4 * NO];
+  float o[4 * NO], ot[4 * NO];          // O, and one tile's P.V
 #pragma unroll
-  for (int i = 0; i < 4 * NO; ++i) o[i] = 0.0f;
+  for (int i = 0; i < 4 * NO; ++i) o[i] = ot[i] = 0.0f;
   float sc[4 * NS];
   unsigned ph[NS][4], pl[NS][4];       // P of the previous tile, for its P.V
   const float* qhi = sm + (warp >> 2) * 64 * DP;
   const float* qlo = qhi + L::Q_LO;
 
-  // O += P V(tile in stage st), three TF32 products a group of 8 keys
+  // OT = P V(tile in stage st), three TF32 products a group of 8 keys: the
+  // small ones first, then hi*hi (see "Accumulation" in the header)
   auto issue_pv = [&](int st) {
     const float* vthi = sm + L::VT + st * 2 * KT;
     const float* vtlo = vthi + KT;
@@ -583,10 +603,12 @@ flash_f32(Args a) {
     for (int kk = 0; kk < NS; ++kk) {
       const uint64_t bh = desc(vthi + kk * 8 * DP, DP * 16, 128);
       const uint64_t bl = desc(vtlo + kk * 8 * DP, DP * 16, 128);
-      Wgmma<DP>::rs(o, pl[kk], bh);
-      Wgmma<DP>::rs(o, ph[kk], bl);
-      Wgmma<DP>::rs(o, ph[kk], bh);
+      Wgmma<DP>::rs(ot, pl[kk], bh, kk > 0);
+      Wgmma<DP>::rs(ot, ph[kk], bl, 1);
     }
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk)
+      Wgmma<DP>::rs(ot, ph[kk], desc(vthi + kk * 8 * DP, DP * 16, 128), 1);
     wg_commit();
   };
 
@@ -621,8 +643,9 @@ flash_f32(Args a) {
     fence_async_smem();
     __syncthreads();
 
-    // S(kt) = Q K^T, then P(kt-1) V(kt-1) behind it
-    pin(o);
+    // S(kt) = Q K^T (the small products first, then hi*hi), then
+    // P(kt-1) V(kt-1) behind it
+    pin(ot);
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < DP / 8; ++ks) {
@@ -632,8 +655,11 @@ flash_f32(Args a) {
       const uint64_t bl = desc(klo + ks * 8 * BK, BK * 16, 128);
       Wgmma<BK>::ss(sc, al, bh, ks > 0);
       Wgmma<BK>::ss(sc, ah, bl, 1);
-      Wgmma<BK>::ss(sc, ah, bh, 1);
     }
+#pragma unroll
+    for (int ks = 0; ks < DP / 8; ++ks)
+      Wgmma<BK>::ss(sc, desc(qhi + ks * 8 * 64, 64 * 16, 128),
+                    desc(khi + ks * 8 * BK, BK * 16, 128), 1);
     wg_commit();
     if (kt > kt_lo) {
       issue_pv(st ^ 1);
@@ -648,12 +674,14 @@ flash_f32(Args a) {
                       (a.window > 0 && k0 <= q0 + BQ - 1 - a.window);
     float corr[2];
     softmax_tile<NS>(sc, m, l, corr, a, k0, row0, c, edge);
-    wg_wait<0>();               // P.V(kt-1) is done: O and P's registers are free
-    pin(o);
+    wg_wait<0>();               // P.V(kt-1) is done: OT and P's registers are free
+    pin(ot);
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      o[4 * n + 0] *= corr[0]; o[4 * n + 1] *= corr[0];
-      o[4 * n + 2] *= corr[1]; o[4 * n + 3] *= corr[1];
+      o[4 * n + 0] = (o[4 * n + 0] + ot[4 * n + 0]) * corr[0];
+      o[4 * n + 1] = (o[4 * n + 1] + ot[4 * n + 1]) * corr[0];
+      o[4 * n + 2] = (o[4 * n + 2] + ot[4 * n + 2]) * corr[1];
+      o[4 * n + 3] = (o[4 * n + 3] + ot[4 * n + 3]) * corr[1];
     }
     // P as the A operand: column c is key 2c, column c + 4 key 2c + 1
 #pragma unroll
@@ -669,11 +697,13 @@ flash_f32(Args a) {
     }
   }
   if (kt_lo < kt_hi) {
-    pin(o);
+    pin(ot);
     wg_fence();
     issue_pv((kt_hi - 1 - kt_lo) & 1);
     wg_wait<0>();
-    pin(o);
+    pin(ot);
+#pragma unroll
+    for (int i = 0; i < 4 * NO; ++i) o[i] += ot[i];
   }
   finish<float, NO>(o, m, l, a, v, bi, hh, row0, c);
 }

@@ -60,10 +60,13 @@ def rmsnorm_ref(x, scale, eps: float = 1e-6):
 
 def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     """q,k,v: (b, t, h, d) (same head count — GQA expansion happens in the
-    wrapper).  Returns (b, t, h, d)."""
+    wrapper).  Returns (b, t, h, d).  Computes in f32, or in f64 for f64
+    inputs (the exact yardstick the f32 kernel and this version are both
+    held against at large logits)."""
     t, d = q.shape[1], q.shape[3]
     s = k.shape[1]
-    logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) / math.sqrt(d)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.einsum("bthd,bshd->bhts", q.to(acc), k.to(acc)) / math.sqrt(d)
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     qpos = torch.arange(t, device=q.device)[:, None]
@@ -75,7 +78,7 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
         mask &= kpos > qpos - window
     logits = logits.masked_fill(~mask[None, None], -2.0e38)
     p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhts,bshd->bthd", p, v.float()).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", p, v.to(acc)).to(q.dtype)
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):

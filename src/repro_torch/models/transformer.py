@@ -21,7 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import resolve_device
-from repro_torch.models.config import ATTN, LOCAL_ATTN, MLA_ATTN, ModelConfig
+from repro_torch.models.config import ATTN, MLA_ATTN, ModelConfig
 from repro_torch.models.embeddings import init_embedding, embed_tokens, unembed
 from repro_torch.models.norms import init_norm, apply_norm
 
@@ -30,26 +30,6 @@ def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
     """Kind of every layer in execution order (prefix, then the repeats of
     the block pattern)."""
     return cfg.prefix_pattern + cfg.block_pattern * cfg.num_repeats
-
-
-def forward_kernel_launches(cfg: ModelConfig) -> dict:
-    """Launches of the forward-only kernels in one forward of `cfg` on the
-    card with grad mode off (prefill, the eval loss): `flash_attention` once
-    an attention layer (MLA attends in plain PyTorch), `rmsnorm` once a
-    norm where the model's norms are RMSNorm (LayerNorm has no kernel),
-    plus MLA's `q_norm` and `kv_norm`, which are RMSNorm in every config.
-    A decode step runs the same rmsnorms and no flash_attention."""
-    rms = cfg.norm_kind == "rmsnorm"
-    per_layer = 1 + (cfg.mlp_kind != "none")
-    if cfg.post_attn_norm:
-        per_layer *= 2
-    flash, norms = 0, rms                                  # the final norm
-    for kind in layer_kinds(cfg):
-        flash += kind in (ATTN, LOCAL_ATTN)
-        norms += per_layer * rms
-        if kind == MLA_ATTN:
-            norms += 1 + bool(cfg.mla.q_lora_rank)
-    return {"flash_attention": flash, "rmsnorm": norms}
 
 
 def layer_plan(cfg: ModelConfig) -> list[tuple[str, bool]]:

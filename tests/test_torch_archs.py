@@ -22,6 +22,8 @@ largest magnitude (the frameworks sum in different orders)."""
 import dataclasses
 import json
 import os
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -50,6 +52,9 @@ from repro_torch.models import attention, blocks, mla, norms, transformer
 from repro_torch.models.model import build_model
 from repro_torch.models.transformer import layer_kinds
 from repro_torch.tree import tree_leaves
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import forward_kernel_launches  # noqa: E402
 
 ARCHS = ["gemma2-27b", "nemotron-4-15b", "phi3-mini-3.8b", "dbrx-132b",
          "deepseek-v2-236b"]
@@ -127,7 +132,7 @@ def test_forward_kernel_launches_count_each_kernel_call(arch, monkeypatch):
     toks = torch.from_numpy(_tokens(cfg, 2, 8, seed=0)).long()
     with torch.no_grad():
         model.loss(model.init(0, "cpu"), {"tokens": toks, "labels": toks})
-    assert calls == transformer.forward_kernel_launches(cfg)
+    assert calls == forward_kernel_launches(cfg)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -11,13 +11,17 @@ the plain version does, so p, m and v agree to rounding of the last bit
 Σ(x−y)², Σy²) is taken in another order (rtol 1e-5).  rmsnorm and
 flash_attention sum in another order than the plain version: f32 at
 rtol 1e-5 / atol 1e-5 (rmsnorm) and 2e-5 (flash, where exp, the online
-rescaling and the split-TF32 products add a few ulps); bf16 outputs to one bf16 rounding (2^-7
-relative, 1e-2 absolute).  The list entry points over many buckets are
+rescaling and the split-TF32 products add a few ulps; at logits of 30-50
+flash f32 is held to 2e-5 of the f64 attention instead, see
+`test_cuda_flash_attention_large_logits`); bf16 outputs to one bf16
+rounding (2^-7 relative, 1e-2 absolute).  The list entry points over many buckets are
 held against the plain versions bucket by bucket at the same tolerances,
 and two calls on the same inputs must give the same bits.
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -33,7 +37,9 @@ from repro_torch.kernels.fused_stats import fused_stats, fused_stats_buckets
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.sqdiff_norm import sqdiff_norm
 from repro_torch.models.model import build_model
-from repro_torch.models.transformer import forward_kernel_launches
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import forward_kernel_launches  # noqa: E402
 
 SIZES = [1, 17, 1_000_003]
 DTYPE_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
@@ -202,7 +208,12 @@ BF16_TOL = dict(rtol=2 ** -7, atol=1e-2)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,d", [(1, 64), (7, 100), (4096, 2048), (33, 2050),
-                                    (5, 8192)])
+                                    (5, 8192),
+                                    # prefill 2 x 2048 of deepseek-v2 (MLA's
+                                    # kv_norm, q_norm; d_model), phi3-mini;
+                                    # gemma2's 1 x 8192
+                                    (4096, 512), (4096, 1536), (4096, 5120),
+                                    (4096, 3072), (8192, 4608)])
 @pytest.mark.parametrize("x_dtype,s_dtype", [(torch.float32, torch.float32),
                                              (torch.bfloat16, torch.bfloat16),
                                              (torch.bfloat16, torch.float32)])
@@ -240,6 +251,12 @@ FLASH_CASES = [  # b, t, s, h, kvh, d, causal, window, softcap
     (2, 93, 157, 8, 4, 100, False, 0, 0.0),      # t, s not multiples of 16
     (1, 70, 90, 4, 1, 33, True, 0, 0.0),         # 4-byte copies; bf16: plain loads
     (1, 45, 45, 2, 1, 34, False, 0, 30.0),       # bf16: 4-byte copies
+    # the archs' long prefills: gemma2-27b's local and global layers,
+    # phi3-mini (head dim 96, MHA), nemotron-4 and dbrx (48 / 8 heads)
+    (1, 8192, 8192, 32, 16, 128, True, 4096, 50.0),
+    (1, 8192, 8192, 32, 16, 128, True, 0, 50.0),
+    (2, 2048, 2048, 32, 32, 96, True, 0, 0.0),
+    (2, 2048, 2048, 48, 8, 128, True, 0, 0.0),
 ]
 
 
@@ -275,7 +292,13 @@ def test_cuda_flash_attention_large_logits(cuda, b, t, s, h, kvh, d, causal, dty
                                            logit):
     """q scaled so that the largest |logit| is 30, and 50 (gemma2-27b's
     attention softcap admits logits up to 50): the worst case of the
-    split-TF32 products, at the unchanged tolerances."""
+    split-TF32 products and of the tensor cores' accumulation, at the
+    unchanged tolerances.  f32 is held against the same attention in f64,
+    the exact answer: at these logits the plain f32 version's own error
+    nears the 2e-5 (1.9e-5 at t 93, s 157, d 100 on the card), so the two
+    f32 results could disagree by more with neither at fault.  bf16 is held
+    against the plain version as before.  A miss reports the kernel's and
+    the plain version's errors against f64 beside each other."""
     gen = torch.Generator(device=cuda).manual_seed(t * s + d)
     q, k, v = (torch.randn(b, n, heads, d, device=cuda, generator=gen)
                for n, heads in ((t, h), (s, kvh), (s, kvh)))
@@ -285,8 +308,15 @@ def test_cuda_flash_attention_large_logits(cuda, b, t, s, h, kvh, d, causal, dty
     with torch.inference_mode():
         got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else BF16_TOL
-    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal=causal), **tol)
+    plain = ref.flash_attention_ref(q, k, v, causal=causal)
+    exact = ref.flash_attention_ref(q.double(), k.double(), v.double(), causal=causal)
+    err = lambda a: float((a.double() - exact).abs().max())
+    msg = lambda m: (f"{m}\nmax abs error against f64: kernel {err(got):.3e}, "
+                     f"plain {err(plain):.3e}")
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.double(), exact, rtol=2e-5, atol=2e-5, msg=msg)
+    else:
+        torch.testing.assert_close(got, plain, msg=msg, **BF16_TOL)
 
 
 @pytest.mark.cuda

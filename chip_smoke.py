@@ -28,30 +28,44 @@ exit (nothing is caught):
               bf16/f32) and unaligned views; flash over t != s, tails that
               are not a multiple of 64, GQA groups 1, 4, 8, head dims 16,
               32, 33 (4-byte copies; bf16 plain loads), 64, 100
-              (openllama-3b's), 128, causal or not, window 0/100, softcap
+              (openllama-3b's), 128, 200 and 256 (O in two halves,
+              recurrentgemma's), causal or not, window 0/100, softcap
               0/30, f32 and bf16; tolerances printed and asserted.
    archs    — every registered config at full width, depth cut
               (ARCH_LAYERS: 1 layer for the dense Llama family; gemma2 one
               local and one global layer, 2 312 151 552 parameters;
               nemotron-4 2 layers; phi3-mini its full 32; dbrx 2 MoE
               layers, 7 751 331 840; deepseek-v2 its dense MLA prefix layer
-              and one MLA + MoE layer): the forward with grad mode off
-              (training's eval loss; its flash and rmsnorm launches as
-              `forward_kernel_launches` computes them from the config)
-              against the plain forward, prefill against the same tokens
-              streamed through decode (MoE at a capacity where no pair
-              drops), and a long prefill at the published capacity
-              (2 x 2048; gemma2 one prompt of 8192, beyond its 4096
-              window), three runs timed, with its launches and peak
-              memory.  Each model is freed before the next; then
-              rmsnorm and flash_attention against their plain versions at
-              every shape and option that long prefill gave them (gemma2's
-              window 4096 and softcap 50 at t 8192, phi3's head dim 96,
-              48/8 heads at d 128, MLA's norms at 512 and 1536; inputs from
-              a seed, SERVE_TOL), and gemma2's flash calls once more with
-              q scaled to |logit| 50, held against f64 at SERVE_TOL, the
-              kernel's and the plain version's errors against f64
-              printed.
+              and one MLA + MoE layer; mamba2 its full 48 SSD layers;
+              recurrentgemma its 2 RG-LRU prefix layers and one (rglru,
+              rglru, local) repeat, 2 174 922 752; whisper its 6 decoder
+              and 6 encoder layers; internvl2 its full 24), whisper's
+              encoder frames and internvl2's patch embeddings drawn from a
+              seed: the forward with grad mode off (training's eval loss;
+              its flash and rmsnorm launches as `forward_kernel_launches`
+              computes them from the config) against the plain forward,
+              prefill against the same tokens streamed through decode
+              (MoE at a capacity where no pair drops; whisper's cross
+              caches filled from the same frames; internvl2 from a
+              prefill over its prefix and half the text), and a long
+              prefill at the published capacity (2 x 2048; gemma2 and
+              recurrentgemma one prompt of 8192, beyond their 4096 and
+              2048 windows; whisper 448 decoder tokens over 1500 frames;
+              internvl2 256 prefix and 1792 text tokens), three runs
+              timed, with its launches and peak memory.  Each model is
+              freed before the next; then rmsnorm and flash_attention
+              against their plain versions at every shape and option that
+              long prefill gave them (gemma2's window 4096 and softcap 50
+              at t 8192, phi3's head dim 96, 48/8 heads at d 128, MLA's
+              norms at 512 and 1536, recurrentgemma's head dim 256 with
+              MQA 16/1 and window 2048, whisper's non-causal encoder and
+              cross-attention at t 448 over s 1500, internvl2's 14/2;
+              inputs from a seed, SERVE_TOL), and gemma2's flash calls
+              once more with q scaled to |logit| 50, held against f64 at
+              SERVE_TOL, the kernel's and the plain version's errors
+              against f64 printed.  Last, flash at recurrentgemma's
+              local layer timed beside its plain version and
+              F.scaled_dot_product_attention in f32.
    moe      — the dbrx and deepseek-v2 smoke configs: two identical
               forward and backward passes give bit-identical gradients;
               then 4 ACCUM-NORM steps of deepseek-v2 smoke through
@@ -208,13 +222,23 @@ SERVE_REL = 1e-4
 EVAL_RTOL = 1e-5
 # phase archs: depth kept at full width (default 1: the dense Llama family);
 # gemma2 one local and one global layer, deepseek-v2 its dense prefix layer
-# and one MoE layer, phi3-mini its full depth
+# and one MoE layer, phi3-mini, mamba2, whisper (6 decoder and its 6
+# encoder layers) and internvl2 their full depth, recurrentgemma its 2 RG-LRU
+# prefix layers and one (rglru, rglru, local) repeat
 ARCH_LAYERS = {"gemma2-27b": 2, "nemotron-4-15b": 2, "phi3-mini-3.8b": 32,
-               "dbrx-132b": 2, "deepseek-v2-236b": 2}
+               "dbrx-132b": 2, "deepseek-v2-236b": 2, "mamba2-370m": 48,
+               "recurrentgemma-9b": 5, "whisper-base": 6, "internvl2-1b": 24}
+# (batch, text tokens): whisper's 448 decoder tokens over its 1500 frames,
+# internvl2's 1792 text tokens behind its 256-token vision prefix (2048),
+# gemma2's and recurrentgemma's one prompt of 8192, beyond their windows
 ARCH_PREFILL = {"gemma2-27b": (1, 8192), "nemotron-4-15b": (2, 2048),
                 "phi3-mini-3.8b": (2, 2048), "dbrx-132b": (2, 2048),
-                "deepseek-v2-236b": (2, 2048)}
-ARCH_CHECK_LEN = 64       # prefill vs streamed decode
+                "deepseek-v2-236b": (2, 2048), "mamba2-370m": (2, 2048),
+                "recurrentgemma-9b": (1, 8192), "whisper-base": (2, 448),
+                "internvl2-1b": (2, 1792)}
+ARCH_CHECK_LEN = 64       # prefill vs streamed decode (an SSD config: its chunk)
+# recurrentgemma's local attention: (b, t, s, h, kvh, d), causal, window
+FLASH_D256 = ((1, 8192, 8192, 16, 1, 256), 2048)
 MOE_SMOKE = ("dbrx-132b", "deepseek-v2-236b")
 MOE_TRAIN_JOB = dict(arch="deepseek-v2-236b", smoke=True, schedule="adaptive",
                      step_impl="accum_norm", stats_impl="flat", params_impl="flat",
@@ -535,7 +559,10 @@ def rel_err(got, want) -> float:
 
 
 def caches_rel_err(a, b) -> float:
-    return max(rel_err(x[k], y[k]) for x, y in zip(a, b) for k in y)
+    """Over every layer whose prefill collects a cache (a recurrent layer's
+    is None, as in the reference)."""
+    return max((rel_err(x[k], y[k]) for x, y in zip(a, b) if x is not None for k in y),
+               default=0.0)
 
 
 def check_serving_kernels(dev):
@@ -580,7 +607,8 @@ def check_serving_kernels(dev):
         (2, 300, 300, True, 100, 30.0), (1, 96, 150, False, 0, 0.0),
         (1, 130, 200, False, 100, 30.0), (1, 520, 520, True, 0, 0.0)]
     i = 0
-    for d in (16, 32, 33, 64, 100, 128):       # 33: 4-byte copies; bf16 plain loads
+    # 33: 4-byte copies, bf16 plain loads; 200 and 256: O in two halves
+    for d in (16, 32, 33, 64, 100, 128, 200, 256):
         for h, kvh in ((8, 8), (8, 2), (8, 1)):
             for dt in (f32, bf16):
                 b, t, sl, causal, window, cap = shapes[i % len(shapes)]
@@ -604,17 +632,36 @@ def check_serving_kernels(dev):
 
 def prefill_gemm_flops(cfg, b: int, t: int) -> int:
     """Floating-point operations of the weight products of one prefill of
-    b x t tokens (2 a multiply-add): every layer's projections, dense MLP
+    b x t tokens (2 a multiply-add): every layer's projections (RG-LRU's
+    branches, gates and output; SSD's in and out projections), dense MLP
     or — at the capacity the config dispatches at — router, experts and
-    shared experts, and the last token's logits.  The attention products
-    (flash, MLA's einsums) are not counted."""
+    shared experts, an encoder's layers over its frames and the decoder's
+    cross-attention projections, and the last token's logits.  The
+    attention products (flash, MLA's einsums) and SSD's chunked products
+    are not counted."""
+    from repro_torch.models.blocks import has_mlp
     from repro_torch.models.moe import _capacity
     from repro_torch.models.transformer import layer_plan
 
     d, n = cfg.d_model, b * t
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    mlp = (3 if cfg.mlp_kind in ("swiglu", "geglu") else 2) * d * cfg.d_ff
     macs = b * cfg.vocab_size * d                        # last-token logits
+    if cfg.encoder is not None:
+        nf = b * cfg.encoder.num_frames
+        macs += cfg.encoder.num_layers * nf * (2 * d * q + 2 * d * kv + mlp)
+        # each decoder layer's cross-attention: q and out over the tokens,
+        # k and v over the frames
+        macs += cfg.num_layers * (n * 2 * d * q + nf * 2 * d * kv)
     for kind, moe_layer in layer_plan(cfg):
-        if kind == "mla":
+        if kind == "rglru":
+            w = cfg.rglru.lru_width or d
+            macs += n * (3 * d * w + 2 * w * w)
+        elif kind == "ssd":
+            s = cfg.ssm
+            di = s.d_inner(d)
+            macs += n * (d * (2 * di + 2 * s.state_dim + s.num_heads(d)) + di * d)
+        elif kind == "mla":
             m, h = cfg.mla, cfg.num_heads
             qk = m.qk_nope_head_dim + m.qk_rope_head_dim
             q = (d * m.q_lora_rank + m.q_lora_rank * h * qk if m.q_lora_rank
@@ -623,41 +670,52 @@ def prefill_gemm_flops(cfg, b: int, t: int) -> int:
                          + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)
                          + h * m.v_head_dim * d)
         else:
-            q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
             macs += n * (2 * d * q + 2 * d * kv)
         if moe_layer:
             m = cfg.moe
             slots = b * m.num_experts * _capacity(t, m, m.capacity_factor)
             macs += n * d * m.num_experts + slots * 3 * d * m.d_expert
             macs += n * 3 * d * m.num_shared_experts * m.shared_d_expert
-        else:
-            macs += n * (3 if cfg.mlp_kind in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+        elif has_mlp(cfg, kind):
+            macs += n * mlp
     return 2 * macs
 
 
 def forward_kernel_launches(cfg) -> dict:
     """Launches of the forward-only kernels in one forward of `cfg` on the
     card with grad mode off (prefill, the eval loss): `flash_attention` once
-    an attention layer (MLA attends in plain PyTorch), `rmsnorm` once a
-    norm where the model's norms are RMSNorm (LayerNorm has no kernel),
-    plus MLA's `q_norm` and `kv_norm`, which are RMSNorm in every config.
-    A decode step runs the same rmsnorms and no flash_attention.  Counted
-    from the config alone, so that a model that stops reaching a kernel
-    fails the phase; `tests/test_torch_archs.py` holds it against the
-    calls a forward makes."""
+    an attention layer (MLA attends in plain PyTorch; RG-LRU and SSD layers
+    are recurrences), once an encoder layer and once a decoder layer's
+    cross-attention; `rmsnorm` once a norm where the model's norms are
+    RMSNorm (LayerNorm has no kernel) — a layer's pre-norm, its MLP norm
+    (an SSD layer has no MLP), their post-norms, a decoder layer's
+    cross-attention norm, every encoder layer's norms and the final norms
+    — plus MLA's `q_norm` and `kv_norm`, which are RMSNorm in every config.
+    A decode step runs the same decoder rmsnorms and, for an
+    encoder-decoder, its cross-attention flash calls.  Counted from the
+    config alone, so that a model that stops reaching a kernel fails the
+    phase; `tests/test_torch_archs.py` holds it against the calls a
+    forward makes."""
+    from repro_torch.models.blocks import has_mlp
     from repro_torch.models.config import ATTN, LOCAL_ATTN, MLA_ATTN
     from repro_torch.models.transformer import layer_kinds
 
     rms = cfg.norm_kind == "rmsnorm"
-    per_layer = 1 + (cfg.mlp_kind != "none")
-    if cfg.post_attn_norm:
-        per_layer *= 2
+    cross = cfg.encoder is not None
+
+    def layer_norms(kind):
+        n = 1 + has_mlp(cfg, kind)
+        return 2 * n if cfg.post_attn_norm else n
+
     flash, norms = 0, rms                                  # the final norm
     for kind in layer_kinds(cfg):
-        flash += kind in (ATTN, LOCAL_ATTN)
-        norms += per_layer * rms
+        flash += (kind in (ATTN, LOCAL_ATTN)) + cross
+        norms += (layer_norms(kind) + cross) * rms
         if kind == MLA_ATTN:
             norms += 1 + bool(cfg.mla.q_lora_rank)
+    if cross:
+        flash += cfg.encoder.num_layers
+        norms += (cfg.encoder.num_layers * layer_norms(ATTN) + 1) * rms
     return {"flash_attention": flash, "rmsnorm": norms}
 
 
@@ -763,24 +821,120 @@ def check_path_shapes(calls, dev) -> dict:
     return err
 
 
+def frontend_inputs(cfg, b: int, gen, dev) -> dict:
+    """A stub frontend's inputs for b rows, standard normal from `gen`:
+    an audio config's encoder frames (b, num_frames, d), a vision config's
+    patch embeddings (b, num_prefix_tokens, d); {} for none."""
+    if cfg.frontend.kind == "audio_stub":
+        shape = (b, cfg.encoder.num_frames, cfg.d_model)
+        return {"frames": torch.randn(shape, device=dev, generator=gen)}
+    if cfg.frontend.kind == "vision_stub":
+        shape = (b, cfg.frontend.num_prefix_tokens, cfg.d_model)
+        return {"patch_embeds": torch.randn(shape, device=dev, generator=gen)}
+    return {}
+
+
+def prefill_vs_decode(model, params, toks, front, dev) -> dict:
+    """Prefill over `toks` (and the frontend inputs `front`) against the
+    same tokens streamed through decode: the last logits and every cache
+    the prefill collects, relative errors.  An encoder-decoder's decode
+    cache gets its cross k and v from the same frames first; a vision
+    config's decode takes tokens only, so a prefill over the prefix and
+    the first half of the text starts its cache and the second half
+    streams."""
+    from repro_torch.distributed.serve_step import make_decode_step, make_prefill
+    from repro_torch.models.transformer import fill_cross_cache
+
+    b, n = toks.shape
+    logits, caches = make_prefill(model)(params, {"tokens": toks, **front})
+    npfx, start = 0, 0
+    if "patch_embeds" in front:
+        npfx, start = front["patch_embeds"].shape[1], n // 2
+        _, head = make_prefill(model)(params, {"tokens": toks[:, :start], **front})
+        cache = model.init_cache(b, npfx + n, device=dev)
+        with torch.inference_mode():
+            for c, h in zip(cache, head):
+                for k in c:
+                    c[k][:, :npfx + start].copy_(h[k])
+    else:
+        cache = model.init_cache(b, n, device=dev)
+        if "frames" in front:
+            with torch.inference_mode():
+                fill_cross_cache(params, cache, front["frames"], model.cfg)
+    step = make_decode_step(model)
+    for i in range(start, n):
+        dec, cache = step(params, cache, toks[:, i], npfx + i)
+    return {"last_logits": rel_err(logits, dec), "caches": caches_rel_err(caches, cache)}
+
+
+def time_flash_d256(dev, bw: float) -> dict:
+    """flash_attention at recurrentgemma-9b's local layer (FLASH_D256: one
+    prompt of 8192, MQA 16 / 1, head dim 256, causal, window 2048), f32,
+    against its plain version, and timed beside the plain version and
+    `F.scaled_dot_product_attention` on the same f32 inputs (the kv head
+    expanded to 16, the window as a boolean mask; timed only, the port
+    never calls it), CUDA events; with the least time the card could take:
+    bytes (q, k, v read once, out written once) over the memory rate, and
+    the two products' operations over the visible (query, key) pairs,
+    at f32's 67 TFLOP/s and as three TF32 products at 495."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.attention import causal_mask
+
+    (b, t, s, h, kvh, d), window = FLASH_D256
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q = torch.randn(b, t, h, d, device=dev, generator=gen)
+    k, v = (torch.randn(b, s, kvh, d, device=dev, generator=gen) for _ in range(2))
+    kw = dict(causal=True, window=window)
+    pairs = sum(min(i + 1, window) for i in range(t))
+    with torch.inference_mode():
+        got = flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.testing.assert_close(got, want, **SERVE_TOL["flash_f32"])
+        err = float((got - want).abs().max())
+        del got, want
+        ms = [cuda_ms(lambda: flash_attention(q, k, v, **kw), 3) for _ in range(2)]
+        plain_ms = [cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 1)
+                    for _ in range(2)]
+        qt = q.transpose(1, 2)
+        kt, vt = (torch.repeat_interleave(x, h // kvh, dim=2).transpose(1, 2)
+                  for x in (k, v))
+        mask = causal_mask(t, s, window=window, device=dev)
+        library_ms = [cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), 1) for _ in range(2)]
+    flops = 4 * b * h * d * pairs
+    return {"shape": [b, t, s, h, kvh, d], "causal": True, "window": window,
+            "dtype": "float32", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "F.scaled_dot_product_attention",
+            "visible_pairs": pairs,
+            "bound_bytes_ms": 2 * (q.numel() + k.numel()) * 4 / bw * 1e3,
+            "bound_ops_ms": flops / F32_FLOPS * 1e3,
+            "bound_tc_ms": 3 * flops / TF32_FLOPS * 1e3}
+
+
 def check_archs(smi, ops, dev):
     """Phase archs: every registered config at full width, depth cut to
     ARCH_LAYERS (1 layer for the dense Llama family).  Per config: the
     forward with grad mode off (the kernels; launches as
     `forward_kernel_launches` computes them from the config) against the
     plain forward under grad mode; prefill against the same tokens
-    streamed through decode (an MoE config at a capacity where no pair
-    drops); then a long prefill at the published capacity (ARCH_PREFILL:
-    2 x 2048, gemma2 one prompt of 8192 so its local layers mask beyond
-    their 4096 window), three runs timed, with its launches.  Each model
-    is freed before the next, and the kernels are then held against their
-    plain versions at the shapes that prefill gave them
-    (`check_path_shapes`).  Returns the launch counts of the no-grad
-    forwards and the long prefills, summed, and the kernels' max abs errors
-    at those shapes."""
+    streamed through decode (`prefill_vs_decode`; an MoE config at a
+    capacity where no pair drops); then a long prefill at the published
+    capacity (ARCH_PREFILL: 2 x 2048; gemma2 and recurrentgemma one prompt
+    of 8192 so their local layers mask beyond their windows; whisper 448
+    decoder tokens over 1500 frames; internvl2 256 prefix and 1792 text
+    tokens), three runs timed, with its launches.  Audio frames and patch
+    embeddings are drawn from the seeded generator.  Each model is freed
+    before the next, and the kernels are then held against their plain
+    versions at the shapes that prefill gave them (`check_path_shapes`).
+    Last, flash_attention at head dim 256 timed beside SDPA
+    (`time_flash_d256`).  Returns the launch counts of the no-grad
+    forwards and the long prefills, summed, and the kernels' max abs
+    errors at those shapes."""
     import dataclasses
     from repro_torch.configs import ALL_ARCHS, get_config
-    from repro_torch.distributed.serve_step import make_decode_step, make_prefill
+    from repro_torch.distributed.serve_step import make_prefill
     from repro_torch.models.model import build_model
     from repro_torch.tree import tree_leaves
 
@@ -796,9 +950,13 @@ def check_archs(smi, ops, dev):
         n_params = sum(x.numel() for x in tree_leaves(params))
         want = {k: 0 for k in KERNELS} | forward_kernel_launches(cfg)
         gen = torch.Generator(device=dev).manual_seed(1)
-        tokens = torch.randint(0, cfg.vocab_size, (2, 100), device=dev, generator=gen)
-        labels = torch.randint(0, cfg.vocab_size, (2, 100), device=dev, generator=gen)
-        batch = {"tokens": tokens, "labels": labels}
+        # an SSD config's full-sequence forward takes a multiple of its chunk
+        chunk = cfg.ssm.chunk_size if cfg.ssm is not None else 0
+        n = chunk or 100
+        tokens = torch.randint(0, cfg.vocab_size, (2, n), device=dev, generator=gen)
+        labels = torch.randint(0, cfg.vocab_size, (2, n), device=dev, generator=gen)
+        front = frontend_inputs(cfg, 2, gen, dev)
+        batch = {"tokens": tokens, "labels": labels, **front}
         plain = float(model.loss(params, batch)[0])
         ops.reset_launch_counts()
         with torch.no_grad():
@@ -816,22 +974,19 @@ def check_archs(smi, ops, dev):
         check = model if cfg.moe is None else build_model(cfg.replace(
             moe=dataclasses.replace(cfg.moe,
                                     capacity_factor=float(cfg.moe.num_experts))))
-        toks = tokens[:, :ARCH_CHECK_LEN]
-        logits, caches = make_prefill(check)(params, {"tokens": toks})
-        step = make_decode_step(check)
-        cache = check.init_cache(2, ARCH_CHECK_LEN, device=dev)
-        for i in range(ARCH_CHECK_LEN):
-            dec, cache = step(params, cache, toks[:, i], i)
-        errs = {"last_logits": rel_err(logits, dec), "caches": caches_rel_err(caches, cache)}
+        errs = prefill_vs_decode(check, params, tokens[:, :chunk or ARCH_CHECK_LEN],
+                                 front, dev)
         if max(errs.values()) > SERVE_REL:
             raise AssertionError(f"{arch}: prefill vs streamed decode {errs} > {SERVE_REL}")
-        del logits, caches, cache, dec
         # the long prefill, at the published capacity
         b, t = ARCH_PREFILL.get(arch, (0, 0))
         long_run = {}
         calls = {"flash_attention": [], "rmsnorm": []}
         if b:
-            prompt = torch.randint(0, cfg.vocab_size, (b, t), device=dev, generator=gen)
+            prompt = {"tokens": torch.randint(0, cfg.vocab_size, (b, t), device=dev,
+                                              generator=gen),
+                      **frontend_inputs(cfg, b, gen, dev)}
+            npfx = prompt["patch_embeds"].shape[1] if "patch_embeds" in prompt else 0
             prefill = make_prefill(model)
             ms = []
             for run in range(3):
@@ -841,7 +996,7 @@ def check_archs(smi, ops, dev):
                 # the first run notes the kernels' shapes and options
                 with (recorded_kernel_calls(ops) if run == 0
                       else contextlib.nullcontext(calls)) as calls:
-                    logits, _ = prefill(params, {"tokens": prompt})
+                    logits, _ = prefill(params, prompt)
                 torch.cuda.synchronize()
                 ms.append(1e3 * (time.perf_counter() - t0))
                 launches = ops.launch_counts()
@@ -855,9 +1010,10 @@ def check_archs(smi, ops, dev):
                 del logits
             for k in KERNELS:
                 total[k] += launches[k]
-            flops = prefill_gemm_flops(cfg, b, t)
-            long_run = dict(prefill_batch=b, prefill_tokens=t, prefill_ms=ms,
-                            prefill_tok_per_s=b * t / (min(ms) / 1e3),
+            flops = prefill_gemm_flops(cfg, b, npfx + t)
+            long_run = dict(prefill_batch=b, prefill_tokens=npfx + t, prefix_tokens=npfx,
+                            prefill_ms=ms,
+                            prefill_tok_per_s=b * (npfx + t) / (min(ms) / 1e3),
                             prefill_gemm_tflop=flops / 1e12,
                             prefill_gemm_tflop_per_s=flops / 1e12 / (min(ms) / 1e3),
                             prefill_launches=launches)
@@ -875,6 +1031,9 @@ def check_archs(smi, ops, dev):
         for k, e in check_path_shapes(calls, dev).items():
             path_err[k] = max(path_err[k], e)
         torch.cuda.empty_cache()
+    say("archs", nvidia_smi=smi, flash_d256=time_flash_d256(
+        dev, mem_bw(torch.cuda.get_device_name(0))))
+    torch.cuda.empty_cache()
     return total, path_err
 
 

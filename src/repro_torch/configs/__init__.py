@@ -1,10 +1,7 @@
-"""Architecture registry of the port: the decoder configs it supports
-(dense, local/global, MoE and MLA).  `get_config(name)` /
-`get_smoke_config(name)`.
-
-The other architectures of `repro/configs` (SSM, RG-LRU, encoder-decoder,
-VLM) arrive with the remaining-architectures slice; asking for one raises
-`KeyError`.
+"""Architecture registry of the port: every config of `repro/configs`
+(dense, local/global, MoE, MLA, SSM, RG-LRU hybrid, encoder-decoder and
+VLM).  `get_config(name)` / `get_smoke_config(name)`; an unknown name
+raises `KeyError`.
 """
 
 from __future__ import annotations
@@ -21,6 +18,10 @@ _REGISTRY = {
     "gemma2-27b": "gemma2_27b",
     "nemotron-4-15b": "nemotron_4_15b",
     "llama3.2-1b": "llama3_2_1b",
+    "mamba2-370m": "mamba2_370m",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "whisper-base": "whisper_base",
+    "internvl2-1b": "internvl2_1b",
     # the paper's own experiment models
     "microllama-300m": "microllama_300m",
     "tinyllama-1.1b": "tinyllama_1_1b",

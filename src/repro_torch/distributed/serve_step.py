@@ -17,9 +17,16 @@ written in place:
 * `move_slot` and `reset_slot` copy and zero slot rows in place.
 
 The cache is the model's per-layer list of {"k", "v"} (every leaf
-(slots, length, kv_heads, head_dim)) or, for an MLA layer, {"c_kv",
-"k_rope"} (leaves (slots, length, rank)): the slot axis is 0 throughout,
-and the slot operations touch every leaf whatever its layer kind.
+(slots, length, kv_heads, head_dim)); for an MLA layer {"c_kv", "k_rope"}
+(leaves (slots, length, rank)); for a recurrent layer its state, which has
+no time axis (RG-LRU's {"h": (slots, width), "conv": (slots, k - 1,
+width)}, SSD's {"ssm": (slots, heads, state, head_dim), "conv"}); an
+encoder-decoder layer's also holds "cross_k" and "cross_v" (slots, frames,
+kv_heads, head_dim), the reference's `cross_prefix` / `cross_scanned`.
+The slot axis is 0 throughout, and the slot operations touch every leaf
+whatever its layer kind: compaction moves a row's recurrent state with its
+KV rows, and admission zeroes it (a fresh carry).  A recurrent decode
+writes its new state into the views, like attention's KV writes.
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ def make_decode_step(model, *, ring: bool = False):
 
 def make_prefill(model):
     """`run(params, batch) -> (last-token logits (b, vocab), caches)`,
-    batch = {"tokens": (b, t)} on the params' device."""
+    batch = {"tokens": (b, t)} on the params' device, with a vision
+    config's "patch_embeds" or an audio config's "frames" beside them."""
 
     @torch.inference_mode()
     def run(params, batch):

@@ -7,8 +7,8 @@
 // body `_kernel` at line 32).  q is (b, t, h, d); k and v are (b, s, kvh, d)
 // with h % kvh == 0, all f32 or all bf16, each with its own strides (the
 // last dimension contiguous); out is a contiguous (b, t, h, d) of q's type;
-// any head dim 1 <= d <= 128 (the dense configs use 64 and openllama-3b's
-// 100).  The semantics are the TPU kernel's:
+// any head dim 1 <= d <= 256 (the dense configs use 64, openllama-3b 100,
+// recurrentgemma-9b 256).  The semantics are the TPU kernel's:
 //   * causal masks are aligned top-left: key j is visible to query i when
 //     j <= i, both counted from 0, whatever t and s are;
 //   * `window` > 0 also hides keys j <= i - window; `softcap` > 0 maps a
@@ -50,8 +50,28 @@
 //     version against f64 (chip_smoke.py's `archs` shapes; the card test's
 //     large logits).
 //   * A block is one or two warpgroups of 64 q rows (BQ 128 up to d 64, else
-//     64) of one (batch, head); it walks the 64-key tiles (32 past d 80) its
-//     rows can see, the q tiles with the most causal work first.
+//     64) of one (batch, head); it walks the 64-key tiles (32 past d 80, 16
+//     at some d past 176) its rows can see, the q tiles with the most causal
+//     work first.
+//   * Head dims past 128 (DP 144-256): O's 128 f32 accumulators a thread at
+//     n256, twice over with the fresh tile accumulator, do not fit in 255
+//     registers, nor do Q, K and V at DP 256 fit in shared memory with
+//     64-key tiles.  So O's columns are cut in two halves of DO = DP/2
+//     (rounded up to 16) columns, each computed by its own block
+//     (gridDim.z): both blocks compute the whole S = Q K^T and the same P,
+//     and each multiplies P by its half of V.  Registers stay those of
+//     d 128; S costs twice its work (the products' operations grow by half
+//     at t = s); shared memory holds Q and K at the full DP and V at DO.
+//     The accumulation order within a product is the same at every d, but
+//     S sums twice as many terms: accumulated by wgmma across all of them,
+//     it erred 2.8e-5 against f64 at d 256 and |logit| 50 in the CPU
+//     emulation (tests/test_torch_flash_split.py), the plain f32 version
+//     3.7e-5.  So past d 128 S is computed in chunks of 32 columns of d
+//     (16 where DP is an odd multiple of 16),
+//     each in a fresh accumulator (two, alternating, so that chunk c+1 runs
+//     while chunk c is added), and the chunks are summed on the CUDA cores
+//     with a compensated addition (two-sum) and rounded once: 7e-6 in the
+//     emulation.  P(kt-1) V(kt-1) is issued ahead of the chunks there.
 //   * Q, K and V^T sit in shared memory in the layout wgmma reads without a
 //     swizzle: core matrices of 8 rows x 16 bytes, K-major (the summed
 //     dimension contiguous).  Q and K land in it straight from cp.async.
@@ -72,7 +92,8 @@
 // rows and 64-key tiles a block.  P is rounded to bf16 for P.V, as
 // FlashAttention does (the denominator sums the f32 P).  For m16n8k16 the
 // accumulator of two neighbouring 8-key groups already is the A layout; V's
-// fragments come from ldmatrix.trans.  S and P stay in registers.
+// fragments come from ldmatrix.trans.  S and P stay in registers.  Past
+// d 128 O is cut in two halves, one a block, as in f32.
 //
 // K/V ring (both): two stages of K and V tiles in shared memory filled with
 // cp.async, so tile k+1 lands while tile k is multiplied.  The copy width is
@@ -88,9 +109,15 @@
 
 namespace {
 
-constexpr int kMaxD = 128;              // largest head dim
+constexpr int kMaxD = 256;              // largest head dim
 constexpr int kSmemMax = 232448;        // shared memory a block may have (227 KB)
 constexpr float kNegInf = -2.0e38f;
+
+// O's columns a block computes at padded head dim dp: all of them up to
+// 128; past that half of them, rounded up to 16, the halves in two blocks
+__host__ __device__ constexpr int out_cols(int dp) {
+  return dp <= 128 ? dp : (dp + 31) / 32 * 16;
+}
 
 struct Args {
   const void* q; const void* k; const void* v; void* out;
@@ -204,6 +231,16 @@ __device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
   split(x.w, hi.w, lo.w);
 }
 
+// (hi, lo) += x, compensated: hi + lo keeps what hi alone rounds away
+// (Knuth's two-sum, in round-to-nearest; the build has -fmad=false)
+__device__ __forceinline__ void two_sum(float& hi, float& lo, float x) {
+  const float s = __fadd_rn(hi, x);
+  const float bb = __fsub_rn(s, hi);
+  const float err = __fadd_rn(__fsub_rn(hi, __fsub_rn(s, bb)), __fsub_rn(x, bb));
+  hi = s;
+  lo = __fadd_rn(lo, err);
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -261,10 +298,10 @@ __device__ __forceinline__ void softmax_tile(float* s, float m[2], float l[2], f
 
 // Rows that saw no key get the mean of v over all s keys (see the header),
 // read straight from device memory: a rare path.  Then o / l, stored.  o is
-// in the accumulator layout, NO groups of 8 columns.
+// in the accumulator layout, NO groups of 8 columns from column vo.
 template <typename T, int NO>
 __device__ __forceinline__ void finish(float* o, const float m[2], float l[2], const Args& a,
-                                       const T* v, int bi, int hh, int row0, int c) {
+                                       const T* v, int bi, int hh, int row0, int c, int vo) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qpos = row0 + 8 * r;
@@ -274,7 +311,7 @@ __device__ __forceinline__ void finish(float* o, const float m[2], float l[2], c
       for (int n = 0; n < NO; ++n) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int col = 8 * n + 2 * c + e;
+          const int col = vo + 8 * n + 2 * c + e;
           float sum = 0.0f;
           if (col < a.d)
             for (int j = 0; j < a.s; ++j) sum += to_f32(v[j * a.v_ss + col]);
@@ -290,7 +327,7 @@ __device__ __forceinline__ void finish(float* o, const float m[2], float l[2], c
     for (int n = 0; n < NO; ++n) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = 8 * n + 2 * c + e;
+        const int col = vo + 8 * n + 2 * c + e;
         if (col < a.d) out[col] = from_f32<T>(o[4 * n + 2 * r + e] / inv_l);
       }
     }
@@ -326,6 +363,16 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
 
 template <int N> struct Wgmma;   // m64nNk8 TF32, f32 accumulators: N / 2 a thread
 template <> struct Wgmma<16> {
+  // d = [d +] A B^T, A and B in shared memory
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(acc));
+  }
   // d = [d +] A B^T, A in registers
   static __device__ __forceinline__ void rs(float* d, const unsigned a[4], uint64_t b,
                                           int acc) {
@@ -514,35 +561,43 @@ template <> struct Wgmma<128> {
 
 // Tile sizes of the f32 kernel by padded head dim: two warpgroups (128 q
 // rows) and 64-key tiles where they fit in shared memory, else one
-// warpgroup, else 32-key tiles.  Shared memory, in floats: Q's hi and lo;
-// two stages of K (landed, then split in place into hi) and one of K's lo;
-// two stages of V as landed; two stages of V^T's hi and lo.
+// warpgroup, else 32-key, else 16-key tiles.  Shared memory, in floats: Q's
+// hi and lo; two stages of K (landed, then split in place into hi) and one
+// of K's lo; two stages of V as landed and two of V^T's hi and lo, each DO
+// columns wide (the block's half of O past d 128).
 template <int DP>
 struct F32Tiles {
+  static constexpr int DO = out_cols(DP);           // O's columns a block
+  static constexpr int SPLIT = (DP + DO - 1) / DO;  // blocks a (q tile, head)
   static __host__ __device__ constexpr int bytes(int bq, int bk) {
-    return 4 * (2 * bq * DP + 9 * bk * DP);
+    return 4 * (2 * bq * DP + 3 * bk * DP + 6 * bk * DO);
   }
   static constexpr int BQ = bytes(128, 64) <= kSmemMax ? 128 : 64;
-  static constexpr int BK = bytes(BQ, 64) <= kSmemMax ? 64 : 32;
+  static constexpr int BK = bytes(BQ, 64) <= kSmemMax   ? 64
+                            : bytes(BQ, 32) <= kSmemMax ? 32
+                                                        : 16;
   static constexpr int NT = 2 * BQ;                 // a warpgroup per 64 rows
-  static constexpr int KT = BK * DP;                // one K or V plane
+  static constexpr int KT = BK * DP;                // one K plane
+  static constexpr int VKT = BK * DO;               // one V plane
   static constexpr int Q_LO = BQ * DP;
   static constexpr int K = 2 * BQ * DP;
   static constexpr int K_LO = K + 2 * KT;
   static constexpr int V = K_LO + KT;
-  static constexpr int VT = V + 2 * KT;             // stage st: hi at VT + 2 st KT, lo after
+  static constexpr int VT = V + 2 * VKT;            // stage st: hi at VT + 2 st VKT, lo after
   static constexpr int SMEM = bytes(BQ, BK);
-  static_assert(VT + 4 * KT == SMEM / 4, "shared-memory layout");
+  static_assert(VT + 4 * VKT == SMEM / 4, "shared-memory layout");
+  static_assert(SMEM <= kSmemMax, "shared memory");
 };
 
 template <int DP>
 __global__ void __launch_bounds__(F32Tiles<DP>::NT, 1)
 flash_f32(Args a) {
   using L = F32Tiles<DP>;
-  static_assert(DP % 16 == 0 && DP <= kMaxD, "DP: a multiple of 16, at most 128");
-  constexpr int BQ = L::BQ, BK = L::BK, NT = L::NT, KT = L::KT;
-  constexpr int NO = DP / 8;            // 8-column groups of O
+  static_assert(DP % 16 == 0 && DP <= kMaxD, "DP: a multiple of 16, at most 256");
+  constexpr int BQ = L::BQ, BK = L::BK, NT = L::NT, KT = L::KT, DO = L::DO, VKT = L::VKT;
+  constexpr int NO = DO / 8;            // 8-column groups of the block's O
   constexpr int NS = BK / 8;            // 8-key groups of S
+  constexpr int SCH = DP % 32 ? 16 : 32;  // columns of d a chunk of S (DP > 128)
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
 
@@ -554,6 +609,7 @@ flash_f32(Args a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
   const int row0 = q0 + 16 * warp + g;               // rows row0 and row0 + 8
+  const int vo = blockIdx.z * DO;                    // the block's first column of O
 
   const float* q = static_cast<const float*>(a.q) + bi * a.q_sb + hh * a.q_sh;
   const float* k = static_cast<const float*>(a.k) + bi * a.k_sb + kv_head * a.k_sh;
@@ -568,7 +624,8 @@ flash_f32(Args a) {
   auto load_tile = [&](int kt) {
     const int st = (kt - kt_lo) & 1;
     load_kmajor<DP, NT>(sm + L::K + st * KT, k, a.k_ss, kt * BK, a.s, a.d, BK, a.vec);
-    load_rows<float, DP, DP, NT>(sm + L::V + st * KT, v, a.v_ss, kt * BK, a.s, a.d, BK, a.vec);
+    load_rows<float, DO, DO, NT>(sm + L::V + st * VKT, v + vo, a.v_ss, kt * BK, a.s,
+                                 a.d - vo, BK, a.vec);
     cp_async_commit();
   };
   // Q: each warpgroup's 64 rows as one K-major block
@@ -597,18 +654,18 @@ flash_f32(Args a) {
   // OT = P V(tile in stage st), three TF32 products a group of 8 keys: the
   // small ones first, then hi*hi (see "Accumulation" in the header)
   auto issue_pv = [&](int st) {
-    const float* vthi = sm + L::VT + st * 2 * KT;
-    const float* vtlo = vthi + KT;
+    const float* vthi = sm + L::VT + st * 2 * VKT;
+    const float* vtlo = vthi + VKT;
 #pragma unroll
     for (int kk = 0; kk < NS; ++kk) {
-      const uint64_t bh = desc(vthi + kk * 8 * DP, DP * 16, 128);
-      const uint64_t bl = desc(vtlo + kk * 8 * DP, DP * 16, 128);
-      Wgmma<DP>::rs(ot, pl[kk], bh, kk > 0);
-      Wgmma<DP>::rs(ot, ph[kk], bl, 1);
+      const uint64_t bh = desc(vthi + kk * 8 * DO, DO * 16, 128);
+      const uint64_t bl = desc(vtlo + kk * 8 * DO, DO * 16, 128);
+      Wgmma<DO>::rs(ot, pl[kk], bh, kk > 0);
+      Wgmma<DO>::rs(ot, ph[kk], bl, 1);
     }
 #pragma unroll
     for (int kk = 0; kk < NS; ++kk)
-      Wgmma<DP>::rs(ot, ph[kk], desc(vthi + kk * 8 * DP, DP * 16, 128), 1);
+      Wgmma<DO>::rs(ot, ph[kk], desc(vthi + kk * 8 * DO, DO * 16, 128), 1);
     wg_commit();
   };
 
@@ -619,22 +676,22 @@ flash_f32(Args a) {
     const int st = (kt - kt_lo) & 1;
     float* khi = sm + L::K + st * KT;
     float* klo = sm + L::K_LO;
-    const float* vraw = sm + L::V + st * KT;
-    float* vthi = sm + L::VT + st * 2 * KT;
-    float* vtlo = vthi + KT;
+    const float* vraw = sm + L::V + st * VKT;
+    float* vthi = sm + L::VT + st * 2 * VKT;
+    float* vtlo = vthi + VKT;
     // split K in place; V transposed and split: element (x, pos) of V^T at
-    // ((pos / 4) * DP + x) * 4 + pos % 4, pos the relabelled key
+    // ((pos / 4) * DO + x) * 4 + pos % 4, pos the relabelled key
     for (int i = threadIdx.x; i < KT / 4; i += NT) {
       float4 hi, lo;
       split4(reinterpret_cast<const float4*>(khi)[i], hi, lo);
       reinterpret_cast<float4*>(khi)[i] = hi;
       reinterpret_cast<float4*>(klo)[i] = lo;
     }
-    for (int i = threadIdx.x; i < KT / 4; i += NT) {
-      const int x = i % DP, pq = i / DP;           // positions 4 pq .. 4 pq + 3
+    for (int i = threadIdx.x; i < VKT / 4; i += NT) {
+      const int x = i % DO, pq = i / DO;           // positions 4 pq .. 4 pq + 3
       const int key = 8 * (pq >> 1) + (pq & 1);    // position 4 pq + p is key + 2 p
-      float4 raw = make_float4(vraw[key * DP + x], vraw[(key + 2) * DP + x],
-                               vraw[(key + 4) * DP + x], vraw[(key + 6) * DP + x]);
+      float4 raw = make_float4(vraw[key * DO + x], vraw[(key + 2) * DO + x],
+                               vraw[(key + 4) * DO + x], vraw[(key + 6) * DO + x]);
       float4 hi, lo;
       split4(raw, hi, lo);
       reinterpret_cast<float4*>(vthi)[i] = hi;
@@ -643,6 +700,56 @@ flash_f32(Args a) {
     fence_async_smem();
     __syncthreads();
 
+    if constexpr (DP > 128) {
+      // P(kt-1) V(kt-1) first, then S(kt) = Q K^T in chunks of SCH columns
+      // of d, each chunk in a fresh accumulator (the small products first,
+      // then hi*hi), the chunks summed on the CUDA cores with a compensated
+      // addition (see "Head dims past 128" in the header)
+      pin(ot);
+      wg_fence();
+      if (kt > kt_lo) issue_pv(st ^ 1);
+      float s_lo[4 * NS], part[2][4 * NS];
+      auto issue_chunk = [&](int ch, float* acc) {
+#pragma unroll
+        for (int ks = ch * SCH / 8; ks < (ch + 1) * SCH / 8; ++ks) {
+          const uint64_t ah = desc(qhi + ks * 8 * 64, 64 * 16, 128);
+          const uint64_t al = desc(qlo + ks * 8 * 64, 64 * 16, 128);
+          const uint64_t bh = desc(khi + ks * 8 * BK, BK * 16, 128);
+          const uint64_t bl = desc(klo + ks * 8 * BK, BK * 16, 128);
+          Wgmma<BK>::ss(acc, al, bh, ks > ch * SCH / 8);
+          Wgmma<BK>::ss(acc, ah, bl, 1);
+        }
+#pragma unroll
+        for (int ks = ch * SCH / 8; ks < (ch + 1) * SCH / 8; ++ks)
+          Wgmma<BK>::ss(acc, desc(qhi + ks * 8 * 64, 64 * 16, 128),
+                        desc(khi + ks * 8 * BK, BK * 16, 128), 1);
+        wg_commit();
+      };
+      issue_chunk(0, part[0]);
+#pragma unroll
+      for (int ch = 0; ch < DP / SCH; ++ch) {
+        if (ch + 1 < DP / SCH) {
+          pin(part[(ch + 1) & 1]);
+          wg_fence();
+          issue_chunk(ch + 1, part[(ch + 1) & 1]);
+          wg_wait<1>();         // chunk ch (and P.V(kt-1)) are done
+        } else {
+          wg_wait<0>();
+        }
+        pin(part[ch & 1]);
+#pragma unroll
+        for (int i = 0; i < 4 * NS; ++i) {
+          if (ch == 0) {
+            sc[i] = part[0][i];
+            s_lo[i] = 0.0f;
+          } else {
+            two_sum(sc[i], s_lo[i], part[ch & 1][i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4 * NS; ++i) sc[i] = __fadd_rn(sc[i], s_lo[i]);
+    } else {
     // S(kt) = Q K^T (the small products first, then hi*hi), then
     // P(kt-1) V(kt-1) behind it
     pin(ot);
@@ -666,6 +773,7 @@ flash_f32(Args a) {
       wg_wait<1>();             // S(kt) is done; P.V(kt-1) may still run
     } else {
       wg_wait<0>();
+    }
     }
     pin(sc);
 
@@ -705,7 +813,7 @@ flash_f32(Args a) {
 #pragma unroll
     for (int i = 0; i < 4 * NO; ++i) o[i] += ot[i];
   }
-  finish<float, NO>(o, m, l, a, v, bi, hh, row0, c);
+  finish<float, NO>(o, m, l, a, v, bi, hh, row0, c, vo);
 }
 
 // ----------------------------------------------------------- bf16: mma.sync
@@ -747,10 +855,11 @@ __host__ __device__ constexpr int smem16() { return (kBQ16 + 4 * kBK16) * ld16<D
 template <int DP>
 __global__ void __launch_bounds__(kNT16, 1)
 flash_bf16(Args a) {
-  static_assert(DP % 16 == 0 && DP <= kMaxD, "DP: a multiple of 16, at most 128");
+  static_assert(DP % 16 == 0 && DP <= kMaxD, "DP: a multiple of 16, at most 256");
   using T = __nv_bfloat16;
   constexpr int LD = ld16<DP>(), LW = LD / 2;       // row stride in elements, in words
-  constexpr int NO = DP / 8, NS = kBK16 / 8;
+  constexpr int DO = out_cols(DP);                  // O's columns a block
+  constexpr int NO = DO / 8, NS = kBK16 / 8;
   constexpr int STAGE = 2 * kBK16 * LD;             // K, then V
   extern __shared__ float4 smem4[];
   T* Qs = reinterpret_cast<T*>(smem4);
@@ -764,6 +873,7 @@ flash_bf16(Args a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
   const int row0 = q0 + 16 * warp + g;               // rows row0 and row0 + 8
+  const int vo = blockIdx.z * DO;                    // the block's first column of O
 
   const T* q = static_cast<const T*>(a.q) + bi * a.q_sb + hh * a.q_sh;
   const T* k = static_cast<const T*>(a.k) + bi * a.k_sb + kv_head * a.k_sh;
@@ -777,8 +887,8 @@ flash_bf16(Args a) {
   auto load_tile = [&](int kt) {
     T* st = ring + ((kt - kt_lo) & 1) * STAGE;
     load_rows<T, DP, LD, kNT16>(st, k, a.k_ss, kt * kBK16, a.s, a.d, kBK16, a.vec);
-    load_rows<T, DP, LD, kNT16>(st + kBK16 * LD, v, a.v_ss, kt * kBK16, a.s, a.d, kBK16,
-                                a.vec);
+    load_rows<T, DO, LD, kNT16>(st + kBK16 * LD, v + vo, a.v_ss, kt * kBK16, a.s,
+                                a.d - vo, kBK16, a.vec);
     cp_async_commit();
   };
   load_rows<T, DP, LD, kNT16>(Qs, q, a.q_st, q0, a.t, a.d, kBQ16, a.vec);
@@ -842,7 +952,7 @@ flash_bf16(Args a) {
     }
   }
   cp_async_wait_all();          // no copy outlives the block (no tile visited)
-  finish<T, NO>(o, m, l, a, v, bi, hh, row0, c);
+  finish<T, NO>(o, m, l, a, v, bi, hh, row0, c, vo);
 }
 
 // ------------------------------------------------------------------- launch
@@ -855,7 +965,7 @@ cudaError_t launch(const Args& a, int b, int bf16, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.t + bq - 1) / bq, b * a.h);
+  const dim3 grid((a.t + bq - 1) / bq, b * a.h, (DP + out_cols(DP) - 1) / out_cols(DP));
   kernel<<<grid, 2 * bq, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -871,6 +981,14 @@ cudaError_t launch_d(const Args& a, int b, int bf16, cudaStream_t stream) {
     case 6: return launch<96>(a, b, bf16, stream);
     case 7: return launch<112>(a, b, bf16, stream);
     case 8: return launch<128>(a, b, bf16, stream);
+    case 9: return launch<144>(a, b, bf16, stream);
+    case 10: return launch<160>(a, b, bf16, stream);
+    case 11: return launch<176>(a, b, bf16, stream);
+    case 12: return launch<192>(a, b, bf16, stream);
+    case 13: return launch<208>(a, b, bf16, stream);
+    case 14: return launch<224>(a, b, bf16, stream);
+    case 15: return launch<240>(a, b, bf16, stream);
+    case 16: return launch<256>(a, b, bf16, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -895,7 +1013,7 @@ extern "C" {
 // Returns a cudaError_t (0 on success).  bf16: 1 when q, k, v and out are
 // bfloat16, 0 for float32.  strides: the (b, t|s, head) strides in elements
 // of q, k and v, nine values; the last dimension of each is contiguous.
-// 1 <= d <= 128; b * h <= 65535; t, s >= 1.
+// 1 <= d <= 256; b * h <= 65535; t, s >= 1.
 int repro_flash_attention(const void* q, const void* k, const void* v, void* out, int bf16,
                           int b, int t, int s, int h, int kvh, int d,
                           const long long* strides, float scale, float softcap,

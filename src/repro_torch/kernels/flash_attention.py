@@ -14,7 +14,7 @@ Unlike the TPU wrapper there is no block-size assert and no padding: any t
 and s, tails masked in the kernel.  The wrapper takes CUDA tensors only
 (`kernels.ops` dispatches by device), has no backward (it raises under grad
 mode on a tensor that requires grad) and raises on anything the kernel
-does not take (head dims above 128 among them).  Each
+does not take (head dims above 256 among them).  Each
 launch adds one to `flash_attention.launches`.
 """
 
@@ -28,7 +28,7 @@ import torch
 from repro_torch.kernels import check_launch, check_no_grad, load
 
 SOURCE = "flash_attention"
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 
 def _lib():
@@ -70,7 +70,7 @@ def _check(q, k, v):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0):
-    """q: (b, t, h, d); k, v: (b, s, kvh, d), h % kvh == 0, 1 <= d <= 128;
+    """q: (b, t, h, d); k, v: (b, s, kvh, d), h % kvh == 0, 1 <= d <= 256;
     all float32 or all bfloat16.  Softmax scale 1/sqrt(d).  Returns a
     new contiguous (b, t, h, d) tensor of q's dtype."""
     check_no_grad("flash_attention", q, k, v)

@@ -56,16 +56,29 @@ def run_serving(arch: str, *, smoke=True, batch=4, prompt_len=32, gen_len=32,
                 seed=0, device=None, params=None):
     """Prompts streamed through decode, then `gen_len` greedy tokens.
 
-    The first generated token falls out of the prompt phase; the timed
-    decode loop emits gen_len - 1 tokens a sequence.  The device is
-    synchronised before every clock read.  Returns the generated tokens
-    (batch, gen_len), the two phases' seconds and the decode rate."""
+    A vision config's prompt budget holds its frontend's prefix tokens, so
+    its text prompt is prompt_len minus those (the reference's budget); a
+    budget they fill raises ValueError.  As in the reference, the stream
+    carries no patch embeddings or encoder frames (an encoder-decoder's
+    cross caches stay zero).  The first generated token falls out of the
+    prompt phase; the timed decode loop emits gen_len - 1 tokens a
+    sequence.  The device is synchronised before every clock read.
+    Returns the generated tokens (batch, gen_len), the two phases' seconds
+    and the decode rate."""
     cfg, model, params, device = _setup(arch, smoke, seed, device, params)
     if prompt_len < 1:
         raise ValueError(f"prompt_len must be >= 1, got {prompt_len}")
     cache_len = prompt_len + gen_len
     rng = np.random.default_rng(seed)
-    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
+    npfx = (cfg.frontend.num_prefix_tokens
+            if cfg.frontend.kind == "vision_stub" else 0)
+    text_len = prompt_len - npfx
+    if text_len <= 0:
+        raise ValueError(
+            f"prompt_len={prompt_len} leaves no text tokens after the vision "
+            f"frontend's {npfx} prefix tokens (text_len={text_len}); pass "
+            f"prompt_len > {npfx}")
+    prompts = rng.integers(0, cfg.vocab_size, (batch, text_len)).astype(np.int32)
     prompts = torch.from_numpy(prompts).to(device)
 
     step_fn = make_decode_step(model)
@@ -76,9 +89,9 @@ def run_serving(arch: str, *, smoke=True, batch=4, prompt_len=32, gen_len=32,
     _sync(device)
     t0 = time.time()
     tok = prompts[:, 0]
-    for i in range(prompt_len):
+    for i in range(text_len):
         logits, cache = step_fn(params, cache, tok, i)
-        tok = prompts[:, i + 1] if i + 1 < prompt_len else (
+        tok = prompts[:, i + 1] if i + 1 < text_len else (
             torch.argmax(logits, -1).to(torch.int32))
     _sync(device)
     t_prefill = time.time() - t0
@@ -86,7 +99,7 @@ def run_serving(arch: str, *, smoke=True, batch=4, prompt_len=32, gen_len=32,
     generated = [tok]
     _sync(device)
     t0 = time.time()
-    for i in range(prompt_len, prompt_len + gen_len - 1):
+    for i in range(text_len, text_len + gen_len - 1):
         logits, cache = step_fn(params, cache, tok, i)
         tok = torch.argmax(logits, -1).to(torch.int32)
         generated.append(tok)

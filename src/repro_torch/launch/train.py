@@ -366,6 +366,13 @@ def _train(job: TrainJob) -> dict:
 
     source = _make_source(job, cfg.vocab_size)
     val_source = source          # disjoint step-id stream => unseen sequences
+    # stub frontends: seeded standard-normal patch embeddings or encoder
+    # frames beside the tokens, as the reference's pipeline makes them
+    extra_specs = {}
+    if cfg.frontend.kind == "vision_stub":
+        extra_specs["patch_embeds"] = (cfg.frontend.num_prefix_tokens, cfg.d_model)
+    elif cfg.frontend.kind == "audio_stub":
+        extra_specs["frames"] = (cfg.encoder.num_frames, cfg.d_model)
     VAL_STEP_BASE = 1_000_000_000
 
     engine = BucketedEngine(wrap, ladder) if ladder is not None else None
@@ -387,7 +394,7 @@ def _train(job: TrainJob) -> dict:
         with torch.no_grad():
             for i in range(job.eval_batches):
                 vb = make_batch(val_source, VAL_STEP_BASE + i, bplan,
-                                job.seq_len)
+                                job.seq_len, extra_specs)
                 vb = batch_to_device({k: v[0] for k, v in vb.items()}, device)
                 losses.append(float(model.loss(tree, vb)[0]))
         return float(np.mean(losses))
@@ -480,7 +487,8 @@ def _train(job: TrainJob) -> dict:
             fault_point("train.step", step=step + 1)
             plan = (schedule.plan_for(samples, total_samples)
                     if schedule is not None else ctrl.plan)
-            batch_np = make_batch(source, step, plan, seq_len_for(samples))
+            batch_np = make_batch(source, step, plan, seq_len_for(samples),
+                                  extra_specs)
             bucket = engine.bucket_for(plan.global_batch) if engine else None
 
             # accum-free low rungs (DESIGN §14): the same guards as the

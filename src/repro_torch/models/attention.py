@@ -1,7 +1,9 @@
 """GQA attention with RoPE, sliding windows, logit soft-capping and KV
-caches — counterpart of `repro/models/attention.py` (decoder subset):
+caches — counterpart of `repro/models/attention.py`:
 
 * `attend_full`   — training / prefill over a whole sequence;
+* `cross_attend`, `precompute_cross_kv` — encoder-decoder (Whisper)
+  cross-attention over encoder states or their precomputed k and v;
 * `attend_decode` — one token a row against a KV cache, at a scalar
   position or at per-row positions, the cache full-length or a ring;
 * `init_cache`.
@@ -9,9 +11,10 @@ caches — counterpart of `repro/models/attention.py` (decoder subset):
 Training steps run the plain PyTorch path, like the reference's jnp
 path.  Every forward on the card with grad mode off — prefill, and the
 training loop's eval loss under `torch.no_grad` — runs the flash-attention
-kernel (`kernels.ops.flash_attention`, any head dim up to 128), the
-reference's TPU drop-in for the same math.  Decode runs the plain `_sdpa_grouped`, as the reference does.
-Cross-attention (Whisper) arrives with the remaining-architectures slice.
+kernel (`kernels.ops.flash_attention`, any head dim up to 256), the
+reference's TPU drop-in for the same math; so does cross-attention there,
+non-causal over the encoder's frames (decode steps included).  Decode's
+self-attention runs the plain `_sdpa_grouped`, as the reference does.
 """
 
 from __future__ import annotations
@@ -153,6 +156,27 @@ def attend_full(params, x, positions, *, rope_theta, softcap=0.0, window=0,
         out = _sdpa(q, k, v, mask, softcap)
     out = torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
     return (out, k, v) if return_kv else out
+
+
+def cross_attend(params, x, kv_source, *, softcap=0.0):
+    """Encoder-decoder cross-attention, non-causal; kv_source is either
+    encoder hidden states (b, s, d) or a precomputed {"k", "v"}.  On the
+    card with grad mode off it runs the flash-attention kernel."""
+    q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(x.dtype))
+    if isinstance(kv_source, dict):
+        k, v = kv_source["k"].to(x.dtype), kv_source["v"].to(x.dtype)
+    else:
+        k, v = precompute_cross_kv(params, kv_source.to(x.dtype)).values()
+    if q.is_cuda and not torch.is_grad_enabled():
+        out = ops.flash_attention(q, k, v, causal=False, softcap=softcap)
+    else:
+        out = _sdpa(q, k, v, None, softcap)
+    return torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
+
+
+def precompute_cross_kv(params, enc_out):
+    return {"k": torch.einsum("bsd,dhk->bshk", enc_out, params["wk"].to(enc_out.dtype)),
+            "v": torch.einsum("bsd,dhk->bshk", enc_out, params["wv"].to(enc_out.dtype))}
 
 
 # ------------------------------------------------------------- KV cache ----

@@ -1,12 +1,14 @@
-"""Decoder block: dispatch over layer kinds (attn / local / mla), pre/post
-norms, dense-MLP or MoE feed-forward, residuals (counterpart of
-`repro/models/blocks.py`, decoder subset):
+"""Decoder block: dispatch over layer kinds (attn / local / mla / rglru /
+ssd), pre/post norms, dense-MLP or MoE feed-forward, residuals
+(counterpart of `repro/models/blocks.py`):
 
 * `block_full(params, x, positions, cfg, kind, moe_layer, causal,
   collect_cache)` -> (x, aux, cache | None)      # training / prefill
 * `block_decode(params, x, cache, pos, cfg, kind, moe_layer, ring)`
       -> (x, cache)                             # one token a row
 * `init_block`, `init_block_cache`
+
+An SSD block has no feed-forward sub-layer, as in the reference.
 """
 
 from __future__ import annotations
@@ -15,56 +17,47 @@ import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mla as mla_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.config import (
     ModelConfig, ATTN, LOCAL_ATTN, MLA_ATTN, RGLRU, SSD)
 from repro_torch.models.mlp import init_mlp, apply_mlp
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.norms import init_norm, apply_norm
 
-LATER = {
-    RGLRU: "RG-LRU blocks arrive with the remaining-architectures slice",
-    SSD: "SSD (Mamba-2) blocks arrive with the remaining-architectures slice",
-}
-
 
 def check_supported(cfg: ModelConfig):
-    """Raise NotImplementedError for any part of `cfg` the port's decoder
-    does not implement yet, naming the slice that brings it."""
-    for kind in cfg.prefix_pattern + cfg.block_pattern:
-        if kind in LATER:
-            raise NotImplementedError(f"{cfg.name}: {LATER[kind]}")
-    if cfg.encoder is not None or cfg.frontend.kind != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder and modality frontends arrive with the "
-            "remaining-architectures slice")
-    if cfg.pos_embed not in ("rope", "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.pos_embed} positions arrive with the "
-            "remaining-architectures slice")
+    """Raise NotImplementedError for any part of `cfg` the port does not
+    implement: remat policies other than none and full (the reference's
+    "tp_boundary" names tensor-parallel boundaries the port has no axis
+    for)."""
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(f"{cfg.name}: remat={cfg.remat!r}")
 
 
-def _check_kind(cfg: ModelConfig, kind: str):
-    if kind in LATER:
-        raise NotImplementedError(f"{cfg.name}: {LATER[kind]}")
-    if kind not in (ATTN, LOCAL_ATTN, MLA_ATTN):
-        raise ValueError(kind)
+def has_mlp(cfg: ModelConfig, kind: str) -> bool:
+    return cfg.mlp_kind != "none" and kind != SSD
 
 
 def init_block(gen, cfg: ModelConfig, kind: str, moe_layer: bool, device):
     d, dtype = cfg.d_model, cfg.p_dtype
     p = {"pre_norm": init_norm(d, cfg.norm_kind, dtype, device)}
-    if kind == MLA_ATTN:
-        p["attn"] = mla_lib.init_mla(gen, d, cfg.num_heads, cfg.mla, dtype,
-                                     device)
-    else:
+    if kind in (ATTN, LOCAL_ATTN):
         p["attn"] = attn_lib.init_attention(gen, d, cfg.num_heads,
                                             cfg.num_kv_heads, cfg.head_dim,
                                             dtype, device)
+    elif kind == MLA_ATTN:
+        p["attn"] = mla_lib.init_mla(gen, d, cfg.num_heads, cfg.mla, dtype,
+                                     device)
+    elif kind == RGLRU:
+        p["rec"] = rglru_lib.init_rglru(gen, d, cfg.rglru, dtype, device)
+    elif kind == SSD:
+        p["ssd"] = ssd_lib.init_ssd(gen, d, cfg.ssm, dtype, device)
+    else:
+        raise ValueError(kind)
     if cfg.post_attn_norm:
         p["post_norm"] = init_norm(d, cfg.norm_kind, dtype, device)
-    if cfg.mlp_kind != "none":
+    if has_mlp(cfg, kind):
         p["mlp_norm"] = init_norm(d, cfg.norm_kind, dtype, device)
         p["mlp"] = (init_moe(gen, d, cfg.moe, dtype, device) if moe_layer
                     else init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype, device))
@@ -82,11 +75,16 @@ def block_full(params, x, positions, cfg: ModelConfig, kind: str,
                collect_cache: bool = False):
     """Returns (x, aux, cache): aux is the MoE load-balance loss (0 for a
     dense layer); cache, when `collect_cache`, is the layer's decode cache
-    of length t — post-RoPE {"k", "v"}, or MLA's {"c_kv", "k_rope"} —
-    else None."""
+    of length t — post-RoPE {"k", "v"}, or MLA's {"c_kv", "k_rope"}; None
+    for a recurrent layer, whose prefill state the reference does not
+    collect either — else None."""
     h = apply_norm(params["pre_norm"], x, cfg.norm_kind)
     cache = None
-    if kind == MLA_ATTN:
+    if kind == RGLRU:
+        mixed = rglru_lib.rglru_block(params["rec"], h, cfg.rglru)
+    elif kind == SSD:
+        mixed = ssd_lib.ssd_block(params["ssd"], h, cfg.ssm)
+    elif kind == MLA_ATTN:
         mixed = mla_lib.mla_full(params["attn"], h, positions, cfg.mla,
                                  causal=causal, return_latents=collect_cache)
         if collect_cache:
@@ -101,15 +99,22 @@ def block_full(params, x, positions, cfg: ModelConfig, kind: str,
         if collect_cache:
             mixed, k, v = mixed
             cache = {"k": k, "v": v}
-    x, aux = _block_tail(params, x, mixed, cfg, moe_layer, capacity_factor=None)
+    x, aux = _block_tail(params, x, mixed, cfg, kind, moe_layer,
+                         capacity_factor=None)
     return x, aux, cache
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                      dtype, device):
-    _check_kind(cfg, kind)
     if kind == MLA_ATTN:
         return mla_lib.init_mla_cache(batch, cache_len, cfg.mla, dtype, device)
+    if kind == RGLRU:
+        return rglru_lib.init_rglru_state(batch, cfg.d_model, cfg.rglru, dtype,
+                                          device)
+    if kind == SSD:
+        return ssd_lib.init_ssd_state(batch, cfg.d_model, cfg.ssm, dtype, device)
+    if kind not in (ATTN, LOCAL_ATTN):
+        raise ValueError(kind)
     length = min(cache_len, cfg.sliding_window) if kind == LOCAL_ATTN \
         else cache_len
     return attn_lib.init_cache(batch, length, cfg.num_kv_heads, cfg.head_dim,
@@ -121,31 +126,36 @@ def block_decode(params, x, cache, pos, cfg: ModelConfig, kind: str,
     """One token a row; the cache is updated in place.  Returns (x, cache).
     An MoE layer dispatches each row's one token at capacity factor
     max(2, cfg's), as the reference does, so no pair drops."""
-    _check_kind(cfg, kind)
     h = apply_norm(params["pre_norm"], x, cfg.norm_kind)
-    if kind == MLA_ATTN:
+    if kind == RGLRU:
+        mixed, cache = rglru_lib.rglru_decode(params["rec"], h, cache, cfg.rglru)
+    elif kind == SSD:
+        mixed, cache = ssd_lib.ssd_decode(params["ssd"], h, cache, cfg.ssm)
+    elif kind == MLA_ATTN:
         mixed, cache = mla_lib.mla_decode(params["attn"], h, cache, pos,
                                           cfg.mla, ring=ring)
-    else:
+    elif kind in (ATTN, LOCAL_ATTN):
         # local-attn caches are rings by construction (length == window)
         mixed, cache = attn_lib.attend_decode(
             params["attn"], h, cache, pos, rope_theta=_rope_theta(cfg),
             softcap=cfg.attn_logit_softcap, ring=ring or kind == LOCAL_ATTN,
             qk_norm=cfg.qk_norm)
+    else:
+        raise ValueError(kind)
     capacity = max(2.0, cfg.moe.capacity_factor) if moe_layer else None
-    return _block_tail(params, x, mixed, cfg, moe_layer,
+    return _block_tail(params, x, mixed, cfg, kind, moe_layer,
                        capacity_factor=capacity)[0], cache
 
 
-def _block_tail(params, x, mixed, cfg: ModelConfig, moe_layer: bool,
+def _block_tail(params, x, mixed, cfg: ModelConfig, kind: str, moe_layer: bool,
                 capacity_factor):
-    """Post-attention norm, residual, dense MLP or MoE (with its norms),
-    residual.  Returns (x, aux)."""
+    """Post-mixer norm, residual, dense MLP or MoE (with its norms; none
+    after an SSD mixer), residual.  Returns (x, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.post_attn_norm:
         mixed = apply_norm(params["post_norm"], mixed, cfg.norm_kind)
     x = x + mixed
-    if cfg.mlp_kind != "none":
+    if has_mlp(cfg, kind):
         h = apply_norm(params["mlp_norm"], x, cfg.norm_kind)
         if moe_layer:
             h, aux = moe_apply(params["mlp"], h, cfg.moe,

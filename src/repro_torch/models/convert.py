@@ -6,8 +6,10 @@ pattern along a leading repeat axis (`params["blocks"][j]`, leaves of shape
 `params["prefix_blocks"]`.  The port keeps one dict per layer, in execution
 order, under `params["layers"]`.  Leaf shapes inside a layer are the same
 in both — MoE layers' 3-D expert tensors and `shared` subtree, MLA's
-projections and norms included — so conversion is unstacking (and
-stacking back), nothing else.
+projections and norms, the SSD and RG-LRU leaves, an encoder-decoder
+layer's `cross_attn` and `cross_norm` included — so conversion is
+unstacking (and stacking back), nothing else.  Every other subtree (the
+embeddings, the final norm, Whisper's `encoder`) is the same in both.
 
 Both directions work on any tree with the parameter structure — gradients
 and optimizer moments too — and take / return numpy arrays on the
@@ -20,7 +22,11 @@ with them, so a checkpoint crosses between the packages.
 Decode caches convert the same way: the reference's
 {"prefix": [...], "scanned": [leaves of shape (L, b, ...)]} against the
 port's per-layer list (`cache_from_jax`, `cache_to_jax`), a layer's
-cache {"k", "v"} or MLA's {"c_kv", "k_rope"}.
+cache {"k", "v"}, MLA's {"c_kv", "k_rope"}, RG-LRU's {"h", "conv"} or
+SSD's {"ssm", "conv"} (None for a recurrent layer's prefill cache, as in
+the reference).  An encoder-decoder model's cross-attention caches, the
+reference's {"cross_prefix", "cross_scanned"} groups of {"k", "v"}, are
+the "cross_k" and "cross_v" entries of the port's layer caches.
 """
 
 from __future__ import annotations
@@ -87,25 +93,48 @@ def unstack_layers(tree: dict, cfg: ModelConfig) -> dict:
     return out
 
 
-def cache_from_jax(np_cache: dict, cfg: ModelConfig, device="cpu") -> list:
-    """The port's per-layer decode cache from the reference's (numpy
-    leaves): prefix layers, then the scanned repeats in execution order."""
-    layers = [tree_map(lambda a: _to_torch(a, device), c)
-              for c in np_cache.get("prefix", [])]
+def _layers_from_jax(prefix, scanned, cfg: ModelConfig, device) -> list:
+    layers = [tree_map(lambda a: _to_torch(a, device), c) for c in prefix]
     for r in range(cfg.num_repeats):
-        for sub in np_cache["scanned"]:
+        for sub in scanned:
             layers.append(tree_map(lambda a: _to_torch(np.asarray(a)[r], device),
                                    sub))
     return layers
 
 
+def cache_from_jax(np_cache: dict, cfg: ModelConfig, device="cpu") -> list:
+    """The port's per-layer decode cache from the reference's (numpy
+    leaves): prefix layers, then the scanned repeats in execution order;
+    cross-attention caches, where there are any, merged into their
+    layers' caches."""
+    layers = _layers_from_jax(np_cache.get("prefix", []), np_cache["scanned"],
+                              cfg, device)
+    if "cross_scanned" in np_cache:
+        cross = _layers_from_jax(np_cache.get("cross_prefix", []),
+                                 np_cache["cross_scanned"], cfg, device)
+        layers = [dict(c, cross_k=x["k"], cross_v=x["v"])
+                  for c, x in zip(layers, cross, strict=True)]
+    return layers
+
+
+def _layers_to_jax(layers: list, cfg: ModelConfig):
+    n_prefix = len(cfg.prefix_pattern)
+    pattern = len(cfg.block_pattern)
+    scanned = layers[n_prefix:]
+    stack = lambda *xs: np.stack([_to_numpy(x) for x in xs])
+    return ([tree_map(_to_numpy, c) for c in layers[:n_prefix]],
+            [tree_map(stack, *scanned[j::pattern]) for j in range(pattern)])
+
+
 def cache_to_jax(cache: list, cfg: ModelConfig) -> dict:
     """Inverse of `cache_from_jax`: the reference's cache tree, numpy
     leaves."""
-    n_prefix = len(cfg.prefix_pattern)
-    pattern = len(cfg.block_pattern)
-    scanned = cache[n_prefix:]
-    return {"prefix": [tree_map(_to_numpy, c) for c in cache[:n_prefix]],
-            "scanned": [tree_map(lambda *xs: np.stack([_to_numpy(x) for x in xs]),
-                                 *scanned[j::pattern])
-                        for j in range(pattern)]}
+    cross = [None if c is None or "cross_k" not in c
+             else {"k": c["cross_k"], "v": c["cross_v"]} for c in cache]
+    own = [c if c is None else {k: v for k, v in c.items()
+                                if k not in ("cross_k", "cross_v")} for c in cache]
+    prefix, scanned = _layers_to_jax(own, cfg)
+    out = {"prefix": prefix, "scanned": scanned}
+    if any(x is not None for x in cross):
+        out["cross_prefix"], out["cross_scanned"] = _layers_to_jax(cross, cfg)
+    return out

@@ -1,5 +1,5 @@
-"""Token embeddings, tied/untied unembedding and RoPE (counterpart of
-`repro/models/embeddings.py`)."""
+"""Token embeddings, tied/untied unembedding, RoPE and sinusoidal positions
+(counterpart of `repro/models/embeddings.py`)."""
 
 from __future__ import annotations
 
@@ -55,3 +55,30 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------- sinusoidal ----
+
+def _inv_timescales(d: int, device):
+    log_timescale = math.log(10000.0) / (d // 2 - 1)
+    return torch.exp(-log_timescale * torch.arange(d // 2, dtype=torch.float32,
+                                                   device=device))
+
+
+def sinusoidal_at(pos, d: int, dtype, device=None):
+    """Sinusoidal embedding row(s) at position `pos`: an int or a 0-d tensor
+    -> (d,); a (b,) tensor of per-row positions -> (b, d)."""
+    if torch.is_tensor(pos):
+        device = pos.device
+        p = pos.float()
+        scaled = (p[:, None] if p.dim() == 1 else p) * _inv_timescales(d, device)
+    else:
+        scaled = float(pos) * _inv_timescales(d, device)
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1).to(dtype)
+
+
+def sinusoidal_positions(num_pos: int, d: int, dtype, device=None):
+    """Whisper-style fixed sinusoidal embeddings, shape (num_pos, d)."""
+    scaled = (torch.arange(num_pos, dtype=torch.float32, device=device)[:, None]
+              * _inv_timescales(d, device)[None, :])
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1).to(dtype)

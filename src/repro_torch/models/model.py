@@ -23,8 +23,9 @@ class Model:
         return tfm.loss_fn(params, batch, self.cfg)
 
     def logits(self, params, batch):
-        hidden, _ = tfm.forward(params, batch, self.cfg)
-        return tfm._logits(params, hidden, self.cfg)
+        """Logits of the text positions (a vision prefix's are dropped)."""
+        hidden, _, offset = tfm.forward(params, batch, self.cfg)
+        return tfm._logits(params, hidden[:, offset:], self.cfg)
 
     def prefill(self, params, batch):
         return tfm.prefill(params, batch, self.cfg)

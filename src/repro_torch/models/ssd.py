@@ -1,0 +1,162 @@
+"""Mamba-2 SSD (state-space duality) block [arXiv:2405.21060] — counterpart
+of `repro/models/ssd.py`.
+
+Training and prefill use the chunked dual form: within a chunk the
+recurrence is materialized as masked matrix products; across chunks a
+short loop carries the (heads, state, head_dim) SSM state — t / chunk
+sequential steps instead of t.  Decode is the exact one-step recurrence.
+The reference computes both in jnp, not in a Pallas kernel, so here they
+are plain PyTorch; the f32 islands (the decay, the scan, the gated norm)
+are the reference's.
+
+Decode writes the new SSM and convolution state into the cache's tensors
+IN PLACE (the reference returns new arrays), so a cache whose tensors are
+views of a resident slot buffer updates that buffer.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import normal_init, ones_init, zeros_init
+from repro_torch.models.config import SSMConfig
+
+
+def init_ssd(gen, d_model: int, s: SSMConfig, dtype, device):
+    di = s.d_inner(d_model)
+    nh = s.num_heads(d_model)
+    conv_ch = di + 2 * s.state_dim          # conv over [x, B, C]
+    return {
+        # fused input projection -> [z, x, B, C, dt]
+        "w_in": normal_init(gen, (d_model, 2 * di + 2 * s.state_dim + nh), dtype,
+                            device),
+        "conv_w": normal_init(gen, (s.conv_width, conv_ch), dtype, device),
+        "conv_b": zeros_init((conv_ch,), dtype, device),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32,
+                                          device=device)),
+        "dt_bias": zeros_init((nh,), torch.float32, device),
+        "d_skip": ones_init((nh,), torch.float32, device),
+        "norm_scale": ones_init((di,), dtype, device),
+        "w_out": normal_init(gen, (di, d_model), dtype, device),
+    }
+
+
+def _split_proj(params, x, s: SSMConfig, d_model: int):
+    di = s.d_inner(d_model)
+    nh = s.num_heads(d_model)
+    proj = torch.einsum("btd,dp->btp", x, params["w_in"].to(x.dtype))
+    z, xbc, dt = torch.split(proj, [di, di + 2 * s.state_dim, nh], dim=-1)
+    return z, xbc, dt, di, nh
+
+
+def _causal_conv(x, w, b):
+    k = w.shape[0]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    out = sum(pad[:, i:i + x.shape[1], :] * w[i][None, None, :] for i in range(k))
+    return F.silu(out + b[None, None, :])
+
+
+def _gated_out(params, y, z, x_dtype):
+    y = y * F.silu(z.float())
+    var = torch.mean(torch.square(y), dim=-1, keepdim=True)
+    y = y / torch.sqrt(var + 1e-6) * params["norm_scale"].float()
+    return torch.einsum("btf,fd->btd", y.to(x_dtype), params["w_out"].to(x_dtype))
+
+
+def ssd_block(params, x, s: SSMConfig):
+    """Chunked SSD over a full sequence.  x: (b, t, d); t must be a multiple
+    of `s.chunk_size`, as in the reference."""
+    b, t, d_model = x.shape
+    z, xbc, dt_raw, di, nh = _split_proj(params, x, s, d_model)
+    xbc = _causal_conv(xbc, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype))
+    xs, B, C = torch.split(xbc, [di, s.state_dim, s.state_dim], dim=-1)
+    p = s.head_dim
+    xs = xs.reshape(b, t, nh, p)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None, :])   # (b,t,nh)
+    a = -torch.exp(params["a_log"])                                       # (nh,)
+    dA = dt * a[None, None, :]                                            # log decay
+
+    q = s.chunk_size
+    if t % q:
+        raise ValueError(f"seq {t} must be divisible by chunk {q}")
+    nc = t // q
+    xs_c = xs.reshape(b, nc, q, nh, p).float()
+    B_c = B.reshape(b, nc, q, s.state_dim).float()
+    C_c = C.reshape(b, nc, q, s.state_dim).float()
+    dt_c = dt.reshape(b, nc, q, nh)
+    dA_c = dA.reshape(b, nc, q, nh)
+
+    cum = torch.cumsum(dA_c, dim=2)                                       # (b,nc,q,nh)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]                   # (b,nc,i,j,nh)
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    # mask BEFORE exp: non-causal entries have a positive log-decay, whose
+    # exp overflows, and 0 * inf = NaN in the backward pass
+    seg = torch.where(causal[None, None, :, :, None], seg,
+                      torch.tensor(-1e30, device=x.device))
+    decay = torch.exp(seg)
+
+    # intra-chunk: y[i] = sum_j<=i (C_i . B_j) decay(i,j) dt_j x_j
+    cb = torch.einsum("bcin,bcjn->bcij", C_c, B_c)                        # (b,nc,q,q)
+    m = cb[..., None] * decay * dt_c[:, :, None, :, :]                    # (b,nc,i,j,nh)
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", m, xs_c)
+
+    # chunk state contributions: S_c = sum_j exp(cum[-1]-cum[j]) dt_j B_j x_j^T
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)                     # (b,nc,q,nh)
+    wb = (decay_to_end * dt_c)[..., None] * B_c[:, :, :, None, :]         # (b,nc,j,nh,n)
+    sc = torch.einsum("bcjhn,bcjhp->bchnp", wb, xs_c)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                             # (b,nc,nh)
+
+    # the loop over chunks carries the state (b, nh, n, p); each chunk reads
+    # the state from before it
+    state = torch.zeros((b, nh, s.state_dim, p), dtype=torch.float32, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + sc[:, c]
+    prev_states = torch.stack(prev, dim=1)                                # (b,nc,nh,n,p)
+
+    # inter-chunk: y[i] += C_i . (decay_from_start(i) * S_prev)
+    decay_from_start = torch.exp(cum)                                     # (b,nc,q,nh)
+    y_inter = torch.einsum("bcin,bchnp->bcihp", C_c, prev_states) \
+        * decay_from_start[..., None]
+
+    y = (y_intra + y_inter).reshape(b, t, nh, p)
+    y = y + params["d_skip"][None, None, :, None] * xs.float()
+    return _gated_out(params, y.reshape(b, t, di), z, x.dtype)
+
+
+def init_ssd_state(batch: int, d_model: int, s: SSMConfig, dtype, device):
+    nh = s.num_heads(d_model)
+    di = s.d_inner(d_model)
+    return {
+        "ssm": torch.zeros((batch, nh, s.state_dim, s.head_dim), dtype=torch.float32,
+                           device=device),
+        "conv": torch.zeros((batch, s.conv_width - 1, di + 2 * s.state_dim),
+                            dtype=dtype, device=device),
+    }
+
+
+def ssd_decode(params, x, state, s: SSMConfig):
+    """Exact single-step recurrence.  x: (b, 1, d).  `state`'s tensors are
+    updated in place.  Returns (out, state)."""
+    b, _, d_model = x.shape
+    z, xbc, dt_raw, di, nh = _split_proj(params, x, s, d_model)
+    conv_in = torch.cat([state["conv"].to(x.dtype), xbc], dim=1)
+    wconv = params["conv_w"].to(x.dtype)
+    xbc_t = F.silu(torch.einsum("bkc,kc->bc", conv_in, wconv)
+                   + params["conv_b"].to(x.dtype))
+    xs, B, C = torch.split(xbc_t, [di, s.state_dim, s.state_dim], dim=-1)
+    p = s.head_dim
+    xs = xs.reshape(b, nh, p).float()
+    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"][None, :])   # (b,nh)
+    a = -torch.exp(params["a_log"])
+    decay = torch.exp(dt * a[None, :])                                   # (b,nh)
+    new_state = state["ssm"] * decay[:, :, None, None] + torch.einsum(
+        "bh,bn,bhp->bhnp", dt, B.float(), xs)
+    y = torch.einsum("bn,bhnp->bhp", C.float(), new_state)
+    y = y + params["d_skip"][None, :, None] * xs
+    out = _gated_out(params, y.reshape(b, 1, di), z, x.dtype)
+    state["ssm"].copy_(new_state)
+    state["conv"].copy_(conv_in[:, 1:, :])
+    return out, state

@@ -1,13 +1,19 @@
-"""Decoder-only transformer stack: init, forward, masked cross-entropy
-with the MoE aux loss, prefill and KV-cache decode (counterpart of
-`repro/models/transformer.py`, decoder subset).
+"""Decoder-only / encoder-decoder transformer stack: init, the Whisper
+encoder, forward with stub modality frontends (vision patch prefix, audio
+frames), masked cross-entropy with the MoE aux loss, prefill and decode
+(counterpart of `repro/models/transformer.py`).
 
 The reference scans stacked per-layer parameters (`blocks`, a leading
 repeat axis) after unscanned `prefix_blocks`; the port keeps one parameter
 dict per layer in `layers`, in execution order, and runs a Python loop.
-Likewise the decode cache is a list with one cache per layer ({"k", "v"},
-or MLA's {"c_kv", "k_rope"}), where the reference stacks `scanned` caches.
-`models/convert.py` maps between the two layouts.
+The encoder subtree (`encoder`: `blocks`, `final_norm`) is the
+reference's as it is.  Likewise the decode cache is a list with one cache
+per layer ({"k", "v"}; MLA's {"c_kv", "k_rope"}; RG-LRU's {"h", "conv"};
+SSD's {"ssm", "conv"}), where the reference stacks `scanned` caches; an
+encoder-decoder layer's cache also holds its cross-attention k and v over
+the encoder's frames ("cross_k", "cross_v"), the reference's
+`cross_prefix` / `cross_scanned`.  `models/convert.py` maps between the
+two layouts.
 
 Cross-entropy can run in sequence chunks (`cfg.xent_chunk`), each chunk's
 logits recomputed in the backward pass, so the (batch, seq, vocab) logits
@@ -20,9 +26,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks as blk
+from repro_torch.models.attention import (
+    cross_attend, init_attention, precompute_cross_kv)
 from repro_torch.models.common import resolve_device
 from repro_torch.models.config import ATTN, MLA_ATTN, ModelConfig
-from repro_torch.models.embeddings import init_embedding, embed_tokens, unembed
+from repro_torch.models.embeddings import (
+    embed_tokens, init_embedding, sinusoidal_at, sinusoidal_positions, unembed)
 from repro_torch.models.norms import init_norm, apply_norm
 
 
@@ -42,6 +51,16 @@ def layer_plan(cfg: ModelConfig) -> list[tuple[str, bool]]:
 
 # ------------------------------------------------------------------ init ----
 
+def _init_one_block(gen, cfg, kind, moe_layer, device):
+    p = blk.init_block(gen, cfg, kind, moe_layer, device)
+    if cfg.encoder is not None:  # decoder cross-attention sub-layer
+        p["cross_norm"] = init_norm(cfg.d_model, cfg.norm_kind, cfg.p_dtype, device)
+        p["cross_attn"] = init_attention(gen, cfg.d_model, cfg.num_heads,
+                                         cfg.num_kv_heads, cfg.head_dim,
+                                         cfg.p_dtype, device)
+    return p
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters: normal(0, 0.02) weights, unit norm scales, drawn
     from a `torch.Generator` seeded with `seed` on `device` (default: the
@@ -51,40 +70,75 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(seed)
     params = {"embed": init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                       cfg.p_dtype, device)}
-    params["layers"] = [blk.init_block(gen, cfg, kind, moe_layer, device)
+    params["layers"] = [_init_one_block(gen, cfg, kind, moe_layer, device)
                         for kind, moe_layer in layer_plan(cfg)]
     params["final_norm"] = init_norm(cfg.d_model, cfg.norm_kind, cfg.p_dtype,
                                      device)
     if not cfg.tie_embeddings:
         params["unembed"] = init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                            cfg.p_dtype, device)
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "blocks": [blk.init_block(gen, cfg, ATTN, False, device)
+                       for _ in range(cfg.encoder.num_layers)],
+            "final_norm": init_norm(cfg.d_model, cfg.norm_kind, cfg.p_dtype, device),
+        }
     return params
+
+
+# --------------------------------------------------------------- encoder ----
+
+def encode(params, frames, cfg: ModelConfig):
+    """Whisper-style encoder over stub frame embeddings (b, nf, d):
+    sinusoidal positions, non-causal attention layers, a final norm."""
+    b, nf = frames.shape[:2]
+    x = frames + sinusoidal_positions(nf, cfg.d_model, frames.dtype,
+                                      frames.device)[None]
+    positions = torch.arange(nf, device=frames.device).expand(b, nf)
+    for p in params["encoder"]["blocks"]:
+        x = blk.block_full(p, x, positions, cfg, ATTN, False, causal=False)[0]
+    return apply_norm(params["encoder"]["final_norm"], x, cfg.norm_kind)
 
 
 # ----------------------------------------------------------------- stack ----
 
-def _block(p, x, positions, cfg, kind, moe_layer):
-    return blk.block_full(p, x, positions, cfg, kind, moe_layer)[:2]
+def _apply_cross(p, x, enc, cfg):
+    if enc is not None and "cross_attn" in p:
+        h = apply_norm(p["cross_norm"], x, cfg.norm_kind)
+        x = x + cross_attend(p["cross_attn"], h, enc)
+    return x
 
 
-def run_stack(params, x, positions, cfg: ModelConfig,
+def _block(p, x, positions, enc, cfg, kind, moe_layer):
+    x, a, _ = blk.block_full(p, x, positions, cfg, kind, moe_layer)
+    return _apply_cross(p, x, enc, cfg), a
+
+
+def run_stack(params, x, positions, cfg: ModelConfig, enc=None,
               collect_cache: bool = False):
-    """All layers, then the final norm.  Returns (hidden, aux, caches):
-    aux is the MoE load-balance loss summed over layers (0 for a dense
-    model); caches is the per-layer list of decode caches of length t
-    when `collect_cache` (prefill), else None."""
+    """All layers (each followed by its cross-attention over the encoder
+    states `enc`, when given), then the final norm.  Returns (hidden, aux,
+    caches): aux is the MoE load-balance loss summed over layers (0 for a
+    dense model); caches is the per-layer list of decode caches of length
+    t when `collect_cache` (prefill; None for a recurrent layer; an
+    encoder-decoder layer's also holds its cross k and v over `enc`), else
+    None."""
     caches = [] if collect_cache else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, (kind, moe_layer) in zip(params["layers"], layer_plan(cfg)):
         if collect_cache:
             x, a, cache = blk.block_full(p, x, positions, cfg, kind, moe_layer,
                                          collect_cache=True)
+            x = _apply_cross(p, x, enc, cfg)
+            if enc is not None and "cross_attn" in p:
+                cross = precompute_cross_kv(p["cross_attn"], enc)
+                cache = dict(cache, cross_k=cross["k"], cross_v=cross["v"])
             caches.append(cache)
         elif cfg.remat == "full":
-            x, a = checkpoint(_block, p, x, positions, cfg, kind, moe_layer,
+            x, a = checkpoint(_block, p, x, positions, enc, cfg, kind, moe_layer,
                               use_reentrant=False)
         else:
-            x, a = _block(p, x, positions, cfg, kind, moe_layer)
+            x, a = _block(p, x, positions, enc, cfg, kind, moe_layer)
         aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg.norm_kind)
     return x, aux, caches
@@ -144,32 +198,55 @@ def _embed(params, tokens, cfg: ModelConfig):
 
 
 def _assemble_inputs(params, batch, cfg: ModelConfig):
-    """(x, positions) of a full-sequence batch."""
+    """Embed the tokens and any stub-frontend input: a vision config's
+    `patch_embeds` (b, np, d) go before the text; an audio config's
+    `frames` (b, nf, d) go through the encoder.  Returns (x, positions,
+    label_offset, enc)."""
     x = _embed(params, batch["tokens"], cfg)
+    enc = None
+    offset = 0
+    if cfg.frontend.kind == "vision_stub":
+        patches = batch["patch_embeds"].to(cfg.act_dtype)
+        x = torch.cat([patches, x], dim=1)
+        offset = patches.shape[1]
+    elif cfg.frontend.kind == "audio_stub":
+        enc = encode(params, batch["frames"].to(cfg.act_dtype), cfg)
     b, t = x.shape[:2]
-    return x, torch.arange(t, device=x.device).expand(b, t)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + sinusoidal_positions(t, cfg.d_model, x.dtype, x.device)[None]
+    return x, torch.arange(t, device=x.device).expand(b, t), offset, enc
 
 
 def forward(params, batch, cfg: ModelConfig):
-    """Full forward -> (hidden, aux)."""
-    hidden, aux, _ = run_stack(params, *_assemble_inputs(params, batch, cfg), cfg)
-    return hidden, aux
+    """Full forward -> (hidden, aux, label_offset)."""
+    x, positions, offset, enc = _assemble_inputs(params, batch, cfg)
+    hidden, aux, _ = run_stack(params, x, positions, cfg, enc=enc)
+    return hidden, aux, offset
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
     """Mean next-token cross entropy plus the MoE aux loss (zero for dense
-    models).  labels use -1 as mask."""
-    hidden, aux = forward(params, batch, cfg)
-    loss = token_loss(params, hidden, batch["labels"], cfg)
+    models).  labels use -1 as mask; a vision prefix's positions carry no
+    label."""
+    hidden, aux, offset = forward(params, batch, cfg)
+    labels = batch["labels"]
+    if offset:
+        pad = torch.full((labels.shape[0], offset), -1, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    loss = token_loss(params, hidden, labels, cfg)
     return loss + aux, {"xent": loss, "aux": aux}
 
 
 def prefill(params, batch, cfg: ModelConfig):
     """Prefill for serving: returns (last-token logits (b, vocab), caches),
-    caches the per-layer decode caches of length t (post-RoPE {"k", "v"},
-    MLA's {"c_kv", "k_rope"})."""
-    hidden, _, caches = run_stack(params, *_assemble_inputs(params, batch, cfg),
-                                  cfg, collect_cache=True)
+    caches the per-layer decode caches of length t, a vision prefix
+    included (post-RoPE {"k", "v"}, MLA's {"c_kv", "k_rope"}; None for a
+    recurrent layer, as in the reference; an encoder-decoder layer's with
+    its cross k and v over the encoded `frames`)."""
+    x, positions, _, enc = _assemble_inputs(params, batch, cfg)
+    hidden, _, caches = run_stack(params, x, positions, cfg, enc=enc,
+                                  collect_cache=True)
     logits = _logits(params, hidden[:, -1:, :], cfg)
     return logits[:, 0], caches
 
@@ -179,9 +256,15 @@ def prefill(params, batch, cfg: ModelConfig):
 def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
                       ring: bool = False, device=None) -> list:
     """Fresh decode cache, one per layer on `device` (default: the CUDA
-    card): a zeroed {"k", "v"} of (batch, length, kv_heads, head_dim), or
-    for an MLA layer {"c_kv": (batch, length, kv_lora_rank), "k_rope":
-    (batch, length, qk_rope_head_dim)}.  ring=True (the long_500k serving
+    card): a zeroed {"k", "v"} of (batch, length, kv_heads, head_dim); for
+    an MLA layer {"c_kv": (batch, length, kv_lora_rank), "k_rope":
+    (batch, length, qk_rope_head_dim)}; for an RG-LRU layer {"h": (batch,
+    lru_width) f32, "conv": (batch, conv_width - 1, lru_width)}; for an
+    SSD layer {"ssm": (batch, heads, state, head_dim) f32, "conv": (batch,
+    conv_width - 1, d_inner + 2 state)}.  An encoder-decoder layer's also
+    holds "cross_k" and "cross_v" of (batch, num_frames, kv_heads,
+    head_dim), zeros until `fill_cross_cache` writes them (the reference's
+    cross caches start as zeros too).  ring=True (the long_500k serving
     mode) bounds full-attention and MLA caches to cfg.long_context_window;
     local-attention caches are window-long rings by construction."""
     device = resolve_device(device)
@@ -191,9 +274,29 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
             return min(cache_len, cfg.long_context_window)
         return cache_len
 
-    return [blk.init_block_cache(cfg, kind, batch, length(kind), cfg.act_dtype,
-                                 device)
-            for kind in layer_kinds(cfg)]
+    def one(kind):
+        cache = blk.init_block_cache(cfg, kind, batch, length(kind), cfg.act_dtype,
+                                     device)
+        if cfg.encoder is not None:
+            shape = (batch, cfg.encoder.num_frames, cfg.num_kv_heads, cfg.head_dim)
+            cache["cross_k"] = torch.zeros(shape, dtype=cfg.act_dtype, device=device)
+            cache["cross_v"] = torch.zeros(shape, dtype=cfg.act_dtype, device=device)
+        return cache
+
+    return [one(kind) for kind in layer_kinds(cfg)]
+
+
+def fill_cross_cache(params, cache: list, frames, cfg: ModelConfig) -> list:
+    """Encode `frames` (b, num_frames, d) and write every decoder layer's
+    cross-attention k and v over them into `cache`, in place (the
+    reference's tests build the same cross caches with `encode` and
+    `precompute_cross_kv`).  Returns the cache."""
+    enc = encode(params, frames.to(cfg.act_dtype), cfg)
+    for p, c in zip(params["layers"], cache):
+        kv = precompute_cross_kv(p["cross_attn"], enc)
+        c["cross_k"].copy_(kv["k"])
+        c["cross_v"].copy_(kv["v"])
+    return cache
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
@@ -202,9 +305,15 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
     position or a (b,) tensor of per-row positions (continuous batching).
     The cache is updated IN PLACE.  Returns (logits (b, vocab), cache)."""
     x = _embed(params, tokens[:, None], cfg)
+    if cfg.pos_embed == "sinusoidal":
+        emb = sinusoidal_at(pos, cfg.d_model, x.dtype, x.device)
+        x = x + (emb[:, None, :] if emb.dim() == 2 else emb[None, None, :])
     for i, (p, (kind, moe_layer)) in enumerate(zip(params["layers"],
                                                    layer_plan(cfg))):
         x, cache[i] = blk.block_decode(p, x, cache[i], pos, cfg, kind,
                                        moe_layer, ring=ring)
+        if "cross_k" in cache[i]:
+            x = _apply_cross(p, x, {"k": cache[i]["cross_k"],
+                                    "v": cache[i]["cross_v"]}, cfg)
     x = apply_norm(params["final_norm"], x, cfg.norm_kind)
     return _logits(params, x, cfg)[:, 0], cache

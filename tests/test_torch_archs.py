@@ -1,9 +1,11 @@
-"""The attention-family architectures of the port against the reference,
-float32 on the CPU, on their smoke configs: gemma2 (local/global
+"""The architectures beyond the Llama family, the port against the
+reference, float32 on the CPU, on their smoke configs: gemma2 (local/global
 alternation, softcaps, post-norms, scaled embeddings), nemotron-4
-(LayerNorm, squared ReLU), phi3-mini (head dim 96, MHA), dbrx (MoE) and
+(LayerNorm, squared ReLU), phi3-mini (head dim 96, MHA), dbrx (MoE),
 deepseek-v2 (a dense MLA prefix layer, then MLA + MoE with a shared
-expert).
+expert), mamba2 (SSD, no attention), recurrentgemma (RG-LRU and local
+attention), whisper (encoder-decoder over stub audio frames, sinusoidal
+positions) and internvl2 (a stub vision patch prefix).
 
 Per family: the config field for field and its parameter count; the
 forward-only kernel launches the card expects (every registered config); the
@@ -11,10 +13,14 @@ loss and every gradient leaf (tests/test_torch_model.py's `_compare`:
 rtol 1e-5, atol 1e-5 × the leaf's largest magnitude); prefill logits and
 caches; decode logits and caches step by step against the reference, and
 against the port's own teacher-forced forward; ring decode past the cache
-length.  Then greedy serving (fixed batch, and the continuous-batching
-engine) for gemma2 with prompts longer than its window and for
-deepseek-v2, tokens exactly; ACCUM-NORM's loop on dbrx and deepseek-v2
-(batch trajectory and controller plan exactly, losses to rtol 1e-5).
+length (an encoder-decoder's cross caches filled from the same frames on
+both sides; a vision config's decode streams text only, so its teacher
+forcing is `tests/test_torch_encdec.py`'s, through its prefix).  Then
+greedy serving (fixed batch, and the continuous-batching engine) for
+gemma2 with prompts longer than its window, deepseek-v2 and the four
+configs above, tokens exactly; ACCUM-NORM's loop on dbrx, deepseek-v2,
+mamba2 and recurrentgemma (batch trajectory and controller plan exactly,
+losses to rtol 1e-5).
 
 Tolerance on logits and caches: rtol 1e-5 with an atol of 1e-5 × the
 largest magnitude (the frameworks sum in different orders)."""
@@ -33,7 +39,7 @@ import jax
 import jax.numpy as jnp
 
 from test_torch_helpers import jax_tree_np, np32, rng
-from test_torch_model import _compare
+from test_torch_model import _batch, _compare
 
 from repro.configs import get_config as jget_full, get_smoke_config as jget
 from repro.distributed.serve_engine import ServeEngine as JServeEngine
@@ -41,6 +47,8 @@ from repro.launch.mesh import make_host_mesh
 from repro.launch.serve import run_serving as jrun_serving
 from repro.launch.train import TrainJob as JJob, run_training as jrun
 from repro.models import build_model as jbuild
+from repro.models.attention import precompute_cross_kv as jcross_kv
+from repro.models.transformer import encode as jencode
 from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config
 from repro_torch.distributed.serve_engine import ServeEngine
 from repro_torch.distributed.serve_step import make_prefill
@@ -54,11 +62,15 @@ from repro_torch.models.transformer import layer_kinds
 from repro_torch.tree import tree_leaves
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import forward_kernel_launches  # noqa: E402
+from chip_smoke import ARCH_LAYERS, forward_kernel_launches  # noqa: E402
 
 ARCHS = ["gemma2-27b", "nemotron-4-15b", "phi3-mini-3.8b", "dbrx-132b",
-         "deepseek-v2-236b"]
+         "deepseek-v2-236b", "mamba2-370m", "recurrentgemma-9b", "whisper-base",
+         "internvl2-1b"]
 MOE_ARCHS = ["dbrx-132b", "deepseek-v2-236b"]
+# a full-sequence forward of mamba2 takes a multiple of its chunk (8)
+PREFILL_LEN = {"mamba2-370m": 24}
+ATTN_CACHE = ("k", "v", "c_kv", "k_rope")
 
 
 def close(got, want):
@@ -75,14 +87,42 @@ def _models(arch, seed=0, **cfg_kw):
     return tcfg, jm, tm, jp, params_from_jax(jax_tree_np(jp), tcfg)
 
 
-def _close_caches(tcache, jcache, tcfg):
+def _close_caches(tcache, jcache, tcfg, extra=()):
+    """Every layer cache of the reference's equal to the port's (None where
+    the reference's prefill collects none); the port's may hold the keys
+    `extra` beside them."""
     want = cache_from_jax(jax_tree_np(jcache), tcfg)
     assert len(want) == len(tcache)
     for w, g in zip(want, tcache):
-        assert sorted(w) == sorted(g)
+        if w is None:
+            assert g is None
+            continue
+        assert sorted(w) == sorted(k for k in g if k not in extra)
         for k in w:
             assert w[k].shape == g[k].shape and w[k].dtype == g[k].dtype
             close(g[k], w[k])
+
+
+def _frontend(cfg, b, seed):
+    """The numpy stub-frontend inputs of `cfg` for b rows ({} for none)."""
+    return {k: v for k, v in _batch(cfg, b, 1, seed).items()
+            if k in ("frames", "patch_embeds")}
+
+
+def _fill_jax_cross(jm, jp, jc, frames):
+    """The reference's decode cache with its cross k and v over `frames`,
+    built as `tests/test_serving.py` builds it."""
+    cfg = jm.cfg
+    enc = jencode(jp, jnp.asarray(frames).astype(cfg.act_dtype), cfg)
+    jc = dict(jc)
+    jc["cross_prefix"] = [jcross_kv(p["cross_attn"], enc)
+                          for p in jp.get("prefix_blocks", [])]
+    jc["cross_scanned"] = [
+        jax.tree.map(lambda *xs: jnp.stack(xs),
+                     *[jcross_kv(jax.tree.map(lambda a: a[r], bp)["cross_attn"], enc)
+                       for r in range(cfg.num_repeats)])
+        for bp in jp["blocks"]]
+    return jc
 
 
 def _tokens(cfg, b, t, seed):
@@ -91,16 +131,17 @@ def _tokens(cfg, b, t, seed):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_config_and_param_count_equal_reference(arch):
-    """CONFIG and smoke_config() field for field, the full config's
-    parameter count (total and active), and the port's own init has the
-    reference's leaves, shapes and dtypes."""
+    """CONFIG and smoke_config() field for field, the parameter count
+    (total and active) at the published depth and at chip_smoke.py's, and
+    the port's own init has the reference's leaves, shapes and dtypes."""
     for port, ref in ((get_config(arch), jget_full(arch)),
                       (get_smoke_config(arch), jget(arch))):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     full = get_config(arch)
-    assert full.param_count() == jget_full(arch).param_count()
-    assert full.param_count(active_only=True) == \
-        jget_full(arch).param_count(active_only=True)
+    for n in {full.num_layers, ARCH_LAYERS.get(arch, 1)}:   # chip_smoke's depth too
+        port, ref = full.replace(num_layers=n), jget_full(arch).replace(num_layers=n)
+        assert port.param_count() == ref.param_count(), n
+        assert port.param_count(active_only=True) == ref.param_count(active_only=True), n
     tcfg, _, tm, _, tp = _models(arch)
     own = tm.init(0, "cpu")
     assert [(x.shape, x.dtype) for x in tree_leaves(own)] == \
@@ -129,9 +170,9 @@ def test_forward_kernel_launches_count_each_kernel_call(arch, monkeypatch):
     monkeypatch.setattr(attention, "_sdpa", sdpa)
     cfg = get_smoke_config(arch)
     model = build_model(cfg)
-    toks = torch.from_numpy(_tokens(cfg, 2, 8, seed=0)).long()
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, 2, 8, seed=0).items()}
     with torch.no_grad():
-        model.loss(model.init(0, "cpu"), {"tokens": toks, "labels": toks})
+        model.loss(model.init(0, "cpu"), batch)
     assert calls == forward_kernel_launches(cfg)
 
 
@@ -142,30 +183,43 @@ def test_loss_and_grads_match_reference(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_logits_and_caches_match_reference(arch):
+    """Last-token logits and every cache the reference's prefill collects
+    (a vision prefix's positions included); an encoder-decoder's port
+    caches also hold its cross k and v, held by
+    tests/test_torch_encdec.py."""
     tcfg, jm, tm, jp, tp = _models(arch, seed=4)
-    toks = _tokens(tcfg, 3, 20, seed=5)
-    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)})
-    tl, tc = make_prefill(tm)(tp, {"tokens": torch.from_numpy(toks)})
+    batch = {"tokens": _tokens(tcfg, 3, PREFILL_LEN.get(arch, 20), seed=5),
+             **_frontend(tcfg, 3, seed=6)}
+    jl, jc = jm.prefill(jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, tc = make_prefill(tm)(tp, {k: torch.from_numpy(v) for k, v in batch.items()})
     close(tl, jl)
-    _close_caches(tc, jc, tcfg)
+    _close_caches(tc, jc, tcfg, extra=("cross_k", "cross_v"))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_reference_and_teacher_forcing(arch):
     """24 tokens streamed through decode, the second row one position
-    behind (per-row positions; gemma2's window is 16, so its local layers'
-    rings wrap): logits and caches equal the reference's step by step, and
-    the first row's logits equal the port's teacher-forced forward."""
+    behind (per-row positions; gemma2's and recurrentgemma's windows are
+    16, so their local layers' rings wrap): logits and caches equal the
+    reference's step by step, and the first row's logits equal the port's
+    teacher-forced forward.  An encoder-decoder's cross caches hold k and v
+    over the same frames on both sides; a vision config streams text only,
+    so it has no teacher-forced counterpart here."""
     tcfg, jm, tm, jp, tp = _models(arch, seed=2)
     b, t = 2, 24
     toks = _tokens(tcfg, b, t, seed=3)
     jc, tc = jm.init_cache(b, t), tm.init_cache(b, t, device="cpu")
+    front = _frontend(tcfg, b, seed=4)
+    if "frames" in front:
+        jc = _fill_jax_cross(jm, jp, jc, front["frames"])
+        transformer.fill_cross_cache(tp, tc, torch.from_numpy(front["frames"]), tcfg)
     dec = []
+    jstep = jax.jit(jm.decode_step)        # one trace for the 24 steps
     for i in range(t):
         pos = np.array([i, max(i - 1, 0)], np.int32)
         tok = toks[:, i].copy()
         tok[1] = toks[1, max(i - 1, 0)]
-        jl, jc = jm.decode_step(jp, jc, jnp.asarray(tok), jnp.asarray(pos))
+        jl, jc = jstep(jp, jc, jnp.asarray(tok), jnp.asarray(pos))
         tl, tc = tm.decode_step(tp, tc, torch.from_numpy(tok),
                                 torch.from_numpy(pos))
         close(tl, jl)
@@ -173,8 +227,11 @@ def test_decode_matches_reference_and_teacher_forcing(arch):
     _close_caches(tc, jc, tcfg)
     back = cache_to_jax(tc, tcfg)
     assert jax.tree.structure(back) == jax.tree.structure(jax_tree_np(jc))
+    if "patch_embeds" in front:
+        return
     with torch.no_grad():
-        full = tm.logits(tp, {"tokens": torch.from_numpy(toks[:1])})[0]
+        full = tm.logits(tp, {"tokens": torch.from_numpy(toks[:1]),
+                              **{k: torch.from_numpy(v[:1]) for k, v in front.items()}})[0]
     close(torch.stack(dec), full)
 
 
@@ -189,8 +246,9 @@ def test_ring_decode_past_the_cache_length(arch):
     toks = _tokens(tcfg, b, steps + 1, seed=7)
     jc, tc = jm.init_cache(b, 64, ring=True), tm.init_cache(b, 64, ring=True,
                                                              device="cpu")
+    jstep = jax.jit(jm.decode_step, static_argnames="ring")
     for i, pos in enumerate(list(range(steps)) + [37]):
-        jl, jc = jm.decode_step(jp, jc, jnp.asarray(toks[:, i]), jnp.int32(pos),
+        jl, jc = jstep(jp, jc, jnp.asarray(toks[:, i]), jnp.int32(pos),
                                 ring=True)
         tl, tc = tm.decode_step(tp, tc, torch.from_numpy(toks[:, i]), pos,
                                 ring=True)
@@ -198,21 +256,30 @@ def test_ring_decode_past_the_cache_length(arch):
         assert torch.isfinite(tl).all()
     for kind, layer in zip(layer_kinds(tcfg), tc):      # local: its window
         want = tcfg.sliding_window if kind == "local" else 8
-        assert all(x.shape[1] == want for x in layer.values()), kind
+        assert all(x.shape[1] == want for k, x in layer.items()
+                   if k in ATTN_CACHE), kind
     _close_caches(tc, jc, tcfg)
 
 
 # ------------------------------------------------------------- serving --
 
-SERVE_ARCHS = ["gemma2-27b", "deepseek-v2-236b"]
+SERVE_ARCHS = ["gemma2-27b", "deepseek-v2-236b", "mamba2-370m",
+               "recurrentgemma-9b", "whisper-base", "internvl2-1b"]
+
+
+def _prefix(arch) -> int:
+    """A vision config's prefix tokens, which its prompt budget holds."""
+    cfg = get_smoke_config(arch)
+    return cfg.frontend.num_prefix_tokens if cfg.frontend.kind == "vision_stub" else 0
 
 
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_run_serving_tokens_identical_to_reference(arch):
-    """Prompts of 18 tokens (beyond gemma2's window of 16), 6 generated:
-    the port gets the reference's PRNGKey(0) parameters, converted, and
-    draws the same prompts."""
-    kw = dict(batch=2, prompt_len=18, gen_len=6)
+    """Prompts of 18 text tokens (beyond gemma2's and recurrentgemma's
+    windows of 16), 6 generated: the port gets the reference's
+    PRNGKey(0) parameters, converted, and draws the same prompts (a vision
+    config's budget also holds its prefix tokens)."""
+    kw = dict(batch=2, prompt_len=18 + _prefix(arch), gen_len=6)
     want = jrun_serving(arch, smoke=True, seed=0, **kw)
     tcfg, _, _, _, tp = _models(arch)
     got = serve_mod.run_serving(arch, smoke=True, seed=0, params=tp, **kw)
@@ -248,7 +315,7 @@ def test_serve_engine_tokens_identical_to_reference(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_cli_takes_the_arch(arch, capsys):
     serve_mod.main(["--arch", arch, "--device", "cpu", "--batch", "1",
-                    "--prompt-len", "3", "--gen-len", "2"])
+                    "--prompt-len", str(3 + _prefix(arch)), "--gen-len", "2"])
     assert "tok/s" in capsys.readouterr().out
 
 
@@ -261,7 +328,7 @@ LOOP = dict(smoke=True, schedule="adaptive", eta=0.12, step_impl="accum_norm",
             checkpoint_every=4)
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("arch", MOE_ARCHS + ["mamba2-370m", "recurrentgemma-9b"])
 def test_accum_norm_loop_matches_reference(arch, monkeypatch, tmp_path):
     """`run_training` of both packages from the same parameters: the batch
     trajectory and the step-4 checkpoint's controller plan, counters and

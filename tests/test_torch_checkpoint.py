@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 
 from test_torch_helpers import jax_tree_np
+from test_torch_model import _batch
 
 from repro.checkpoint import store as jstore
 from repro.configs import get_smoke_config as jget
@@ -294,7 +295,24 @@ def test_model_checkpoint_crosses_packages_next_loss(tmp_path):
     """The reference's smoke-model params, saved by the reference and
     restored by the port (and back), are bit-equal and give the same
     next loss on a batch (rtol 1e-5)."""
-    cfg = jget("llama3.2-1b")
+    _model_checkpoint_crosses(tmp_path, "llama3.2-1b")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b",
+                                  "whisper-base", "internvl2-1b"])
+def test_remaining_archs_checkpoint_crosses_packages(tmp_path, arch):
+    """The same for the SSD, RG-LRU (recurrentgemma's `prefix_blocks`
+    layer: its smoke config's pattern with one RG-LRU prefix layer),
+    encoder-decoder (the `encoder` subtree, `cross_attn`, `cross_norm`) and
+    vision-prefix configs; the next loss on a batch with the config's
+    frames or patch embeddings."""
+    kw = dict(prefix_pattern=("rglru",), num_layers=4) \
+        if arch == "recurrentgemma-9b" else {}
+    _model_checkpoint_crosses(tmp_path, arch, **kw)
+
+
+def _model_checkpoint_crosses(tmp_path, arch, **cfg_kw):
+    cfg = jget(arch).replace(**cfg_kw)
     jmodel = jbuild(cfg)
     jp = jmodel.init(jax.random.PRNGKey(4))
     like = jax_tree_np(jp)
@@ -308,11 +326,9 @@ def test_model_checkpoint_crosses_packages_next_loss(tmp_path):
     back, _ = jstore.restore_checkpoint(str(tmp_path / "t"), 1, {"params": like})
     for a, b in zip(jax.tree.leaves(back["params"]), jax.tree.leaves(like)):
         assert _equal(a, b)
-    tcfg = get_smoke_config("llama3.2-1b")
+    tcfg = get_smoke_config(arch).replace(**cfg_kw)
     tparams = params_from_jax(jax.tree.map(lambda t: t.numpy(), got["params"]), tcfg)
-    r = np.random.default_rng(0)
-    toks = r.integers(0, cfg.vocab_size, (2, 17)).astype(np.int32)
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = _batch(cfg, 2, 16, seed=0)
     want = float(jmodel.loss(jax.tree.map(jnp.asarray, back["params"]),
                              jax.tree.map(jnp.asarray, batch))[0])
     with torch.no_grad():

@@ -27,7 +27,6 @@ import pytest
 import torch
 
 from repro_torch.configs import ALL_ARCHS, get_config
-from repro_torch.distributed.serve_step import make_decode_step, make_prefill
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.buckets import TABLES
 from repro_torch.kernels.fused_adamw import (
@@ -39,7 +38,8 @@ from repro_torch.kernels.sqdiff_norm import sqdiff_norm
 from repro_torch.models.model import build_model
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import forward_kernel_launches  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    forward_kernel_launches, frontend_inputs, prefill_vs_decode)
 
 SIZES = [1, 17, 1_000_003]
 DTYPE_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
@@ -257,6 +257,19 @@ FLASH_CASES = [  # b, t, s, h, kvh, d, causal, window, softcap
     (1, 8192, 8192, 32, 16, 128, True, 0, 50.0),
     (2, 2048, 2048, 32, 32, 96, True, 0, 0.0),
     (2, 2048, 2048, 48, 8, 128, True, 0, 0.0),
+    # recurrentgemma-9b's local layer (MQA 16 / 1, head dim 256, window
+    # 2048); whisper-base's encoder and cross-attention over its 1500
+    # frames (non-causal, t != s); internvl2-1b's 14 / 2 heads
+    (1, 8192, 8192, 16, 1, 256, True, 2048, 0.0),
+    (2, 1500, 1500, 8, 8, 64, False, 0, 0.0),
+    (2, 448, 1500, 8, 8, 64, False, 0, 0.0),
+    (2, 2048, 2048, 14, 2, 64, True, 0, 0.0),
+    # head dims past 128 (O in two halves, one a block), t and s off
+    # multiples of 16
+    (1, 77, 93, 4, 2, 136, True, 0, 0.0),
+    (2, 61, 130, 4, 1, 200, False, 0, 30.0),
+    (1, 150, 150, 4, 4, 256, True, 50, 0.0),
+    (1, 83, 141, 2, 1, 256, False, 0, 0.0),
 ]
 
 
@@ -281,6 +294,7 @@ LARGE_LOGIT_CASES = [  # b, t, s, h, kvh, d, causal
     (1, 300, 300, 4, 1, 128, True),
     (2, 93, 157, 8, 4, 100, False),
     (1, 2048, 2048, 4, 1, 64, True),
+    (1, 300, 300, 4, 1, 256, True),
 ]
 
 
@@ -340,7 +354,7 @@ def test_cuda_forward_kernels_refuse_grad_and_odd_head_dims(cuda):
     x = torch.randn(4, 64, device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         rmsnorm(x, torch.ones(64, device=cuda))
-    q = torch.randn(1, 8, 2, 160, device=cuda)
+    q = torch.randn(1, 8, 2, 264, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q, q)
     before = (rmsnorm.launches, flash_attention.launches)
@@ -349,33 +363,32 @@ def test_cuda_forward_kernels_refuse_grad_and_odd_head_dims(cuda):
     assert (rmsnorm.launches, flash_attention.launches) == (before[0] + 1, before[1])
 
 
-def _rel(got, want):
-    return float((got.float() - want.float()).abs().max()
-                 / want.float().abs().max().clamp_min(1e-30))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_cuda_dense_configs_forward_without_grad_and_prefill(cuda, arch):
     """Every registered config at its full width and the fewest layers
-    that hold each of its layer kinds (its prefix and one block pattern):
-    a forward with grad mode off (training's eval loss) runs the kernels —
-    the launches `forward_kernel_launches` computes from the config — and
-    agrees with the plain forward under grad mode; prefill (kernels)
-    agrees with the same tokens streamed through decode (plain attention),
-    an MoE model at a capacity where no pair drops (a prefill row drops
-    what a one-token decode row keeps).  f32 through the model: 1e-5 on
-    the loss, 1e-4 of the largest magnitude on logits and caches (sums in
-    another order over 2000-6144 wide rows)."""
+    that hold each of its layer kinds (its prefix and one block pattern;
+    whisper's 6 encoder layers), audio frames or patch embeddings from the
+    seeded generator: a forward with grad mode off (training's eval loss)
+    runs the kernels — the launches `forward_kernel_launches` computes
+    from the config — and agrees with the plain forward under grad mode;
+    prefill (kernels) agrees with the same tokens streamed through decode
+    (plain attention; chip_smoke's `prefill_vs_decode`), an MoE model at a
+    capacity where no pair drops (a prefill row drops what a one-token
+    decode row keeps).  f32 through the model: 1e-5 on the loss, 1e-4 of
+    the largest magnitude on logits and caches (sums in another order over
+    2000-6144 wide rows).  mamba2 takes 128 tokens, its chunk."""
     cfg = get_config(arch)
     cfg = cfg.replace(num_layers=len(cfg.prefix_pattern) + len(cfg.block_pattern))
     model = build_model(cfg)
     params = model.init(0, cuda)
     gen = torch.Generator(device=cuda).manual_seed(1)
     vocab = model.cfg.vocab_size
-    tokens = torch.randint(0, vocab, (2, 100), device=cuda, generator=gen)
-    labels = torch.randint(0, vocab, (2, 100), device=cuda, generator=gen)
-    batch = {"tokens": tokens, "labels": labels}
+    n = cfg.ssm.chunk_size if cfg.ssm is not None else 100
+    tokens = torch.randint(0, vocab, (2, n), device=cuda, generator=gen)
+    labels = torch.randint(0, vocab, (2, n), device=cuda, generator=gen)
+    front = frontend_inputs(cfg, 2, gen, cuda)
+    batch = {"tokens": tokens, "labels": labels, **front}
     plain = model.loss(params, batch)[0]
     ops.reset_launch_counts()
     with torch.no_grad():
@@ -387,12 +400,6 @@ def test_cuda_dense_configs_forward_without_grad_and_prefill(cuda, arch):
     if cfg.moe is not None:
         model = build_model(cfg.replace(moe=dataclasses.replace(
             cfg.moe, capacity_factor=float(cfg.moe.num_experts))))
-    logits, caches = make_prefill(model)(params, {"tokens": tokens})
-    step = make_decode_step(model)
-    cache = model.init_cache(2, tokens.shape[1], device=cuda)
-    for i in range(tokens.shape[1]):
-        dec, cache = step(params, cache, tokens[:, i], i)
+    errs = prefill_vs_decode(model, params, tokens, front, cuda)
     torch.cuda.synchronize()
-    assert _rel(logits, dec) <= 1e-4
-    for got, want in zip(caches, cache):
-        assert max(_rel(got[k], want[k]) for k in want) <= 1e-4
+    assert max(errs.values()) <= 1e-4, errs

@@ -8,7 +8,8 @@ TF32.  Each operand is split as x = hi + lo, hi = x rounded to TF32
 lo = x - hi rounded the same way, and each product is lo*hi + hi*lo +
 hi*hi with f32 accumulation.  Here the rounding is a bit operation on f32
 tensors and the products are f32 matrix products of the rounded operands,
-inside a plain online softmax over 64-key tiles with the kernel's masking
+inside a plain online softmax over the kernel's key tiles (64 keys, 32 or
+16 at the larger head dims, as `tile_keys` computes) with its masking
 order (-2e38, rows that see no key get the mean of v).  The card test holds
 the kernel to the plain version at rtol = atol = 2e-5 (f32); the emulation
 must stay inside that, also with q scaled so that logits reach +-30, while
@@ -30,7 +31,7 @@ from repro_torch.kernels import ref
 from test_torch_cuda import FLASH_CASES
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)     # the card test's f32 tolerance
-BK = 64                                  # keys a tile, as the kernel
+SMEM_MAX = 232448                        # shared memory a block may have
 NEG = -2.0e38
 MAX_LOGITS = [None, 30.0]                # q as drawn, or scaled to |logit| <= 30
 MAX_WORK = 2 ** 26                       # b * h * t * s above this is cut
@@ -56,23 +57,82 @@ def matmul_tf32(a, b):
     return tf32(a) @ tf32(b)
 
 
-def emulate(q, k, v, *, causal, window, softcap, matmul):
-    """Online-softmax attention over 64-key tiles with `matmul` for both
-    products.  q: (b, t, h, d); k, v: (b, s, kvh, d), f32."""
+S_CHUNK = 32          # columns of d a chunk of S past head dim 128
+
+
+def logits_3xtf32(a, b):
+    """S = Q K^T as the kernel computes it: past head dim 128 (a padded
+    width of 144 or more) in chunks of 32 columns of d (16 where the padded
+    width is an odd multiple of 16), each chunk three TF32 products in a
+    fresh f32 accumulator, the chunks summed exactly (the kernel's
+    compensated two-sum) and rounded once; up to 128 in one accumulator."""
+    dp = -(-a.shape[-1] // 16) * 16
+    if dp <= 128:
+        return matmul_3xtf32(a, b)
+    width = 16 if dp % 32 else S_CHUNK
+    total = 0
+    for c in range(0, a.shape[-1], width):
+        total = total + matmul_3xtf32(a[..., c:c + width], b[..., c:c + width, :]).double()
+    return total.float()
+
+
+def tile_keys(d: int) -> int:
+    """Keys a tile of the f32 kernel at head dim d (its `F32Tiles`): the
+    head dim padded to 16 (dp), O's columns a block (do: all up to 128,
+    else half rounded up to 16), and the widest tile of 64, 32 or 16 keys
+    whose shared memory fits beside the q rows."""
+    dp = -(-d // 16) * 16
+    do = dp if dp <= 128 else -(-dp // 32) * 16
+    size = lambda bq, bk: 4 * (2 * bq * dp + 3 * bk * dp + 6 * bk * do)
+    bq = 128 if size(128, 64) <= SMEM_MAX else 64
+    return next(bk for bk in (64, 32, 16) if size(bq, bk) <= SMEM_MAX)
+
+
+def test_tile_keys_follow_the_kernel_layout():
+    assert [tile_keys(d) for d in (64, 100, 128, 176, 192, 256)] == \
+        [64, 32, 32, 32, 16, 16]
+
+
+QB = 1024            # q rows emulated together
+
+
+def emulate(q, k, v, *, causal, window, softcap, matmul, logits=None):
+    """Online-softmax attention over the kernel's key tiles with `matmul`
+    for both products (`logits`, when given, for S).  q: (b, t, h, d); k,
+    v: (b, s, kvh, d), f32.  Blocks of QB q rows skip the key tiles that
+    no row of theirs sees, as the kernel's blocks do (a skipped tile would
+    leave every row as it was)."""
+    logits = logits or matmul
     b, t, h, d = q.shape
+    BK = tile_keys(d)
     s = k.shape[1]
     group = h // k.shape[2]
-    qh = q.transpose(1, 2)                                   # (b, h, t, d)
     kh = torch.repeat_interleave(k, group, dim=2).transpose(1, 2)
     vh = torch.repeat_interleave(v, group, dim=2).transpose(1, 2)
+    outs = []
+    for q0 in range(0, t, QB):
+        rows = min(QB, t - q0)
+        lo = max(0, (q0 - window + 1) // BK) if window > 0 else 0
+        hi = min(-(-s // BK), (q0 + rows - 1) // BK + 1) if causal else -(-s // BK)
+        outs.append(_emulate_rows(q[:, q0:q0 + rows], kh, vh, q0, lo * BK,
+                                  max(lo, hi) * BK, BK, causal=causal, window=window,
+                                  softcap=softcap, matmul=matmul, logits=logits))
+    return torch.cat(outs, dim=1)
+
+
+def _emulate_rows(q, kh, vh, q0, k_lo, k_hi, BK, *, causal, window, softcap, matmul,
+                  logits):
+    b, t, h, d = q.shape
+    s = kh.shape[2]
+    qh = q.transpose(1, 2)                                   # (b, h, t, d)
     scale = 1.0 / math.sqrt(d)
     m = torch.full((b, h, t, 1), NEG)
     l = torch.zeros((b, h, t, 1))
     acc = torch.zeros((b, h, t, d))
-    qpos = torch.arange(t)[:, None]
-    for k0 in range(0, s, BK):
+    qpos = torch.arange(q0, q0 + t)[:, None]
+    for k0 in range(k_lo, min(k_hi, s), BK):
         kpos = torch.arange(k0, min(k0 + BK, s))[None, :]
-        x = matmul(qh, kh[:, :, k0:k0 + BK].transpose(-1, -2)) * scale
+        x = logits(qh, kh[:, :, k0:k0 + BK].transpose(-1, -2)) * scale
         if softcap > 0:
             x = softcap * torch.tanh(x / softcap)
         ok = torch.ones((t, kpos.shape[1]), dtype=torch.bool)
@@ -124,7 +184,7 @@ def test_3xtf32_flash_within_f32_tolerance(b, t, s, h, kvh, d, causal, window, s
     q, k, v = inputs(b, t, s, h, kvh, d, max_logit)
     kw = dict(causal=causal, window=window, softcap=softcap)
     want = ref.flash_attention_ref(q, k, v, **kw)
-    got = emulate(q, k, v, **kw, matmul=matmul_3xtf32)
+    got = emulate(q, k, v, **kw, matmul=matmul_3xtf32, logits=logits_3xtf32)
     torch.testing.assert_close(got, want, **F32_TOL)
 
 

@@ -26,13 +26,22 @@ from repro_torch.tree import tree_leaves
 
 
 def _batch(cfg, b, t, seed, masked=0):
+    """Tokens and shifted labels; a vision config's patch embeddings and an
+    audio config's encoder frames, standard normal, beside them."""
     r = rng(seed)
     toks = r.integers(0, cfg.vocab_size, (b, t + 1), dtype=np.int32)
     labels = toks[:, 1:].copy()
     if masked:
         labels[:, -masked:] = -1
         labels[0, :masked] = -1
-    return {"tokens": toks[:, :-1], "labels": labels}
+    batch = {"tokens": toks[:, :-1], "labels": labels}
+    if cfg.frontend.kind == "vision_stub":
+        batch["patch_embeds"] = r.standard_normal(
+            (b, cfg.frontend.num_prefix_tokens, cfg.d_model)).astype(np.float32)
+    elif cfg.frontend.kind == "audio_stub":
+        batch["frames"] = r.standard_normal(
+            (b, cfg.encoder.num_frames, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def _compare(arch, b, t, seed, masked=0, **cfg_kw):
@@ -105,9 +114,9 @@ def test_full_width_microllama_and_unsupported_configs():
     assert cfg.param_count() == 290_743_296
     assert cfg.act_dtype == torch.float32
     with pytest.raises(KeyError, match="supported"):
-        get_config("mamba2-370m")
-    with pytest.raises(NotImplementedError, match="remaining-architectures"):
-        build_model(cfg.replace(block_pattern=("ssd",))).init(device="cpu")
+        get_config("mamba3-1b")
+    with pytest.raises(NotImplementedError, match="tp_boundary"):
+        build_model(cfg.replace(remat="tp_boundary")).init(device="cpu")
     p = build_model(get_smoke_config("llama3.2-1b")).init(seed=1, device="cpu")
     q = build_model(get_smoke_config("llama3.2-1b")).init(seed=1, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p), tree_leaves(q)))

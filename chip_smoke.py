@@ -757,8 +757,9 @@ def by_kv_head(fn, q, k, v):
 
 def check_path_shapes(calls, dev) -> dict:
     """The kernels against their plain versions at the shapes and options
-    the main path gave them (`recorded_kernel_calls` of a long prefill),
-    on inputs drawn from a seed, at SERVE_TOL.  An f32 flash call with a
+    the main path gave them (`recorded_kernel_calls` of a long prefill and
+    of `prefill_vs_decode`'s prefill and decode steps), on inputs drawn
+    from a seed, at SERVE_TOL.  An f32 flash call with a
     softcap is run again with q scaled so that the largest |q.k|/sqrt(d)
     equals the softcap (gemma2-27b's 50, which its logits may reach) and
     held against the same attention in f64 at SERVE_TOL (there the plain
@@ -834,16 +835,31 @@ def frontend_inputs(cfg, b: int, gen, dev) -> dict:
     return {}
 
 
+def fill_cross_cache(params, cache: list, frames, cfg) -> list:
+    """Encode `frames` (b, num_frames, d) and write every decoder layer's
+    cross-attention k and v over them into the decode cache `cache`, in
+    place (the reference's tests build the same cross caches with `encode`
+    and `precompute_cross_kv`).  Returns the cache."""
+    from repro_torch.models.attention import precompute_cross_kv
+    from repro_torch.models.transformer import encode
+
+    enc = encode(params, frames.to(cfg.act_dtype), cfg)
+    for p, c in zip(params["layers"], cache):
+        kv = precompute_cross_kv(p["cross_attn"], enc)
+        c["cross_k"].copy_(kv["k"])
+        c["cross_v"].copy_(kv["v"])
+    return cache
+
+
 def prefill_vs_decode(model, params, toks, front, dev) -> dict:
     """Prefill over `toks` (and the frontend inputs `front`) against the
     same tokens streamed through decode: the last logits and every cache
     the prefill collects, relative errors.  An encoder-decoder's decode
-    cache gets its cross k and v from the same frames first; a vision
-    config's decode takes tokens only, so a prefill over the prefix and
-    the first half of the text starts its cache and the second half
-    streams."""
+    cache gets its cross k and v from the same frames first
+    (`fill_cross_cache`); a vision config's decode takes tokens only, so a
+    prefill over the prefix and the first half of the text starts its
+    cache and the second half streams."""
     from repro_torch.distributed.serve_step import make_decode_step, make_prefill
-    from repro_torch.models.transformer import fill_cross_cache
 
     b, n = toks.shape
     logits, caches = make_prefill(model)(params, {"tokens": toks, **front})
@@ -927,7 +943,8 @@ def check_archs(smi, ops, dev):
     tokens), three runs timed, with its launches.  Audio frames and patch
     embeddings are drawn from the seeded generator.  Each model is freed
     before the next, and the kernels are then held against their plain
-    versions at the shapes that prefill gave them (`check_path_shapes`).
+    versions at the shapes that the long prefill and prefill_vs_decode's
+    prefill and decode steps gave them (`check_path_shapes`).
     Last, flash_attention at head dim 256 timed beside SDPA
     (`time_flash_d256`).  Returns the launch counts of the no-grad
     forwards and the long prefills, summed, and the kernels' max abs
@@ -974,8 +991,9 @@ def check_archs(smi, ops, dev):
         check = model if cfg.moe is None else build_model(cfg.replace(
             moe=dataclasses.replace(cfg.moe,
                                     capacity_factor=float(cfg.moe.num_experts))))
-        errs = prefill_vs_decode(check, params, tokens[:, :chunk or ARCH_CHECK_LEN],
-                                 front, dev)
+        with recorded_kernel_calls(ops) as short_calls:
+            errs = prefill_vs_decode(check, params, tokens[:, :chunk or ARCH_CHECK_LEN],
+                                     front, dev)
         if max(errs.values()) > SERVE_REL:
             raise AssertionError(f"{arch}: prefill vs streamed decode {errs} > {SERVE_REL}")
         # the long prefill, at the published capacity
@@ -1027,7 +1045,11 @@ def check_archs(smi, ops, dev):
         del params, model, check
         gc.collect()
         torch.cuda.empty_cache()
-        # the kernels at the long prefill's shapes, the model freed
+        # the kernels at the shapes of the long prefill and of the short
+        # prefill and decode steps (whisper's cross-attention: one query
+        # over 1500 frames), the model freed
+        for k, keys in short_calls.items():
+            calls[k] += [c for c in keys if c not in calls[k]]
         for k, e in check_path_shapes(calls, dev).items():
             path_err[k] = max(path_err[k], e)
         torch.cuda.empty_cache()

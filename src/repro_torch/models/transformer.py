@@ -263,10 +263,11 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
     SSD layer {"ssm": (batch, heads, state, head_dim) f32, "conv": (batch,
     conv_width - 1, d_inner + 2 state)}.  An encoder-decoder layer's also
     holds "cross_k" and "cross_v" of (batch, num_frames, kv_heads,
-    head_dim), zeros until `fill_cross_cache` writes them (the reference's
-    cross caches start as zeros too).  ring=True (the long_500k serving
-    mode) bounds full-attention and MLA caches to cfg.long_context_window;
-    local-attention caches are window-long rings by construction."""
+    head_dim), zeros as the reference's cross caches start (prefill
+    returns them filled over the encoded frames).  ring=True (the
+    long_500k serving mode) bounds full-attention and MLA caches to
+    cfg.long_context_window; local-attention caches are window-long rings
+    by construction."""
     device = resolve_device(device)
 
     def length(kind):
@@ -284,19 +285,6 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
         return cache
 
     return [one(kind) for kind in layer_kinds(cfg)]
-
-
-def fill_cross_cache(params, cache: list, frames, cfg: ModelConfig) -> list:
-    """Encode `frames` (b, num_frames, d) and write every decoder layer's
-    cross-attention k and v over them into `cache`, in place (the
-    reference's tests build the same cross caches with `encode` and
-    `precompute_cross_kv`).  Returns the cache."""
-    enc = encode(params, frames.to(cfg.act_dtype), cfg)
-    for p, c in zip(params["layers"], cache):
-        kv = precompute_cross_kv(p["cross_attn"], enc)
-        c["cross_k"].copy_(kv["k"])
-        c["cross_v"].copy_(kv["v"])
-    return cache
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig,

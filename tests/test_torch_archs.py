@@ -62,7 +62,7 @@ from repro_torch.models.transformer import layer_kinds
 from repro_torch.tree import tree_leaves
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import ARCH_LAYERS, forward_kernel_launches  # noqa: E402
+from chip_smoke import ARCH_LAYERS, fill_cross_cache, forward_kernel_launches  # noqa: E402
 
 ARCHS = ["gemma2-27b", "nemotron-4-15b", "phi3-mini-3.8b", "dbrx-132b",
          "deepseek-v2-236b", "mamba2-370m", "recurrentgemma-9b", "whisper-base",
@@ -212,7 +212,7 @@ def test_decode_matches_reference_and_teacher_forcing(arch):
     front = _frontend(tcfg, b, seed=4)
     if "frames" in front:
         jc = _fill_jax_cross(jm, jp, jc, front["frames"])
-        transformer.fill_cross_cache(tp, tc, torch.from_numpy(front["frames"]), tcfg)
+        fill_cross_cache(tp, tc, torch.from_numpy(front["frames"]), tcfg)
     dec = []
     jstep = jax.jit(jm.decode_step)        # one trace for the 24 steps
     for i in range(t):
@@ -328,12 +328,15 @@ LOOP = dict(smoke=True, schedule="adaptive", eta=0.12, step_impl="accum_norm",
             checkpoint_every=4)
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS + ["mamba2-370m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", MOE_ARCHS + ["mamba2-370m", "recurrentgemma-9b",
+                                              "whisper-base", "internvl2-1b"])
 def test_accum_norm_loop_matches_reference(arch, monkeypatch, tmp_path):
     """`run_training` of both packages from the same parameters: the batch
     trajectory and the step-4 checkpoint's controller plan, counters and
     flags exactly; the losses (MoE aux included), the norm-test statistics,
-    the eval loss and the controller's float statistics to rtol 1e-5."""
+    the eval loss and the controller's float statistics to rtol 1e-5.
+    whisper's and internvl2's batches carry the seeded frames and patch
+    embeddings that both packages' `make_batch` draws beside the tokens."""
     job = dict(LOOP, arch=arch)
     hj = jrun(JJob(checkpoint_dir=str(tmp_path / "jax"), **job))
     init_np = jax_tree_np(jbuild(jget(arch)).init(jax.random.PRNGKey(0)))

@@ -259,10 +259,12 @@ FLASH_CASES = [  # b, t, s, h, kvh, d, causal, window, softcap
     (2, 2048, 2048, 48, 8, 128, True, 0, 0.0),
     # recurrentgemma-9b's local layer (MQA 16 / 1, head dim 256, window
     # 2048); whisper-base's encoder and cross-attention over its 1500
-    # frames (non-causal, t != s); internvl2-1b's 14 / 2 heads
+    # frames (non-causal, t != s; prefill's 448 queries and decode's one);
+    # internvl2-1b's 14 / 2 heads
     (1, 8192, 8192, 16, 1, 256, True, 2048, 0.0),
     (2, 1500, 1500, 8, 8, 64, False, 0, 0.0),
     (2, 448, 1500, 8, 8, 64, False, 0, 0.0),
+    (2, 1, 1500, 8, 8, 64, False, 0, 0.0),
     (2, 2048, 2048, 14, 2, 64, True, 0, 0.0),
     # head dims past 128 (O in two halves, one a block), t and s off
     # multiples of 16

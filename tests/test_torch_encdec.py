@@ -2,7 +2,7 @@
 CPU: whisper's encoder (`transformer.encode`: sinusoidal positions,
 non-causal layers) and cross-attention (`attention.cross_attend` over
 encoder states and over precomputed k and v) against the reference; its
-decode with the cross caches filled (`transformer.fill_cross_cache`)
+decode with the cross caches filled (chip_smoke.py's `fill_cross_cache`)
 against teacher forcing, as `tests/test_serving.py` holds the reference's;
 prefill's cross caches against the reference's `precompute_cross_kv`.
 internvl2's forward with its patch prefix (`tests/test_serving.py`'s VLM
@@ -12,6 +12,9 @@ decode against teacher forcing, and its too-short prompt budget.
 Tolerance: rtol 1e-5 with an atol of 1e-5 x the largest magnitude against
 the reference; decode against teacher forcing at the reference's own 3e-3.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,6 +36,9 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import transformer
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import build_model
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import fill_cross_cache  # noqa: E402
 
 
 def close(got, want, tol=1e-5):
@@ -82,8 +88,8 @@ def test_whisper_decode_matches_teacher_forcing():
     batch = {"tokens": torch.from_numpy(toks), "frames": torch.from_numpy(frames)}
     with torch.no_grad():
         full = tm.logits(tp, batch)
-    cache = transformer.fill_cross_cache(tp, tm.init_cache(b, t, device="cpu"),
-                                         batch["frames"], tcfg)
+    cache = fill_cross_cache(tp, tm.init_cache(b, t, device="cpu"), batch["frames"],
+                             tcfg)
     dec = []
     for i in range(t):
         lg, cache = tm.decode_step(tp, cache, batch["tokens"][:, i], i)

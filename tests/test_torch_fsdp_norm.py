@@ -50,6 +50,7 @@ STEPS = 5
 SNAPS = (0, STEPS - 1)                 # parameters are compared after these
 METRICS = ("loss", "var_l1", "grad_sqnorm", "grad_norm", "clip_scale")
 ARCH = "llama3.2-1b"
+IMPLS = ("tree", "flat")                # both residencies, parameters and stats
 PLAN = BatchPlan(global_batch=8, micro_batch=2, accum_steps=2, workers=2)
 LR = 1e-3
 TIMEOUT_S = 300          # every spawned run here takes well under a minute
@@ -74,7 +75,7 @@ plan = BatchPlan(global_batch=8, micro_batch=2, accum_steps=2, workers=2)
 batches = [jax.tree.map(jnp.asarray, make_batch(src, t, plan, 16))
            for t in range(%(steps)d)]
 out = {}
-for impl in ("tree", "flat"):
+for impl in %(impls)r:
     params = model.init(jax.random.PRNGKey(0))
     wrap, _, _ = make_fsdp_norm_step(model, AdamWConfig(), mesh,
                                      stats_impl=impl, params_impl=impl,
@@ -105,8 +106,8 @@ print("SAVED")
 def jax_steps(tmp_path_factory):
     """The reference's 5 FSDP-Norm steps at data=2, both residencies."""
     path = str(tmp_path_factory.mktemp("fsdp") / "ref.npz")
-    out = run_subprocess(_JAX_STEPS % dict(arch=ARCH, steps=STEPS, lr=LR,
-                                           metrics=METRICS, snaps=SNAPS,
+    out = run_subprocess(_JAX_STEPS % dict(arch=ARCH, impls=IMPLS, steps=STEPS,
+                                           lr=LR, metrics=METRICS, snaps=SNAPS,
                                            path=path), devices=2)
     assert "SAVED" in out
     return dict(np.load(path))
@@ -147,7 +148,7 @@ def _rank_steps(impl, init_np, arch, batches, variance_impl="scalar"):
     return traj, snaps
 
 
-@pytest.mark.parametrize("impl", ["tree", "flat"])
+@pytest.mark.parametrize("impl", IMPLS)
 def test_fsdp_norm_step_matches_reference(jax_steps, impl):
     cfg = get_smoke_config(ARCH)
     jmodel = jbuild(jget(ARCH))

@@ -244,7 +244,7 @@ def jax_moe_steps(tmp_path_factory):
     """The reference's FSDP-Norm steps of the dbrx smoke config at data=2."""
     path = str(tmp_path_factory.mktemp("fsdp_moe") / "ref.npz")
     out = run_subprocess(fsdp._JAX_STEPS % dict(
-        arch=MOE_ARCH, steps=fsdp.STEPS, lr=fsdp.LR, metrics=fsdp.METRICS,
+        arch=MOE_ARCH, impls=fsdp.IMPLS, steps=fsdp.STEPS, lr=fsdp.LR, metrics=fsdp.METRICS,
         snaps=fsdp.SNAPS, path=path), devices=2)
     assert "SAVED" in out
     return dict(np.load(path))

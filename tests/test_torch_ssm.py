@@ -7,13 +7,16 @@ widths, from parameters and inputs drawn with numpy from a seed.  Then
 recurrentgemma's smoke config with one RG-LRU prefix layer
 (`prefix_blocks`, which the registered smoke config leaves out): loss and
 gradients, and decode caches converted both ways.  Last, FSDP-Norm at
-J = 2 gloo ranks on the mamba2 and recurrentgemma smoke configs, tree and
-flat residency, against the reference's steps on 2 forced host devices
-(tests/test_torch_fsdp_norm.py's harness and tolerances).
+J = 2 gloo ranks on the mamba2 smoke config in flat residency and the
+recurrentgemma one in tree residency, against the reference's steps on 2
+forced host devices (tests/test_torch_fsdp_norm.py's harness and
+tolerances).
 
 Tolerance: rtol 1e-5 with an atol of 1e-5 x the largest magnitude (the
 frameworks sum in different orders); decode states likewise.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -213,26 +216,28 @@ def test_recurrentgemma_prefix_layer_decode_caches():
         assert all(torch.equal(w[k], g[k]) for k in g)
 
 
-FSDP_ARCHS = ["mamba2-370m", "recurrentgemma-9b"]
+# one residency each (parameters and statistics alike), so that both are
+# held and the reference runs each architecture's steps once
+FSDP_CASES = [("mamba2-370m", "flat"), ("recurrentgemma-9b", "tree")]
 
 
 @pytest.fixture(scope="module")
 def jax_fsdp_steps(tmp_path_factory):
-    """The reference's FSDP-Norm steps at data=2, both residencies, for
-    each of FSDP_ARCHS (one subprocess each)."""
-    out = {}
-    for arch in FSDP_ARCHS:
+    """The reference's FSDP-Norm steps at data=2 for each of FSDP_CASES,
+    in its residency (one subprocess each, run side by side)."""
+    def run(arch, impl):
         path = str(tmp_path_factory.mktemp("fsdp_ssm") / "ref.npz")
         log = run_subprocess(fsdp._JAX_STEPS % dict(
-            arch=arch, steps=fsdp.STEPS, lr=fsdp.LR, metrics=fsdp.METRICS,
-            snaps=fsdp.SNAPS, path=path), devices=2)
+            arch=arch, impls=(impl,), steps=fsdp.STEPS, lr=fsdp.LR,
+            metrics=fsdp.METRICS, snaps=fsdp.SNAPS, path=path), devices=2)
         assert "SAVED" in log
-        out[arch] = dict(np.load(path))
-    return out
+        return arch, dict(np.load(path))
+
+    with ThreadPoolExecutor(len(FSDP_CASES)) as pool:
+        return dict(pool.map(lambda case: run(*case), FSDP_CASES))
 
 
-@pytest.mark.parametrize("impl", ["tree", "flat"])
-@pytest.mark.parametrize("arch", FSDP_ARCHS)
+@pytest.mark.parametrize("arch,impl", FSDP_CASES)
 def test_fsdp_norm_matches_reference(jax_fsdp_steps, arch, impl):
     """J = 2 gloo ranks, unpadded, 5 steps: per-step metrics at rtol 1e-5 /
     atol 1e-7, parameters by the per-entry-share rule."""

@@ -47,7 +47,10 @@ exit (nothing is caught):
               prefill against the same tokens streamed through decode
               (MoE at a capacity where no pair drops; whisper's cross
               caches filled from the same frames; internvl2 from a
-              prefill over its prefix and half the text), and a long
+              prefill over its prefix and half the text), the same stream
+              once more through the serving rung's decode step captured as
+              a CUDA graph (`GraphedDecode`: its greedy tokens equal to the
+              eager step's at every step), and a long
               prefill at the published capacity (2 x 2048; gemma2 and
               recurrentgemma one prompt of 8192, beyond their 4096 and
               2048 windows; whisper 448 decoder tokens over 1500 frames;
@@ -82,13 +85,17 @@ exit (nothing is caught):
               tree run each rank also computes the statistic from its real
               g_j and g through the `sqdiff_norm` kernel and through the
               plain `tree_sqdiff`, which must agree.  This is the path of
-              `fused_adamw` and `sqdiff_norm`: each rank's launch counts
-              start at 0 and must be > 0 after it.
+              `fused_adamw` and `sqdiff_norm`, the tree routes over every
+              leaf: each rank's launch counts start at 0 and must be one a
+              call per dtype group after it (`fused_adamw` a step, the
+              statistic's `sqdiff_norm` once); the bucket-table cache's
+              builds and hits are printed.
    serve-ref — llama3.2-1b at full width and 2 layers, the same
               parameters on the card and on the CPU: prefill's last-token
               logits and caches, 8 `decode_step`s at per-row positions
               (logits and caches), and `run_serving`'s greedy tokens
-              (batch 2, prompt 16, gen 8) must agree.
+              (batch 2, prompt 16, gen 8) must agree, the card's through
+              its CUDA graph and through the eager step alike.
 6. train    — slice 1's path: `run_training` of full-width microllama-300m
               (adaptive batch, ACCUM-NORM, flat stats and params) for 6
               steps; launch counts set to 0 just before and read just
@@ -105,19 +112,29 @@ exit (nothing is caught):
               before, exactly 16 flash_attention and 33 rmsnorm just after;
               its last-token logits and caches held against the same tokens
               streamed through `decode_step`), `run_serving` (batch 8,
-              prompt 128, gen 64) and `run_continuous_serving` (8 slots,
-              prompt 16, gen 32, 60 load steps, arrivals 0.5/step and a
-              burst of 5 every 20), each with its own launch counts; the
+              prompt 128, gen 64) through its CUDA graph and through the
+              eager step, in turns (graph, eager, eager, graph): the same
+              tokens, decode ms a step side by side, rmsnorm launches 33 a
+              step plus the graph's one warm-up run; and
+              `run_continuous_serving` (8 slots, prompt 16, gen 32, 60 load
+              steps, arrivals 0.5/step and a burst of 5 every 20), every
+              rung a captured graph: rmsnorm launches 33 x (steps +
+              builds), the steady-state probe a hit with no new build; the
               continuous run's figures for its load window alone beside
               the reference's keys, which also count the probe.
 8. time     — each kernel, its plain version and the nearest library call
               at the main path's shapes (all buckets of the layout; for
               rmsnorm and flash_attention prefill's shapes), timed with
               CUDA events, beside the least time the card could take;
-              `fused_adamw_stats` and `fused_stats` as one list call and in
-              the earlier pattern of one call a bucket, in turns with the
-              library call; the list calls, rmsnorm and flash_attention
-              also held against their plain versions there; flash_attention
+              `fused_adamw_stats` and `fused_stats` as one list call, and
+              `fused_adamw` and `sqdiff_norm` as their one-launch tree
+              routes over the 98 tensors (`ops.fused_adamw_tree`, lr from
+              the host; `ops.sqdiff_norm_tree`), each also in the earlier
+              pattern of one call a bucket, in turns with the library call;
+              the list calls, the tree routes (twice: the same bits),
+              rmsnorm and flash_attention also held against their plain
+              versions there, and the bucket-table cache's builds and hits
+              printed; flash_attention
               also beside its split-TF32 tensor-core bound, and on bf16
               copies beside SDPA on the same copies.  Then the
               step's tail (`worker_variance_stats_buffers` and the sharded
@@ -138,6 +155,15 @@ exit (nothing is caught):
               card-vs-CPU tolerance); per rank one `fused_stats` launch a
               round and one `fused_adamw_stats` a local step per dtype
               group.
+   coord    — `python -m repro_torch.launch.train --coord file
+              --aot-warmup --compile-cache DIR`, smoke llama3.2-1b,
+              ACCUM-NORM flat/flat over a stagewise 4 -> 8 increase: two
+              ranks on the card, the increase a warmed transition hit on
+              both; a second job over the same DIR loads the kernel
+              library from disk (disk_cache_hits > 0, no nvcc: the
+              libraries keep their inodes); the dead-rank survivor (rank 1
+              SIGKILLed at step 3, rank 0 fails with a CoordinationError
+              naming it after checkpointing step 6).
    resume-accum — full-width, full-depth microllama-300m, ACCUM-NORM,
               flat stats and params: an uninterrupted 6-step run; the same
               job through `python -m repro_torch.launch.train` with a
@@ -290,6 +316,7 @@ def fsdp_ref_rank(cpu_params, batches):
         _accumulate, batch_to_device, make_fsdp_norm_step, worker_batch,
         worker_mean)
     from repro_torch.kernels import ops
+    from repro_torch.kernels.buckets import TABLES
     from repro_torch.launch.mesh import num_workers, rank_device, worker_index
     from repro_torch.models.model import build_model
     from repro_torch.optim.adamw import AdamWConfig, init_adamw, init_adamw_flat
@@ -302,6 +329,7 @@ def fsdp_ref_rank(cpu_params, batches):
         for d in ("cpu", "cuda"):
             dev = rank_device(d, rank)
             ops.reset_launch_counts()
+            tables = (TABLES.builds, TABLES.hits)
             params = tree_map(lambda x: x.to(dev, copy=True), cpu_params)
             wrap = make_fsdp_norm_step(
                 model, AdamWConfig(use_kernel=impl == "tree"), stats_impl=impl,
@@ -336,6 +364,10 @@ def fsdp_ref_rank(cpu_params, batches):
                                      f"var_l1 {mets[0]['var_l1']}")
             out[f"{impl}/{d}"] = {"metrics": mets, "launches": ops.launch_counts(),
                                   "sqdiff_check": check,
+                                  "table_builds": TABLES.builds - tables[0],
+                                  "table_hits": TABLES.hits - tables[1],
+                                  "param_dtypes": len({x.dtype for x in
+                                                       tree_flatten(params)[0]}),
                                   "buckets": (wrap.flat_layout.num_buffers
                                               if impl == "flat" else None),
                                   "adamw_groups": (adamw_groups(wrap.flat_layout)
@@ -858,8 +890,13 @@ def prefill_vs_decode(model, params, toks, front, dev) -> dict:
     cache gets its cross k and v from the same frames first
     (`fill_cross_cache`); a vision config's decode takes tokens only, so a
     prefill over the prefix and the first half of the text starts its
-    cache and the second half streams."""
-    from repro_torch.distributed.serve_step import make_decode_step, make_prefill
+    cache and the second half streams.  The same stream then runs through
+    the serving rung's decode step captured as a CUDA graph
+    (`GraphedDecode`) from a copy of the starting cache: its greedy token
+    must equal the eager step's at every step, and its final cache's
+    relative error from the eager one is reported (`graph_caches`)."""
+    from repro_torch.distributed.serve_step import (
+        GraphedDecode, make_decode_step, make_prefill, make_slot_decode_step)
 
     b, n = toks.shape
     logits, caches = make_prefill(model)(params, {"tokens": toks, **front})
@@ -877,10 +914,24 @@ def prefill_vs_decode(model, params, toks, front, dev) -> dict:
         if "frames" in front:
             with torch.inference_mode():
                 fill_cross_cache(params, cache, front["frames"], model.cfg)
+    graph_cache = [{k: x.clone() for k, x in layer.items()} for layer in cache]
     step = make_decode_step(model)
+    greedy = []
     for i in range(start, n):
         dec, cache = step(params, cache, toks[:, i], npfx + i)
-    return {"last_logits": rel_err(logits, dec), "caches": caches_rel_err(caches, cache)}
+        greedy.append(torch.argmax(dec, -1).to(torch.int32))
+    graph = GraphedDecode(make_slot_decode_step(model, max_slots=b)(b), params,
+                          graph_cache, b)
+    pos = torch.zeros(b, dtype=torch.int32, device=dev)
+    for i, want in zip(range(start, n), greedy):
+        pos.fill_(npfx + i)
+        got, _ = graph(params, graph_cache, toks[:, i], pos)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{model.cfg.name}: the captured decode step's "
+                                 f"tokens at position {npfx + i} differ from the "
+                                 f"eager step's: {got.tolist()} vs {want.tolist()}")
+    return {"last_logits": rel_err(logits, dec), "caches": caches_rel_err(caches, cache),
+            "graph_caches": caches_rel_err(cache, graph_cache)}
 
 
 def time_flash_d256(dev, bw: float) -> dict:
@@ -1153,7 +1204,13 @@ def serve_ref(smi):
         served = run_serving(SERVE_ARCH, smoke=False, batch=2, prompt_len=16,
                              gen_len=8, params=params[d])
         out[d] = (logits, caches, dec, cache, served["tokens"])
+    # the card's eager step (no graph) gives the graph's tokens too
+    eager = run_serving(SERVE_ARCH, smoke=False, batch=2, prompt_len=16, gen_len=8,
+                        params=params["cuda"], cuda_graphs=False)["tokens"]
     cpu, card = out["cpu"], out["cuda"]
+    if not (eager == card[4]).all():
+        raise AssertionError(f"run_serving tokens: graph {card[4].tolist()} vs "
+                             f"eager {eager.tolist()} on the card")
     errs = {"prefill_logits": rel_err(card[0], cpu[0]),
             "prefill_caches": caches_rel_err(card[1], cpu[1]),
             "decode_logits": max(rel_err(a, b) for a, b in zip(card[2], cpu[2])),
@@ -1164,7 +1221,7 @@ def serve_ref(smi):
         raise AssertionError(f"run_serving tokens differ: card {card[4].tolist()} "
                              f"vs CPU {cpu[4].tolist()}")
     say("serve-ref", arch=SERVE_ARCH, layers=2, rel_tol=SERVE_REL, rel_errs=errs,
-        tokens=card[4].tolist())
+        tokens=card[4].tolist(), graph_tokens_equal_eager_and_cpu=True)
 
 
 def serve_path(smi, ops, dev):
@@ -1241,28 +1298,48 @@ def serve_path(smi, ops, dev):
         streamed_decode_s=stream_s, rel_tol=SERVE_REL, rel_errs=errs,
         peak_mem_bytes=prefill_peak)
 
-    torch.cuda.reset_peak_memory_stats()
-    res, secs, launches = counted(lambda: run_serving(
-        SERVE_ARCH, smoke=False, params=params, **SERVE_JOB), "run_serving")
+    # run_serving: the decode step as one CUDA graph (its warm-up run, then
+    # a replay a step) against the eager step, in turns; the same tokens
+    per_step = 2 * layers + 1
     steps = SERVE_JOB["prompt_len"] + SERVE_JOB["gen_len"] - 1
-    want = {k: 0 for k in KERNELS} | {"rmsnorm": (2 * layers + 1) * steps}
-    if launches != want:
-        raise AssertionError(f"run_serving launched {launches}, expected {want}")
-    if res["tokens"].shape != (SERVE_JOB["batch"], SERVE_JOB["gen_len"]):
-        raise AssertionError(f"run_serving tokens {res['tokens'].shape}")
-    say("serve", part="run_serving", nvidia_smi=smi, **SERVE_JOB, launches=launches,
-        prefill_s=res["prefill_s"], decode_s=res["decode_s"],
-        decode_tok_per_s=res["decode_tok_per_s"],
-        decode_ms_per_step=1e3 * res["decode_s"] / (SERVE_JOB["gen_len"] - 1),
-        peak_mem_bytes=torch.cuda.max_memory_allocated(), wall_s=secs)
+    runs = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph"):
+        torch.cuda.reset_peak_memory_stats()
+        res, secs, launches = counted(lambda: run_serving(
+            SERVE_ARCH, smoke=False, params=params, cuda_graphs=mode == "graph",
+            **SERVE_JOB), "run_serving")
+        want = {k: 0 for k in KERNELS} | {
+            "rmsnorm": per_step * (steps + (mode == "graph"))}
+        if launches != want:
+            raise AssertionError(f"run_serving ({mode}) launched {launches}, "
+                                 f"expected {want}")
+        if res["tokens"].shape != (SERVE_JOB["batch"], SERVE_JOB["gen_len"]):
+            raise AssertionError(f"run_serving tokens {res['tokens'].shape}")
+        runs[mode].append(dict(res, wall_s=secs, launches=launches,
+                               peak_mem_bytes=torch.cuda.max_memory_allocated()))
+    tokens = [r["tokens"] for rs in runs.values() for r in rs]
+    if not all((t == tokens[0]).all() for t in tokens):
+        raise AssertionError("run_serving: the graph's and the eager step's greedy "
+                             "tokens differ")
+    say("serve", part="run_serving", nvidia_smi=smi, **SERVE_JOB,
+        tokens_equal=True, **{f"{mode}_{k}": [r[k] for r in rs] for mode, rs in runs.items()
+                             for k in ("prefill_s", "decode_s", "decode_tok_per_s",
+                                       "launches", "peak_mem_bytes", "wall_s")},
+        **{f"{mode}_decode_ms_per_step": [1e3 * r["decode_s"] / (SERVE_JOB["gen_len"] - 1)
+                                          for r in rs] for mode, rs in runs.items()})
+    for k in KERNELS:              # the eager runs are a yardstick, not the path
+        total[k] -= sum(r["launches"][k] for r in runs["eager"])
 
     torch.cuda.reset_peak_memory_stats()
     res, secs, launches = counted(lambda: run_continuous_serving(
         SERVE_ARCH, smoke=False, params=params, **CONT_JOB), "continuous")
     eng = res["engine"]
-    want = {k: 0 for k in KERNELS} | {"rmsnorm": (2 * layers + 1) * eng["steps"]}
+    # every rung build is a capture after one warm-up run; every step a replay
+    want = {k: 0 for k in KERNELS} | {"rmsnorm": per_step * (eng["steps"] + eng["compiles"])}
     if launches != want:
         raise AssertionError(f"continuous serving launched {launches}, expected {want}")
+    if res["probe"]["new_compiles"] or eng["warmup_failures"]:
+        raise AssertionError(f"continuous serving: {res['probe']}, {eng}")
     if not res["probe"]["steady_state_transition_hit"] or not res["requests_completed"]:
         raise AssertionError(f"continuous serving: {res['probe']}, "
                              f"{res['requests_completed']} completed")
@@ -1792,6 +1869,105 @@ def estimators(smi, dev):
         cpu=out["cpu"][0], exact_test_holds=out["cuda"][1])
 
 
+# phase coord: two file-coordinated processes on the card, smoke llama,
+# ACCUM-NORM flat/flat across a stagewise 4 -> 8 increase, warm-up on
+COORD_JOB = dict(arch="llama3.2-1b", smoke=True, schedule="stagewise",
+                 stages="0.5:4,0.5:8", steps=12, total_samples=48, seq_len=16,
+                 base_global_batch=4, max_global_batch=8, base_micro_batch=2,
+                 max_micro_batch=2, base_accum=2, step_impl="accum_norm",
+                 stats_impl="flat", params_impl="flat", eval_every=0,
+                 aot_warmup=True, coord="file", coord_world=2, coord_timeout=120.0)
+
+
+def coord_phase(smi):
+    """Phase coord: `python -m repro_torch.launch.train` with `--coord file
+    --aot-warmup --compile-cache`, children of this process on the card.
+    (a) Two ranks train COORD_JOB: on both the 4 -> 8 increase is a
+    transition hit, the only foreground build is the first rung, no
+    desync, equal losses.  (b) A second job over the same compile cache
+    loads its kernel library from disk (`disk_cache_hits` > 0) and builds
+    nothing: the cache's libraries keep their inodes and times.  (c) The
+    dead-rank survivor: rank 1 is SIGKILLed by the fault harness at step
+    3; rank 0 exits with a `CoordinationError` naming rank 1 dead at the
+    step-7 rung entry, after checkpointing step 6."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.store import latest_step
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_coord_"))
+    cache = tmp / "compile-cache"
+    env = {k: v for k, v in os.environ.items() if k != "REPRO_FAULTS"}
+    env.update(PYTHONPATH=str(ROOT / "src"), REPRO_COORD_HEARTBEAT_S="0.1",
+               REPRO_COORD_DEAD_AFTER_S="2.0")
+
+    def start(job, extra_env=None):
+        return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train",
+                                 *cli_args(job)], cwd=ROOT, env={**env, **(extra_env or {})},
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish(proc, what):
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"{what} failed ({proc.returncode}):\n{out[-2000:]}\n"
+                                 f"{err[-4000:]}")
+        return json.loads(out[out.index("{"):])
+
+    def libraries():
+        return {p.relative_to(cache).as_posix(): (p.stat().st_ino, p.stat().st_mtime_ns)
+                for p in cache.rglob("*.so")}
+
+    t0 = time.time()
+    try:
+        job = dict(COORD_JOB, coord_dir=str(tmp / "coord-a"), compile_cache=str(cache))
+        procs = [start(dict(job, coord_rank=r)) for r in range(2)]
+        two = [finish(p, f"coordinated rank {r}") for r, p in enumerate(procs)]
+        for r, summary in enumerate(two):
+            eng = summary["engine"]
+            if not (eng["transitions"] == eng["transition_hits"] == 1
+                    and eng["compiles"] - eng["warmups"] == 1 and eng["desyncs"] == 0):
+                raise AssertionError(f"rank {r}: the increase was not a warmed hit: {eng}")
+        if two[0]["best_loss"] != two[1]["best_loss"]:
+            raise AssertionError(f"the ranks' losses differ: {two}")
+        built = libraries()
+        if not built:
+            raise AssertionError(f"no kernel library in the compile cache {cache}")
+        t1 = time.time()
+        again = finish(start(dict(job, coord_dir=str(tmp / "coord-b"), coord_world=1,
+                                  coord_rank=0)), "the run over the warm cache")
+        again_s = time.time() - t1
+        if again["engine"]["disk_cache_hits"] < 1 or libraries() != built:
+            raise AssertionError(f"the second run did not load the cached libraries: "
+                                 f"{again['engine']}, {built} -> {libraries()}")
+        ck = tmp / "ck"
+        dead = dict(job, coord_dir=str(tmp / "coord-c"))
+        procs = [start(dict(dead, coord_rank=0, checkpoint_dir=str(ck))),
+                 start(dict(dead, coord_rank=1), {"REPRO_FAULTS": json.dumps(
+                     [{"site": "train.step", "at": 3, "action": "die"}])})]
+        out0, err0 = procs[0].communicate(timeout=300)
+        _, err1 = procs[1].communicate(timeout=300)
+        if procs[1].returncode != -9:
+            raise AssertionError(f"rank 1 was to die by SIGKILL: {procs[1].returncode}\n"
+                                 f"{err1[-3000:]}")
+        if (procs[0].returncode == 0 or "CoordinationError" not in err0
+                or "dead ranks (stale heartbeat): [1]" not in err0):
+            raise AssertionError(f"rank 0 did not fail with a CoordinationError naming "
+                                 f"rank 1 ({procs[0].returncode}):\n{err0[-3000:]}")
+        if latest_step(str(ck)) != 6:
+            raise AssertionError(f"rank 0's latest checkpoint is {latest_step(str(ck))}, "
+                                 "not 6")
+        blame = next(line for line in reversed(err0.splitlines())
+                     if "CoordinationError:" in line)
+        say("coord", nvidia_smi=smi, ranks=[s["engine"] for s in two],
+            best_loss=two[0]["best_loss"], cached_libraries=sorted(built),
+            warm_cache_run={"engine": again["engine"], "seconds": round(again_s, 3)},
+            dead_rank={"rank1_exit": procs[1].returncode, "rank0_exit": procs[0].returncode,
+                       "error": blame.strip(), "latest_checkpoint": 6},
+            seconds=round(time.time() - t0, 3))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def child_processes() -> dict:
     """{pid: command line} of this process's children that have not been
     reaped, those of every thread."""
@@ -1815,6 +1991,7 @@ def main() -> int:
     from repro_torch.kernels.fused_adamw import (
         adamw_scalars, fused_adamw, fused_adamw_stats, fused_adamw_stats_buckets)
     from repro_torch.kernels.fused_stats import fused_stats, fused_stats_buckets
+    from repro_torch.kernels.buckets import TABLES
     from repro_torch.kernels.sqdiff_norm import sqdiff_norm
 
     t_start = time.time()
@@ -1969,11 +2146,13 @@ def main() -> int:
                 raise AssertionError(f"a CPU run launched a kernel: {cpu['launches']}")
         steps = len(batches)
         zero = {k: 0 for k in KERNELS}
-        # the flat tail: one launch a step of each list kernel per dtype group
+        # the flat tail: one launch a step of each list kernel per dtype
+        # group; the tree routes likewise, over every leaf (the statistic's
+        # check is one call over f32 g_j and g)
         want = {"flat": zero | {"fused_stats": steps,
                                 "fused_adamw_stats": steps * out["flat/cuda"]["adamw_groups"]},
-                "tree": zero | {"fused_adamw": steps * out["tree/cuda"]["leaves"],
-                                "sqdiff_norm": out["tree/cuda"]["leaves"]}}
+                "tree": zero | {"fused_adamw": steps * out["tree/cuda"]["param_dtypes"],
+                                "sqdiff_norm": 1}}
         for impl in ("flat", "tree"):
             if out[f"{impl}/cuda"]["launches"] != want[impl]:
                 raise AssertionError(f"rank {rank} {impl} launches "
@@ -1985,7 +2164,10 @@ def main() -> int:
         metrics={k: v["metrics"] for k, v in ranks[0].items()},
         sqdiff_check=[r["tree/cuda"]["sqdiff_check"] for r in ranks],
         launches=[{k: v["launches"] for k, v in r.items() if k.endswith("cuda")}
-                  for r in ranks])
+                  for r in ranks],
+        tree_leaves=ranks[0]["tree/cuda"]["leaves"],
+        table_builds_hits=[{k: (v["table_builds"], v["table_hits"])
+                            for k, v in r.items() if k.endswith("cuda")} for r in ranks])
 
     # serve-ref: serving, card against CPU, llama3.2-1b full width, 2 layers
     serve_ref(smi)
@@ -2119,14 +2301,48 @@ def main() -> int:
         torch.testing.assert_close(got, want[k], rtol=sum_rtol, atol=0.0)
     err["fused_stats"] = max(err["fused_stats"], float((dsq - want["dsq"]).abs()),
                              float((ysq - want["ysq"]).abs()))
-    err = {k: max(e, list_err.get(k, 0.0)) for k, e in err.items()}
     del copies
+    # the tree routes over the layout's 98 tensors, as the per-tensor
+    # kernels' callers reach them: one launch each per dtype group, held
+    # against the plain versions tensor by tensor, and a second call on
+    # copies of the same inputs the same bits; lr comes from the host, as
+    # the schedule makes it
+    tree_kw = dict(lr=torch.tensor(3e-4), c1=scal[1], c2=scal[2], **hyper)
+    twice = [[[x.clone() for x in xs] for xs in (pb, mb, vb)] for _ in range(2)]
+    builds0, hits0 = TABLES.builds, TABLES.hits
+    ops.reset_launch_counts()
+    sq = [ops.sqdiff_norm_tree(mb, gb) for _ in range(2)]
+    for p_, m_, v_ in twice:
+        ops.fused_adamw_tree(p_, gb, m_, v_, **tree_kw)
+    tree_route = {"launches": ops.launch_counts(), "table_builds": TABLES.builds - builds0,
+                  "table_hits": TABLES.hits - hits0}
+    if tree_route["launches"] != {k: 0 for k in KERNELS} | {"sqdiff_norm": 2,
+                                                            "fused_adamw": 2}:
+        raise AssertionError(f"tree routes over the layout launched {tree_route}")
+    if not torch.equal(sq[0], sq[1]) or not all(
+            torch.equal(a, b) for xa, xb in zip(*twice) for a, b in zip(xa, xb)):
+        raise AssertionError("the tree routes' two calls differ in their bits")
+    want_sq = torch.zeros((), device=dev)
+    for i, (p, g, m, v) in enumerate(bufs):
+        w = ref.adamw_ref(p, g, m, v, **ref_kw)
+        for got, expect in zip((twice[0][0][i], twice[0][1][i], twice[0][2][i]), w):
+            torch.testing.assert_close(got, expect, **tol[f32])
+            err["fused_adamw"] = max(err["fused_adamw"], float((got - expect).abs().max()))
+        want_sq += ref.sqdiff_norm_ref(m, g)
+        del w
+    torch.testing.assert_close(sq[0], want_sq, rtol=sum_rtol, atol=0.0)
+    err["sqdiff_norm"] = max(err["sqdiff_norm"], float((sq[0] - want_sq).abs()))
+    err = {k: max(e, list_err.get(k, 0.0)) for k, e in err.items()}
+    del twice
     gc.collect()
 
     over_layout = lambda fn: (lambda: [fn(*b) for b in bufs])
     lists = {"fused_adamw_stats": lambda: fused_adamw_stats_buckets(pb, gb, mb, vb, scal,
                                                                     **hyper),
-             "fused_stats": lambda: fused_stats_buckets(mb, gb)}
+             "fused_stats": lambda: fused_stats_buckets(mb, gb),
+             # the tree routes, the scalars' host upload included
+             "fused_adamw": lambda: ops.fused_adamw_tree(pb, gb, mb, vb, **tree_kw),
+             "sqdiff_norm": lambda: ops.sqdiff_norm_tree(mb, gb)}
     tails = {
         "fused_adamw_stats": (over_layout(lambda p, g, m, v: fused_adamw_stats(
                                   p, g, m, v, scal, **hyper)),
@@ -2160,9 +2376,9 @@ def main() -> int:
     timed = {}
     for k, (per_bucket, plain_tail) in tails.items():
         nbytes, flops = per_elem[k]
-        # the redesigned kernels: the one list call (ms) against the earlier
-        # calling pattern, one call a bucket (per_bucket_ms), and the
-        # library, in turns; the others run one call a tensor on their path
+        # the four streaming kernels: the one list or tree call (ms)
+        # against the earlier calling pattern, one call a bucket or tensor
+        # (per_bucket_ms), and the library, in turns
         fns = {"ms": lists.get(k, per_bucket), "library_ms": library[k]}
         if k in lists:
             fns["per_bucket_ms"] = per_bucket
@@ -2203,6 +2419,7 @@ def main() -> int:
     t_big["fused_adamw_stats_share"] = t_big["adamw_bound_ms"] / t_big["fused_adamw_stats_ms"]
     t_big["fused_stats_share"] = t_big["stats_bound_ms"] / t_big["fused_stats_ms"]
     say("time", nvidia_smi=smi, elements=n_total, buckets=len(sizes), kernels=timed,
+        tree_route=tree_route,
         sharded_fused_adamw_stats={**sharded_ms,
                                    "elements": sum(x[0].numel() for x in shards),
                                    "bound_ms": 28 * n_total / 2 / bw * 1e3},
@@ -2216,6 +2433,7 @@ def main() -> int:
     # residency, local-SGD, and crash-safe resume in both steps
     estimators(smi, dev)
     mixed_and_local(smi, ops, dev)
+    coord_phase(smi)
     resume_accum(smi, ops, layout)
     resume_fsdp(smi, fsdp_layout)
     left = child_processes()

@@ -18,12 +18,26 @@ its own timeline (per-slot positions).  A newly admitted request streams
 its prompt through the same rung decode step (teacher-forced), then flips
 to generation.  Greedy decoding only: the argmax is taken on the device,
 and one (b,) int32 vector comes back to the host a step.
+
+A rung's build: on the card the rung's decode step captured as a CUDA
+graph over the resident cache (`serve_step.GraphedDecode`, the port's
+counterpart of the reference's compiled executable), the rungs sharing
+one graph memory pool; on the CPU the eager step.  Warm-up (`warm`, and
+the neighbours of the active rung after every step) runs the builds on
+the `RungCache` worker thread, and the engine waits for the ones it
+queued before its next device work: a capture must not overlap the
+engine's own launches, slot copies or the drivers' device
+synchronisations, and a run makes only a handful of builds.  The step's
+neighbours stay pending until a lookup claims them, as in the reference,
+so `compiles`, `warmups` and `transition_hits` count as the reference's
+do.
 """
 
 from __future__ import annotations
 
 import time
 from collections import deque
+from concurrent.futures import wait
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -34,7 +48,7 @@ from repro_torch.core.serve_controller import (
     serve_controller_update, serve_ladder)
 from repro_torch.distributed.engine import EngineStats, RungCache
 from repro_torch.distributed.serve_step import (
-    make_slot_decode_step, move_slot, reset_slot)
+    GraphedDecode, make_slot_decode_step, move_slot, reset_slot)
 from repro_torch.tree import tree_leaves
 
 
@@ -138,6 +152,9 @@ class ServeEngine(RungCache):
         self.device = tree_leaves(params)[0].device
         self._wrap = make_slot_decode_step(model, max_slots=max_slots)
         self._kv = model.init_cache(max_slots, cache_len, device=self.device)
+        if self.device.type == "cuda":
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
 
         self._ctrl_cfg = controller or ServeControllerConfig(ladder=self.ladder)
         if self._ctrl_cfg.ladder != self.ladder:
@@ -203,13 +220,30 @@ class ServeEngine(RungCache):
         return ("decode", b, self.cache_len)
 
     def _build(self, b: int):
-        return self._wrap(b)
+        step = self._wrap(b)
+        if self.device.type != "cuda":
+            return step
+        return GraphedDecode(step, self._params, self._kv, b,
+                             pool=self._graph_pool, stream=self._capture_stream)
+
+    def _aot_build(self, b: int):
+        return self._build(b)
+
+    def _settle_warmups(self):
+        """Wait for the queued warm-up builds to finish (they stay pending:
+        `lookup` and `drain` claim and account them)."""
+        with self._lock:
+            pending = list(self._pending.values())
+        wait(pending)
 
     def warm(self, rungs) -> None:
-        """Build the steps of the given rung batch sizes ahead of use."""
+        """Build the steps of the given rung batch sizes ahead of use, and
+        wait for them to land in the cache (a failure is recorded and
+        re-raised by `drain`)."""
         for b in rungs:
             if b in self.ladder:
                 self.submit_warmup(self._rung_key(b), b)
+        self._claim_pending()
 
     def _warm_adjacent(self, rung_idx: int):
         """The controller moves one rung at a time: build both neighbours."""
@@ -248,15 +282,15 @@ class ServeEngine(RungCache):
                          else r.generated[-1])
             pos[s] = r.pos
         t0 = time.time()
-        out_tok, self._kv = fn(self._params, self._kv,
-                               torch.from_numpy(tokens).to(self.device),
-                               torch.from_numpy(pos).to(self.device))
+        out_tok, self._kv = fn(self._params, self._kv, torch.from_numpy(tokens),
+                               torch.from_numpy(pos))
         out = out_tok.cpu().numpy()          # waits for the device step
         dt = time.time() - t0
         self.ctrl = observe_step_latency(self._ctrl_cfg, self.ctrl,
                                          rung_idx, dt)
         if self._aot:
             self._warm_adjacent(rung_idx)
+            self._settle_warmups()
 
         completed = self._advance(out)
         self.stats.steps += 1

@@ -27,11 +27,19 @@ The slot axis is 0 throughout, and the slot operations touch every leaf
 whatever its layer kind: compaction moves a row's recurrent state with its
 KV rows, and admission zeroes it (a fresh carry).  A recurrent decode
 writes its new state into the views, like attention's KV writes.
+
+On the card a rung's decode step is replayed as a CUDA graph
+(`GraphedDecode`), the port's counterpart of the reference's compiled
+executable: the params and the resident cache never move, so the graph
+reads and writes them in place, and only the step's token and position
+vectors are copied in.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import ops
 
 
 def make_decode_step(model, *, ring: bool = False):
@@ -125,3 +133,72 @@ def make_slot_decode_step(model, *, max_slots: int):
         return step
 
     return wrap
+
+
+class GraphedDecode:
+    """A slot decode step (`make_slot_decode_step(...)(b)`) captured once as
+    a CUDA graph over the resident cache and replayed every step.
+
+    Static inputs: `tokens` and `pos` ((b,) int32 on the card); static
+    output: the step's next tokens ((b,) int32), overwritten by the next
+    replay, so a caller reads it (or copies it) first.  A call takes the
+    step's arguments: the params and the cache must be the ones it was
+    captured over (they are fixed in place); tokens and pos come from the
+    host through pinned buffers without blocking, or from the card.
+
+    Before capture the step runs once on the capture stream against
+    scratch rows shaped like the cache's first b (first-use work: cuBLAS
+    handles and workspaces, kernel libraries), so no live request's row is
+    written; those launches are real and counted.  Capture records the
+    kernel wrappers' launches (`ops.capturing`), and each replay adds them
+    to `ops.launch_counts()`.  A capture that fails raises: the step never
+    runs eagerly instead.  `pool` is a graph memory pool shared by the
+    rungs of one engine (one rung runs at a time); `stream` the capture
+    stream."""
+
+    def __init__(self, step, params, cache, b: int, *, pool=None, stream=None):
+        device = next(x for layer in cache for x in layer.values()).device
+        if device.type != "cuda":
+            raise ValueError(f"GraphedDecode: a CUDA graph needs the card, "
+                             f"the cache lies on {device}")
+        self.b, self.params, self.cache = b, params, cache
+        self.tokens = torch.zeros(b, dtype=torch.int32, device=device)
+        self.pos = torch.zeros(b, dtype=torch.int32, device=device)
+        self._host = torch.zeros(2, b, dtype=torch.int32).pin_memory()
+        self._copied = None      # the last host-to-card copy's event
+        stream = stream or torch.cuda.Stream(device)
+        with torch.cuda.device(device):
+            scratch = [{k: torch.zeros_like(x[:b]) for k, x in layer.items()}
+                       for layer in cache]
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                step(params, scratch, self.tokens, self.pos)
+            stream.synchronize()
+            del scratch
+            graph = torch.cuda.CUDAGraph()
+            with ops.capturing() as captured:
+                with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self.next_tok, _ = step(params, cache, self.tokens, self.pos)
+        self.graph = ops.CountedGraph(graph, captured)
+
+    def __call__(self, params, cache, tokens, pos):
+        """`step(params, cache, tokens (b,), pos (b,)) -> (next_tok, cache)`,
+        the eager step's signature."""
+        if params is not self.params or cache is not self.cache:
+            raise ValueError("GraphedDecode: called with other params or "
+                             "another cache than it was captured over")
+        staged = tokens.device.type != "cuda" or pos.device.type != "cuda"
+        if staged and self._copied is not None:
+            self._copied.synchronize()       # the staging rows are free again
+        for row, (dst, src) in enumerate(((self.tokens, tokens), (self.pos, pos))):
+            if src.device.type == "cuda":
+                dst.copy_(src)
+            else:
+                self._host[row].copy_(src)
+                dst.copy_(self._host[row], non_blocking=True)
+        if staged:
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+        self.graph.replay()
+        return self.next_tok, cache

@@ -6,8 +6,12 @@ that may include the shared headers `csrc/*.cuh`.  It is compiled by
 this file (listed in `.gitignore`) at first use, and loaded with `ctypes`.
 The library's name carries a digest of the source, every header and the
 flags, so an edited source or header is rebuilt and a stale library never
-loads.  Nothing here runs at import: the CPU-only test machine has no
-`nvcc`.
+loads.  With a persistent cache directory (`use_cache_dir`, the training
+job's `--compile-cache`) the libraries go under it instead, in a directory
+named by the nvcc version, the target and a digest of every source, and a
+library found there is loaded without running nvcc (`cache_hits` counts
+those loads).  Nothing here runs at import: the CPU-only test machine has
+no `nvcc`.
 
 There is no fallback: a missing compiler, a failed build or a failed
 launch raises.
@@ -22,6 +26,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -53,12 +58,46 @@ def nvcc() -> str:
     return found
 
 
+# the persistent cache: its root (None: build under BUILD_DIR) and the
+# libraries this process loaded from it instead of building
+_CACHE = {"root": None, "hits": 0}
+
+
+def use_cache_dir(root) -> Path:
+    """Build into and load from the persistent cache under `root` from now
+    on (libraries already loaded stay loaded).  Returns `root`, absolute."""
+    _CACHE["root"] = Path(root).resolve()
+    _CACHE["root"].mkdir(parents=True, exist_ok=True)
+    return _CACHE["root"]
+
+
+def cache_hits() -> int:
+    """Libraries this process loaded from the persistent cache."""
+    return _CACHE["hits"]
+
+
+@functools.cache
+def _toolchain_key() -> str:
+    """The cache directory's name: nvcc's version, the target and a digest
+    of every source and header."""
+    out = subprocess.run([nvcc(), "--version"], capture_output=True, text=True,
+                         check=True).stdout
+    found = re.search(r"\bV(\d+(?:\.\d+)+)", out)    # "... release 12.4, V12.4.131"
+    version = found.group(1) if found else "unknown"
+    digest = hashlib.sha256(repr(NVCC_FLAGS).encode())
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+        digest.update(src.name.encode() + src.read_bytes())
+    return f"nvcc-{version}-sm_90a-{digest.hexdigest()[:16]}"
+
+
 def library_path(name: str) -> Path:
+    """The library of `name`: under BUILD_DIR, or the persistent cache."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
     digest.update(repr(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    where = BUILD_DIR if _CACHE["root"] is None else _CACHE["root"] / _toolchain_key()
+    return where / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -66,8 +105,8 @@ def _start(name: str):
     out = library_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=out.parent, suffix=".so.tmp")
     os.close(fd)
     cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -109,8 +148,11 @@ def build_all(names) -> dict:
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built first if needed (once per process)."""
+    path = library_path(name)
+    if _CACHE["root"] is not None and path.exists():
+        _CACHE["hits"] += 1
     build_all([name])
-    return ctypes.CDLL(str(library_path(name)))
+    return ctypes.CDLL(str(path))
 
 
 def check_operands(kernel: str, device, float_args: dict, f32_args=None):

@@ -11,6 +11,9 @@ The table reaches the card once: `TableCache` keeps the device copy keyed
 by the operands' (address, dtype) and the element counts.  The step's
 buffers are persistent, so every step after the first finds its table
 there and a launch needs no host-to-device copy and no synchronisation.
+A miss stages the table in pinned memory and copies it without blocking
+the host; the tree routes hit whenever the allocator hands back the same
+leaf addresses.
 """
 
 from __future__ import annotations
@@ -89,15 +92,21 @@ class TableCache:
         if found is not None:
             self._tables.move_to_end(key)
             self.hits += 1
-            return found
+            return found[:3]
         groups, partials = plan(entries)
         flat = [x for g in groups for row in g.rows for x in row]
-        table = torch.tensor(flat, dtype=torch.int64).to(device)
-        found = self._tables[key] = (groups, partials, table)
+        staged = torch.tensor(flat, dtype=torch.int64)
+        if torch.device(device).type == "cuda":
+            # a non-blocking copy from pinned memory: the host goes on
+            # while the table travels, and the entry keeps the staging
+            # tensor, so the copy never reads freed memory
+            staged = staged.pin_memory()
+        table = staged.to(device, non_blocking=True)
+        found = self._tables[key] = (groups, partials, table, staged)
         self.builds += 1
         if len(self._tables) > self.capacity:
             self._tables.popitem(last=False)
-        return found
+        return found[:3]
 
 
 def table_for(kernel: str, cache: TableCache, buckets, names, allowed):

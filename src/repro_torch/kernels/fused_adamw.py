@@ -6,9 +6,11 @@
   over all of them as a byproduct, one launch per dtype group of p and g
   (plain version: `ref.adamw_stats_ref` bucket by bucket).
   `fused_adamw_stats` is the same call over one bucket.
-* `fused_adamw` replaces the TPU kernel `fused_adamw` there: the same
-  update on one tensor of any shape, no clip, no byproduct (plain version
-  `ref.adamw_ref`).
+* `fused_adamw_buckets` replaces the TPU kernel `fused_adamw` there over
+  a whole parameter tree (the tree route, `ops.fused_adamw_tree`): the
+  same update on every leaf, of any shape, no clip, no byproduct, one
+  launch per dtype group (plain version `ref.adamw_ref` leaf by leaf).
+  `fused_adamw` is the same call over one tensor.
 
 All run the kernel of `csrc/fused_adamw.cu` over a bucket table
 (`kernels.buckets`); the sources give the design and the bound.  The
@@ -46,10 +48,23 @@ def _lib():
 
 def adamw_scalars(lr, c1, c2, clip_scale, device) -> torch.Tensor:
     """The kernel's per-step scalars (lr, c1, c2, clip_scale) as one
-    4-element f32 tensor on `device`; tensor inputs stay on the device (no
-    host synchronisation)."""
-    return torch.stack([torch.as_tensor(x, dtype=torch.float32).to(device).reshape(())
-                        for x in (lr, c1, c2, clip_scale)])
+    4-element f32 tensor on `device`.  Inputs already on the device stay
+    there; the host's (floats, CPU tensors such as the schedule's lr) go
+    up together in ONE non-blocking copy from pinned memory, so the host
+    never waits on the stream for them (the caching host allocator keeps
+    the pinned block until the copy has run)."""
+    device = torch.device(device)
+    vals = [torch.as_tensor(x, dtype=torch.float32).reshape(())
+            for x in (lr, c1, c2, clip_scale)]
+    host = [i for i, x in enumerate(vals) if x.device != device]
+    if host and device.type == "cuda":
+        staged = torch.stack([vals[i].cpu() for i in host]).pin_memory()
+        up = staged.to(device, non_blocking=True)
+        for j, i in enumerate(host):
+            vals[i] = up[j]
+    elif host:
+        vals = [x.to(device) for x in vals]
+    return torch.stack(vals)
 
 
 def _launch(kernel, pb, gb, mb, vb, scalars, stats: bool, hyper):
@@ -106,12 +121,21 @@ def fused_adamw_stats(p, g, m, v, scalars, *, beta1: float, beta2: float,
                                      beta2=beta2, eps=eps, weight_decay=weight_decay)
 
 
+def fused_adamw_buckets(pb, gb, mb, vb, scalars, *, beta1: float,
+                        beta2: float, eps: float, weight_decay: float):
+    """In-place AdamW (no clip: `scalars[3]` is not read) over every tensor
+    (p_i, g_i, m_i, v_i) of the lists, each of any shape: one launch per
+    dtype group of (p, g)."""
+    _launch("fused_adamw", pb, gb, mb, vb, scalars, False,
+            dict(beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay))
+
+
 def fused_adamw(p, g, m, v, scalars, *, beta1: float, beta2: float,
                 eps: float, weight_decay: float):
-    """In-place AdamW on one tensor (no clip: `scalars[3]` is not read);
-    returns (p, m, v)."""
-    _launch("fused_adamw", [p], [g], [m], [v], scalars, False,
-            dict(beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay))
+    """`fused_adamw_buckets` over the one tensor (p, g, m, v); returns
+    (p, m, v)."""
+    fused_adamw_buckets([p], [g], [m], [v], scalars, beta1=beta1, beta2=beta2,
+                        eps=eps, weight_decay=weight_decay)
     return p, m, v
 
 

@@ -17,6 +17,8 @@ tensor that requires grad.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.kernels import fused_adamw as _fa
@@ -25,6 +27,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 from repro_torch.kernels.sqdiff_norm import sqdiff_norm as _sqdiff_norm
+from repro_torch.kernels.sqdiff_norm import sqdiff_norm_buckets as _sqdiff_norm_buckets
 from repro_torch.tree import tree_leaves
 
 
@@ -45,13 +48,20 @@ def sqdiff_norm(x, y):
 
 
 def sqdiff_norm_tree(tree_a, tree_b):
-    """Σ‖a−b‖² over a whole gradient tree, one `sqdiff_norm` per leaf (the
-    norm-test statistic's `sqdiff_fn`)."""
-    leaves_a = tree_leaves(tree_a)
+    """Σ‖a−b‖² over a whole gradient tree (the norm-test statistic's
+    `sqdiff_fn`): on the card one `sqdiff_norm` launch per dtype group over
+    every leaf pair, its per-block partials added in a fixed order; on the
+    CPU the plain version leaf by leaf, summed in leaf order."""
+    leaves_a, leaves_b = tree_leaves(tree_a), tree_leaves(tree_b)
+    if len(leaves_a) != len(leaves_b):
+        raise ValueError(f"sqdiff_norm_tree: {len(leaves_a)} and "
+                         f"{len(leaves_b)} leaves")
+    if leaves_a and _on_card("sqdiff_norm_tree", leaves_a[0]):
+        return _sqdiff_norm_buckets(leaves_a, leaves_b)
     total = torch.zeros((), dtype=torch.float32,
                         device=leaves_a[0].device if leaves_a else "cpu")
-    for a, b in zip(leaves_a, tree_leaves(tree_b)):
-        total = total + sqdiff_norm(a, b)
+    for a, b in zip(leaves_a, leaves_b):
+        total = total + ref.sqdiff_norm_ref(a, b)
     return total
 
 
@@ -101,12 +111,19 @@ def fused_adamw(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, c1, c2):
 
 def fused_adamw_tree(params, grads, m, v, *, lr, beta1, beta2, eps,
                      weight_decay, c1, c2):
-    """`fused_adamw` leaf by leaf, in place; returns the (params, m, v)
-    trees, whose leaves are the tensors passed in."""
+    """`fused_adamw` over every leaf, in place; returns the (params, m, v)
+    trees, whose leaves are the tensors passed in.  On the card the
+    scalars go up once and one `fused_adamw` launch per dtype group of
+    (p, g) takes every leaf; on the CPU the plain version leaf by leaf."""
+    leaves = [tree_leaves(t) for t in (params, grads, m, v)]
+    if leaves[0] and _on_card("fused_adamw_tree", leaves[0][0]):
+        _fa.fused_adamw_buckets(
+            *leaves, _fa.adamw_scalars(lr, c1, c2, 1.0, leaves[0][0].device),
+            beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay)
+        return params, m, v
     kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
               weight_decay=weight_decay, c1=c1, c2=c2)
-    for xs in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(m),
-                  tree_leaves(v)):
+    for xs in zip(*leaves, strict=True):
         fused_adamw(*xs, **kw)
     return params, m, v
 
@@ -183,11 +200,49 @@ _COUNTED = {"fused_adamw_stats": _fa.fused_adamw_stats,
             "flash_attention": _flash_attention}
 
 
+# launches made by replaying captured CUDA graphs (`CountedGraph`): a
+# replay runs the kernels its capture recorded without calling a wrapper
+_REPLAYED = {name: 0 for name in _COUNTED}
+
+
 def launch_counts() -> dict:
-    """Each kernel wrapper's launch count in this process."""
-    return {name: fn.launches for name, fn in _COUNTED.items()}
+    """Each kernel's launches in this process: its wrapper's calls outside
+    a capture, plus every graph replay's captured launches."""
+    return {name: fn.launches + _REPLAYED[name] for name, fn in _COUNTED.items()}
 
 
 def reset_launch_counts():
-    for fn in _COUNTED.values():
+    for name, fn in _COUNTED.items():
         fn.launches = 0
+        _REPLAYED[name] = 0
+
+
+@contextlib.contextmanager
+def capturing():
+    """Around a CUDA graph capture: the wrappers called inside record
+    launches, they do not make them, so their counts are taken back out
+    and yielded (a dict filled on exit) for the `CountedGraph` to add at
+    each replay.  No other thread may launch a counted kernel meanwhile."""
+    before = {name: fn.launches for name, fn in _COUNTED.items()}
+    captured = {}
+    try:
+        yield captured
+    finally:
+        for name, fn in _COUNTED.items():
+            captured[name] = fn.launches - before[name]
+            fn.launches = before[name]
+
+
+class CountedGraph:
+    """A captured graph (anything with `replay()`: a `torch.cuda.CUDAGraph`
+    on the card) and the kernel launches its capture recorded; each
+    `replay` adds them to `launch_counts()`."""
+
+    def __init__(self, graph, captured: dict):
+        self.graph = graph
+        self.captured = {k: n for k, n in captured.items() if n}
+
+    def replay(self):
+        self.graph.replay()
+        for name, n in self.captured.items():
+            _REPLAYED[name] += n

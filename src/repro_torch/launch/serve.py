@@ -2,7 +2,10 @@
 continuous-batching engine (counterpart of `repro/launch/serve.py`).
 
 Runs on the CUDA card unless the caller asks for the CPU (`device="cpu"`,
-`--device cpu`); with no device given and no card present it raises.
+`--device cpu`); with no device given and no card present it raises.  On
+the card both drivers replay their decode steps as CUDA graphs
+(`serve_step.GraphedDecode`, the engine's rungs); on the CPU they run the
+eager step.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch llama3.2-1b --batch 2 --prompt-len 8 --gen-len 8
@@ -21,7 +24,8 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.serve_controller import ServeControllerConfig, serve_ladder
 from repro_torch.distributed.serve_engine import QueueFullError, ServeEngine
-from repro_torch.distributed.serve_step import make_decode_step
+from repro_torch.distributed.serve_step import (
+    GraphedDecode, make_decode_step, make_slot_decode_step)
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import build_model
 from repro_torch.tree import tree_leaves
@@ -53,8 +57,14 @@ def _pct(lat, p):
 
 
 def run_serving(arch: str, *, smoke=True, batch=4, prompt_len=32, gen_len=32,
-                seed=0, device=None, params=None):
+                seed=0, device=None, params=None, cuda_graphs=True):
     """Prompts streamed through decode, then `gen_len` greedy tokens.
+
+    On the card (unless `cuda_graphs` is False) the batch's decode step is
+    one CUDA graph, captured before the clock starts, fed on the card (the
+    next token and the position never visit the host) and replayed every
+    step.  Elsewhere the eager step runs at a scalar position, as in the
+    reference.
 
     A vision config's prompt budget holds its frontend's prefix tokens, so
     its text prompt is prompt_len minus those (the reference's budget); a
@@ -81,8 +91,22 @@ def run_serving(arch: str, *, smoke=True, batch=4, prompt_len=32, gen_len=32,
     prompts = rng.integers(0, cfg.vocab_size, (batch, text_len)).astype(np.int32)
     prompts = torch.from_numpy(prompts).to(device)
 
-    step_fn = make_decode_step(model)
     cache = model.init_cache(batch, cache_len, device=device)
+    graphed = cuda_graphs and device.type == "cuda"
+    if graphed:
+        graph = GraphedDecode(make_slot_decode_step(model, max_slots=batch)(batch),
+                              params, cache, batch)
+        pos = torch.zeros(batch, dtype=torch.int32, device=device)
+
+        def next_token(tok, i):
+            pos.fill_(i)
+            return graph(params, cache, tok, pos)[0].clone()
+    else:
+        step_fn = make_decode_step(model)
+
+        def next_token(tok, i):
+            logits, _ = step_fn(params, cache, tok, i)
+            return torch.argmax(logits, -1).to(torch.int32)
 
     # "prefill" by streaming the prompt through decode (the cache stays
     # shape-stable; `make_prefill` is the full-sequence prefill)
@@ -90,9 +114,8 @@ def run_serving(arch: str, *, smoke=True, batch=4, prompt_len=32, gen_len=32,
     t0 = time.time()
     tok = prompts[:, 0]
     for i in range(text_len):
-        logits, cache = step_fn(params, cache, tok, i)
-        tok = prompts[:, i + 1] if i + 1 < text_len else (
-            torch.argmax(logits, -1).to(torch.int32))
+        nxt = next_token(tok, i)
+        tok = prompts[:, i + 1] if i + 1 < text_len else nxt
     _sync(device)
     t_prefill = time.time() - t0
 
@@ -100,8 +123,7 @@ def run_serving(arch: str, *, smoke=True, batch=4, prompt_len=32, gen_len=32,
     _sync(device)
     t0 = time.time()
     for i in range(text_len, text_len + gen_len - 1):
-        logits, cache = step_fn(params, cache, tok, i)
-        tok = torch.argmax(logits, -1).to(torch.int32)
+        tok = next_token(tok, i)
         generated.append(tok)
     _sync(device)
     t_decode = time.time() - t0
@@ -175,6 +197,7 @@ def run_continuous_serving(arch: str, *, smoke=True, max_slots=8,
 
     # ---- steady-state probe: a rung change must hit a built step ----
     engine.warm(engine.ladder)
+    engine.drain(raise_errors=False)        # every warm-up has landed
     compiles0 = engine.stats.compiles
     trans0 = engine.stats.rung_transitions
     hits0 = engine.stats.transition_hits

@@ -26,6 +26,14 @@ and `resume` restarts from the newest complete checkpoint in
 Under J > 1 workers rank 0 writes the WHOLE state (flat shards gathered
 first) and every rank takes its own shard back on resume.
 
+Multi-host coordination (DESIGN §8.1): `coord` "file" (a shared
+directory, `coord_dir`) or "distributed" (the process group) puts
+rung-entry barriers and a leader-decided warm-up agreement into the
+bucketed engine; `aot_warmup` builds the rung the controller is headed to
+on the engine's worker; `compile_cache` keeps the kernels' libraries in a
+directory that restarted workers load instead of running nvcc.  A rank
+that finds a peer dead checkpoints and re-raises the `CoordinationError`.
+
 Runs on the CUDA card unless the job asks for the CPU (`device="cpu"`,
 `--device cpu`).  With no device given and no card present it raises; it
 never falls back to the CPU.  On the card, float32 matmuls and
@@ -40,6 +48,7 @@ import json
 import math
 import os
 import time
+import zlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -58,6 +67,8 @@ from repro_torch.core.schedule import (
     bucket_ladder, parse_ladder, round_plan)
 from repro_torch.data.pipeline import (
     MarkovTokens, UniformTokens, make_batch, pad_to_bucket)
+from repro_torch.distributed.coordination import (
+    CoordinationError, enable_persistent_cache, make_coordinator)
 from repro_torch.distributed.engine import BucketedEngine
 from repro_torch.distributed.flatbuf import FlatLayout
 from repro_torch.distributed.sharding import (
@@ -158,9 +169,6 @@ def _check_supported(job: TrainJob):
         later.append("ACCUM-NORM over several workers (ROADMAP §1, item 7)")
     if job.mesh_model > 1:
         later.append("a model axis, mesh_model > 1 (ROADMAP §1, item 7)")
-    if job.coord != "none" or job.aot_warmup or job.compile_cache:
-        later.append("coordination, AOT warmup and the compile cache "
-                     "(ROADMAP §1, items 2 and 5)")
     if later:
         raise NotImplementedError("not ported yet: " + "; ".join(later))
 
@@ -265,9 +273,24 @@ def run_training(job: TrainJob) -> dict:
     return _train(job)
 
 
+def _run_id(job: TrainJob) -> str:
+    """The file coordinator's namespace: a digest of the job minus the
+    per-host fields, so every rank of THIS job (restarts with --resume
+    included) shares one namespace, while a different job pointed at a
+    reused --coord-dir never replays this run's barriers and agreements."""
+    per_host = {"coord_rank", "log_path", "checkpoint_dir", "resume"}
+    return "job-%08x" % zlib.crc32(repr(sorted(
+        (k, v) for k, v in dataclasses.asdict(job).items()
+        if k not in per_host)).encode())
+
+
 def _train(job: TrainJob) -> dict:
     """The loop of one worker (all of them in lockstep)."""
     workers, rank = num_workers(), worker_index()
+    if job.compile_cache:
+        # before any kernel loads (in this worker's process): every library
+        # the job builds lands in, or comes from, the persistent cache
+        enable_persistent_cache(job.compile_cache)
     device = rank_device(resolve_device(job.device), rank)
     if device.type == "cuda":
         # f32 stays f32 on the card: no TF32 in matmuls or convolutions
@@ -375,7 +398,12 @@ def _train(job: TrainJob) -> dict:
         extra_specs["frames"] = (cfg.encoder.num_frames, cfg.d_model)
     VAL_STEP_BASE = 1_000_000_000
 
-    engine = BucketedEngine(wrap, ladder) if ladder is not None else None
+    coordinator = make_coordinator(job.coord, root=job.coord_dir,
+                                   rank=job.coord_rank, world=job.coord_world,
+                                   timeout=job.coord_timeout, run_id=_run_id(job))
+    engine = (BucketedEngine(wrap, ladder, aot_warmup=job.aot_warmup,
+                             coordinator=coordinator)
+              if ladder is not None else None)
 
     def lr_at(samples_done):
         return warmup_cosine(samples_done, peak_lr=job.peak_lr,
@@ -543,6 +571,19 @@ def _train(job: TrainJob) -> dict:
             step += 1
             if job.schedule == "adaptive":
                 ctrl = controller_update(ctrl_cfg, ctrl, var_l1, gsq)
+            if engine is not None:
+                # warm-up AFTER the controller decision (DESIGN §14): the
+                # rung the controller just grew to, else the predicted
+                # target rung, else the next rung up — a function of
+                # globally reduced statistics, so every host proposes the
+                # same rung
+                proposal = None
+                if job.schedule == "adaptive":
+                    if ctrl.plan.global_batch > bucket.global_batch:
+                        proposal = engine.bucket_for(ctrl.plan.global_batch)
+                    elif job.predict and ctrl.pred_rung > bucket.global_batch:
+                        proposal = engine.bucket_for(ctrl.pred_rung)
+                engine.warmup_agreed(bucket, batch_np, proposal=proposal)
 
             val = math.nan
             if job.eval_every and (step % job.eval_every == 0
@@ -578,12 +619,28 @@ def _train(job: TrainJob) -> dict:
             if job.checkpoint_every and step % job.checkpoint_every == 0:
                 save_state()
         save_state()
+    except CoordinationError as e:
+        # a peer is dead or never arrived: the fleet cannot go on, but this
+        # rank's state is intact — checkpoint it and exit (DESIGN §12), so
+        # a restarted fleet resumes from here
+        save_state()
+        history["coordination_failure"] = str(e)
+        if engine is not None:
+            engine.drain(raise_errors=False)
+        if coordinator is not None:
+            coordinator.close()
+        raise
     finally:
         if log_f:
             log_f.close()
 
     if engine is not None:
+        # a failed warm-up already fell back to a foreground build; it
+        # shows as stats.warmup_failures rather than ending the run
+        engine.drain(raise_errors=False)
         history["engine"] = engine.stats.as_dict()
+    if coordinator is not None:
+        coordinator.close()
     history["final_params"] = full_tree(params)
     # what each worker ran: its kernel launches in this run and its peak
     # device memory (a spawned rank's counters are not the caller's)

@@ -174,7 +174,9 @@ def adamw_update_buffers(pb, gb, mb, vb, cfg: AdamWConfig, lr, count, *,
     count = count + 1
     c1, c2 = _bias_corrections(cfg, count)
     device = count.device
-    lr = torch.as_tensor(lr, dtype=torch.float32).to(device)
+    # lr stays where the schedule made it (the host): the kernel's scalars
+    # take it to the card in one non-blocking copy (`adamw_scalars`)
+    lr = torch.as_tensor(lr, dtype=torch.float32)
 
     if cfg.grad_clip > 0 and grad_sqnorm is None:
         grad_sqnorm = torch.zeros((), dtype=torch.float32, device=device)

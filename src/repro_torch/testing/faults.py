@@ -17,6 +17,13 @@ Sites compiled into the port today:
 * ``ckpt.saved``            — after a checkpoint commit, with ``path=`` the
                               npz: ``truncate`` produces the torn-file
                               corpus for the loud-restore tests.
+* ``engine.compile``        — foreground step build in `RungCache.lookup`.
+* ``engine.warmup_compile`` — each ATTEMPT of a warm-up build on the
+                              worker (fires again on retry, so ``count``
+                              selects transient against permanent failures).
+* ``coord.barrier``         — barrier entry in the coordinators (``delay``
+                              simulates a straggler, ``die`` a rank lost at
+                              the rendezvous).
 
 Configuration is programmatic (``with faults.inject(FaultRule(...)):`` for
 in-process tests) or via the ``REPRO_FAULTS`` environment variable — a JSON

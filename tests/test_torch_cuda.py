@@ -405,3 +405,125 @@ def test_cuda_dense_configs_forward_without_grad_and_prefill(cuda, arch):
     errs = prefill_vs_decode(model, params, tokens, front, cuda)
     torch.cuda.synchronize()
     assert max(errs.values()) <= 1e-4, errs
+
+
+# the tree routes: 40 tiny leaves, an empty one, a larger one; f32 and bf16
+TREE_LEAVES = ([(1 + i % 5, torch.float32 if i % 3 else torch.bfloat16)
+                for i in range(40)]
+               + [(0, torch.float32), (37 * 129, torch.bfloat16), (70_001, torch.float32)])
+
+
+@pytest.mark.cuda
+def test_cuda_tree_routes_one_launch_per_dtype_group_and_bit_identical(cuda):
+    """`ops.sqdiff_norm_tree` and `ops.fused_adamw_tree` over many tiny
+    leaves, an empty leaf and mixed f32/bf16: one launch per dtype group,
+    the plain versions leaf by leaf within the per-tensor kernels'
+    tolerances, and two calls on the same inputs the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    xs = [torch.randn(n, device=cuda, generator=gen).to(dt) for n, dt in TREE_LEAVES]
+    ys = [torch.randn(n, device=cuda, generator=gen).to(dt) for n, dt in TREE_LEAVES]
+    tree = lambda leaves: {"a": leaves[:20], "b": {"c": leaves[20:]}}
+    groups = len({dt for _, dt in TREE_LEAVES})
+    before = sqdiff_norm.launches
+    got = ops.sqdiff_norm_tree(tree(xs), tree(ys))
+    assert sqdiff_norm.launches == before + groups
+    again = ops.sqdiff_norm_tree(tree(xs), tree(ys))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, sum(ref.sqdiff_norm_ref(x, y) for x, y in zip(xs, ys)),
+                               rtol=1e-5, atol=0)
+    ms = [1e-3 * torch.randn(n, device=cuda, generator=gen) for n, _ in TREE_LEAVES]
+    vs = [1e-6 * torch.rand(n, device=cuda, generator=gen) for n, _ in TREE_LEAVES]
+    hyper = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1)
+    sc = dict(lr=torch.tensor(1e-3), c1=torch.tensor(0.19, device=cuda),
+              c2=torch.tensor(0.0975, device=cuda))
+    want = [ref.adamw_ref(p, g, m, v, **sc, **hyper) for p, g, m, v in zip(xs, ys, ms, vs)]
+    copies = [[t.clone() for t in leaves] for leaves in (xs, ms, vs)]
+    before = fused_adamw.launches
+    out = ops.fused_adamw_tree(tree(xs), tree(ys), tree(ms), tree(vs), **sc, **hyper)
+    assert fused_adamw.launches == before + groups
+    assert out[0]["a"][0] is xs[0]
+    ops.fused_adamw_tree(tree(copies[0]), tree(ys), tree(copies[1]), tree(copies[2]),
+                         **sc, **hyper)
+    torch.cuda.synchronize()
+    for leaves, cps, idx in ((xs, copies[0], 0), (ms, copies[1], 1), (vs, copies[2], 2)):
+        for t, c, w in zip(leaves, cps, want):
+            assert torch.equal(t, c)
+            tol = (dict(rtol=2 ** -8, atol=1e-9) if t.dtype == torch.bfloat16
+                   else dict(rtol=1e-6, atol=1e-9))
+            torch.testing.assert_close(t, w[idx], **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_scalars_one_pinned_upload(cuda):
+    """The scalars: the host's lr (a CPU tensor, as the schedule makes it)
+    and a float go up together without blocking; the card's c1 and c2
+    stay; every value exact in f32."""
+    lr = torch.tensor(3e-4)
+    c1, c2 = torch.tensor(0.19, device=cuda), torch.tensor(0.0975, device=cuda)
+    s = adamw_scalars(lr, c1, c2, 0.5, cuda)
+    assert s.device.type == "cuda" and s.dtype == torch.float32
+    assert s.cpu().tolist() == torch.tensor([3e-4, 0.19, 0.0975, 0.5]).tolist()
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_decode_matches_eager_and_counts_replays(cuda):
+    """A rung's decode step captured as a CUDA graph (llama3.2-1b smoke,
+    4 slots): the same greedy tokens and caches as the eager slot step
+    from the same state, step after step; the capture launches nothing,
+    each replay adds its captured rmsnorm launches, and the warm-up run
+    before capture left the cache's rows alone."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.serve_step import GraphedDecode, make_slot_decode_step
+    model = build_model(get_smoke_config("llama3.2-1b"))
+    params = model.init(0, cuda)
+    b, steps = 4, 6
+    eager_cache, graph_cache = (model.init_cache(b, 16, device=cuda) for _ in range(2))
+    step = make_slot_decode_step(model, max_slots=b)(b)
+    ops.reset_launch_counts()
+    graph = GraphedDecode(step, params, graph_cache, b)
+    warm = ops.launch_counts()["rmsnorm"]            # the warm-up run's, real
+    assert warm == 2 * model.cfg.num_layers + 1
+    assert all(not x.any() for layer in graph_cache for x in layer.values())
+    gen = torch.Generator().manual_seed(0)
+    tok = torch.randint(0, model.cfg.vocab_size, (b,), generator=gen, dtype=torch.int32)
+    for i in range(steps):
+        pos = torch.tensor([i, i + 1, i, i + 2], dtype=torch.int32)
+        want, _ = step(params, eager_cache, tok.to(cuda), pos.to(cuda))
+        got, _ = graph(params, graph_cache, tok, pos)
+        assert torch.equal(got, want), i
+        tok = got.cpu()
+    torch.cuda.synchronize()
+    for a, c in zip(eager_cache, graph_cache):
+        for k in a:
+            torch.testing.assert_close(c[k], a[k], rtol=1e-6, atol=1e-6)
+    assert ops.launch_counts()["rmsnorm"] == warm + 2 * steps * (2 * model.cfg.num_layers + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_engine_graph_rungs_match_the_cpu(cuda):
+    """The continuous-batching engine on the card (every rung a captured
+    graph, warm-up on) serves the same greedy tokens as on the CPU from
+    the same parameters; every rung change after the ladder is warmed is a
+    hit with no new build."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.serve_engine import ServeEngine
+    from repro_torch.tree import tree_map
+    model = build_model(get_smoke_config("llama3.2-1b"))
+    params = model.init(0, "cpu")
+    r = np.random.RandomState(0)
+    prompts = [r.randint(0, model.cfg.vocab_size, size=(r.randint(1, 5),)).astype(np.int32)
+               for _ in range(6)]
+    out = {}
+    for d in ("cpu", "cuda"):
+        p = params if d == "cpu" else tree_map(lambda x: x.to(cuda), params)
+        eng = ServeEngine(model, p, max_slots=4, cache_len=16, aot_warmup=True)
+        eng.warm(eng.ladder)
+        compiles = eng.stats.compiles
+        reqs = [eng.submit(pr, max_new_tokens=4) for pr in prompts]
+        eng.run_until_drained()
+        assert eng.stats.compiles == compiles
+        assert eng.stats.transition_hits == eng.stats.rung_transitions >= 1
+        out[d] = [q.generated for q in reqs]
+    assert out["cuda"] == out["cpu"]

@@ -297,3 +297,46 @@ def test_grid_and_scalars():
     s = adamw_scalars(torch.tensor(1e-3), 0.1, torch.tensor(0.05), 1.0, "cpu")
     assert s.dtype == torch.float32 and s.shape == (4,)
     np.testing.assert_array_equal(s.numpy(), np.float32([1e-3, 0.1, 0.05, 1.0]))
+
+
+def test_tree_routes_mixed_tiny_and_empty_leaves_match_pallas_interpret():
+    """Both tree routes over one tree of 40 tiny leaves, an empty one and a
+    larger one, f32 and bf16 mixed, against the reference's tree routes
+    (Pallas in interpret mode); and the table the card would launch: one
+    row a leaf pair, two dtype groups, the empty leaf without a tile."""
+    shapes = [(1 + i % 5,) for i in range(40)] + [(0,), (37, 129)]
+    dts = ["float32" if i % 3 else "bfloat16" for i in range(len(shapes))]
+    xs = [_pair(s, 100 + i, dt) for i, (s, dt) in enumerate(zip(shapes, dts))]
+    ys = [_pair(s, 200 + i, dt) for i, (s, dt) in enumerate(zip(shapes, dts))]
+    got = ops.sqdiff_norm_tree([t for _, t in xs], [t for _, t in ys])
+    want = jops.sqdiff_norm_tree([j for j, _ in xs], [j for j, _ in ys],
+                                 interpret=True)
+    np.testing.assert_allclose(np32(got), np32(want), rtol=1e-5)
+    groups, partials = plan([(t.numel(), ((0, t.element_size(), str(t.dtype)[6:]),
+                                          (0, u.element_size(), str(u.dtype)[6:])))
+                             for (_, t), (_, u) in zip(xs, ys)])
+    assert [len(g.rows) for g in groups] == [dts.count("bfloat16"), dts.count("float32")]
+    assert sum(g.tiles for g in groups) == 40 + 0 + 2     # (37, 129): 2 tiles
+    ms = [rng(300 + i).standard_normal(s).astype(np.float32) for i, s in enumerate(shapes)]
+    vs = [np.abs(rng(400 + i).standard_normal(s)).astype(np.float32)
+          for i, s in enumerate(shapes)]
+    want = jops.fused_adamw_tree([j for j, _ in xs], [j for j, _ in ys],
+                                 [to_jax(m) for m in ms], [to_jax(v) for v in vs],
+                                 interpret=True, **ADAMW_KW)
+    p_t, m_t = [t for _, t in xs], [to_torch(m) for m in ms]
+    got = ops.fused_adamw_tree(p_t, [t for _, t in ys], m_t,
+                               [to_torch(v) for v in vs], **ADAMW_KW)
+    assert got[0] is p_t and got[1] is m_t
+    for g_list, w_list in zip(got, want):
+        for a, b, dt in zip(g_list, w_list, dts):
+            np.testing.assert_allclose(np32(a), np32(b), **TOL[dt])
+
+
+def test_adamw_scalars_keep_device_values_and_take_host_ones():
+    """The step's scalars: host floats and CPU tensors, as f32, in order;
+    on the CPU no copy is needed (the card's pinned upload is tested in
+    test_torch_cuda.py)."""
+    lr = torch.tensor(3e-4, dtype=torch.float64)
+    s = adamw_scalars(lr, torch.tensor(0.19), 0.0975, torch.tensor(0.5), "cpu")
+    np.testing.assert_array_equal(
+        s.numpy(), np.float32([np.float32(3e-4), 0.19, 0.0975, 0.5]))

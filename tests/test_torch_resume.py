@@ -230,3 +230,49 @@ def test_embedding_gradient_same_bits_at_any_thread_count():
             assert torch.equal(grad(), want)
     finally:
         torch.set_num_threads(before)
+
+
+# --------------------------------------- dead peer: checkpoint and exit ----
+
+_SURVIVOR_SNIPPET = """
+import sys
+from repro_torch.launch.train import TrainJob, run_training
+rank, coord_dir, ckdir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+job = TrainJob(arch="llama3.2-1b", schedule="stagewise",
+               stages=((0.5, 4), (0.5, 8)), steps=12, total_samples=48,
+               seq_len=16, base_global_batch=4, max_global_batch=8,
+               base_micro_batch=2, max_micro_batch=2, base_accum=2,
+               step_impl="accum_norm", eval_every=0, aot_warmup=True,
+               coord="file", coord_dir=coord_dir, coord_rank=rank,
+               coord_world=2, coord_timeout=60.0,
+               checkpoint_dir=(ckdir if rank == 0 else ""), device="cpu")
+run_training(job)
+print("DONE")
+"""
+
+
+def test_dead_rank_surviving_rank_checkpoints_and_exits(tmp_path):
+    """The reference's liveness scenario against the port: rank 1 is
+    SIGKILLed by the fault harness at step 3; when rank 0 next needs the
+    fleet (the rung-entry barrier of the stagewise 4 -> 8 increase at step
+    7) it fails fast with a `CoordinationError` naming rank 1 as dead,
+    after checkpointing its intact state at step 6."""
+    coord, ck = str(tmp_path / "coord"), str(tmp_path / "ck")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("REPRO_FAULTS", None)
+    env["REPRO_COORD_HEARTBEAT_S"] = "0.1"
+    env["REPRO_COORD_DEAD_AFTER_S"] = "2.0"
+    env_dead = dict(env, REPRO_FAULTS=json.dumps(
+        [{"site": "train.step", "at": 3, "action": "die"}]))
+    procs = [subprocess.Popen([sys.executable, "-c", _SURVIVOR_SNIPPET, str(r),
+                               coord, ck], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=e)
+             for r, e in ((0, env), (1, env_dead))]
+    out0, err0 = procs[0].communicate(timeout=300)
+    _, err1 = procs[1].communicate(timeout=60)
+    assert procs[1].returncode == -9, (procs[1].returncode, err1)
+    assert procs[0].returncode not in (0, None), (out0, err0)
+    assert "CoordinationError" in err0, err0
+    assert "dead ranks" in err0 and "[1]" in err0, err0
+    assert latest_step(ck) == 6, os.listdir(ck)

@@ -7,6 +7,7 @@ per-step losses agree to 1e-5 relative (measured ≤ 2e-7 over 20 steps) and
 the final validation loss to 1e-5."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -57,7 +58,10 @@ def test_quickstart_trajectory_matches_reference(monkeypatch):
     np.testing.assert_allclose(ht["val_loss"][-1], hj["val_loss"][-1], rtol=1e-5)
     assert sorted(ht["engine"]) == sorted(hj["engine"])
     assert ht["engine"]["padding_waste"] == hj["engine"]["padding_waste"]
-    assert ht["engine"]["compiles"] == 0      # eager: nothing compiles
+    # the rung cache builds each signature once, as the reference compiles it
+    for k in ("compiles", "hits", "steps", "transitions", "transition_hits",
+              "buckets_used"):
+        assert ht["engine"][k] == hj["engine"][k], k
     s = ttrain.summarize(ht)
     assert sorted(s) == sorted(__import__("repro.launch.train", fromlist=["x"])
                                .summarize(hj))
@@ -105,7 +109,7 @@ def test_port_imports_no_jax_and_no_reference():
                 f"{f.relative_to(REPO)} imports {mod}"
 
 
-def test_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch, tmp_path):
+def test_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.run_training(ttrain.TrainJob(arch="llama3.2-1b",
@@ -126,10 +130,19 @@ def test_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch, tmp_path):
     assert sorted(f.name for f in ck.glob("*.npz")) == [
         "ckpt_00000001.npz", "ckpt_00000002.npz"]
     for kw, item in ((dict(step_impl="accum_norm", mesh_data=2), "item 7"),
-                     (dict(mesh_model=2), "item 7"),
-                     (dict(coord="file"), "items 2 and 5")):
+                     (dict(mesh_model=2), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             ttrain.run_training(ttrain.TrainJob(device="cpu", **kw))
+    # coordination, warm-up and the compile cache are ported: the CLI runs
+    # the job through a file coordinator (a world of one)
+    capsys.readouterr()
+    ttrain.main(["--device", "cpu", "--step-impl", "accum_norm", "--steps", "2",
+                 "--seq-len", "16", "--eval-every", "0", "--coord", "file",
+                 "--coord-dir", str(tmp_path / "coord"), "--aot-warmup",
+                 "--compile-cache", str(tmp_path / "cache")])
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["steps"] == 2 and np.isfinite(summary["best_loss"])
+    assert summary["engine"]["compiles"] >= 1 and summary["engine"]["desyncs"] == 0
 
 
 @pytest.mark.parametrize("schedule,extra", [

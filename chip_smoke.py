@@ -107,6 +107,25 @@ exit (nothing is caught):
               launches in the run must equal steps x dtype groups.  Then the
               step's collectives alone (every bucket's all-reduce and
               all-gather), timed on two fresh ranks.
+   mesh     — the model axis: `run_training` of full-width microllama-300m
+              (MESH_LAYERS of its 12 layers, seq 512, 8 sequences a step as
+              2 microbatches of 4, 3 steps, an eval at step 3) on gloo
+              ranks sharing the card: FSDP-Norm flat/flat and tree/tree on
+              a 2 x 2 grid (4 ranks, TP over 2) and on 2 x 1 — loss,
+              var_l1 and grad_sqnorm within MESH_RTOL, the final params by
+              the per-entry share; the tree runs take the opt-in tree
+              routes (`AdamWConfig(use_kernel=True)`, `sqdiff_fn=`), and
+              the 2 x 2 one, checkpointed at step 2, is resumed on the same
+              grid, bit-identical (metrics, params, the step-3
+              checkpoint); ACCUM-NORM flat at J = 2 against J = 1, var_l1
+              at J times.  Step ms, peak memory and TP all-reduce seconds a
+              step of every rank; each rank's launches (flat: one
+              `fused_stats` and `fused_adamw_stats` a step per dtype group;
+              tree: one `fused_adamw` and `sqdiff_norm` a step; the eval's
+              flash on 8 local heads of 16 and its rmsnorms), and every
+              kernel held against its plain version at the shapes the
+              phase gave it.  `python3 chip_smoke.py
+              mesh [layers]` runs the device, build and this phase alone.
    serve    — serving's main path, full-width llama3.2-1b (16 layers):
               `make_prefill` at 4 x 2048 tokens (launch counts 0 just
               before, exactly 16 flash_attention and 33 rmsnorm just after;
@@ -193,6 +212,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -273,6 +293,16 @@ MOE_TRAIN_JOB = dict(arch="deepseek-v2-236b", smoke=True, schedule="adaptive",
                      eval_every=0)
 KERNELS = ("fused_adamw_stats", "fused_adamw", "fused_stats", "sqdiff_norm",
            "rmsnorm", "flash_attention")
+# phase mesh: the model axis, full-width microllama-300m on gloo ranks that
+# share the card; a constant plan of 8 a step (M = 2 microbatches of 4)
+MESH_LAYERS = 4           # of 12: at full depth the phase took 234 s (PERF.md §4)
+MESH_JOB = dict(arch="microllama-300m", smoke=False, schedule="constant",
+                step_impl="fsdp_norm", stats_impl="flat", params_impl="flat",
+                seq_len=512, base_global_batch=8, max_global_batch=8,
+                base_micro_batch=2, max_micro_batch=2, base_accum=2, steps=3,
+                eval_every=3, eval_batches=1, device="cuda", dist_backend="gloo")
+MESH_RTOL = 1e-5          # loss, var_l1, grad_sqnorm across grids
+MESH_SHARE = 2.5e-2       # params after step 3: entries past rtol 1e-5 / atol 1e-7
 
 
 def say(phase: str, **kv):
@@ -978,6 +1008,269 @@ def time_flash_d256(dev, bw: float) -> dict:
             "bound_bytes_ms": 2 * (q.numel() + k.numel()) * 4 / bw * 1e3,
             "bound_ops_ms": flops / F32_FLOPS * 1e3,
             "bound_tc_ms": 3 * flops / TF32_FLOPS * 1e3}
+
+
+@contextlib.contextmanager
+def recorded_flat_calls(ops):
+    """Within the block, the distinct sizes and dtypes of the training
+    tail's calls over every bucket or leaf (`ops.stats_flat_buckets`,
+    `ops.adamw_flat_buckets`, and the tree routes `ops.sqdiff_norm_tree`,
+    `ops.fused_adamw_tree`), each once; the calls go through unchanged."""
+    from repro_torch.tree import tree_leaves
+    names = {"fused_stats": "stats_flat_buckets", "fused_adamw_stats": "adamw_flat_buckets",
+             "sqdiff_norm": "sqdiff_norm_tree", "fused_adamw": "fused_adamw_tree"}
+    calls = {k: [] for k in names}
+    real = {k: getattr(ops, n) for k, n in names.items()}
+
+    def recording(kernel):
+        def call(first, *args, **kw):
+            leaves = tree_leaves(first)
+            key = (tuple(tuple(x.shape) for x in leaves), tuple(x.dtype for x in leaves))
+            if key not in calls[kernel]:
+                calls[kernel].append(key)
+            return real[kernel](first, *args, **kw)
+        return call
+
+    for k, n in names.items():
+        setattr(ops, n, recording(k))
+    try:
+        yield calls
+    finally:
+        for k, n in names.items():
+            setattr(ops, n, real[k])
+
+
+def check_flat_shapes(calls, dev) -> dict:
+    """The tail's kernels over every bucket or leaf against their plain
+    versions, one by one, at the shapes `recorded_flat_calls` saw, inputs
+    from a seed, at phase 3's tolerances.  Returns each kernel's max abs
+    error."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_adamw import adamw_scalars, fused_adamw_stats_buckets
+    from repro_torch.kernels.fused_stats import fused_stats_buckets
+
+    hyper = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1)
+    sc = dict(lr=torch.tensor(3e-4, device=dev), c1=torch.tensor(1 - 0.9 ** 3, device=dev),
+              c2=torch.tensor(1 - 0.95 ** 3, device=dev))
+    clip = torch.tensor(0.37, device=dev)
+    err = {k: 0.0 for k in calls}
+
+    def rand(shapes, dtypes, seed, scale):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return [(scale * torch.randn(sh, device=dev, generator=gen)).to(dt)
+                for sh, dt in zip(shapes, dtypes)]
+
+    def close_sum(kernel, got, want):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+        err[kernel] = max(err[kernel], float((got - want).abs()))
+
+    for i, (shapes, dtypes) in enumerate(calls["fused_stats"] + calls["sqdiff_norm"]):
+        x, y = rand(shapes, dtypes, 10 * i, 1e-3), rand(shapes, dtypes, 10 * i + 1, 1e-3)
+        if i < len(calls["fused_stats"]):
+            dsq, ysq = fused_stats_buckets(x, y)
+            want = [ref.fused_stats_ref(a, b) for a, b in zip(x, y)]
+            close_sum("fused_stats", dsq, sum(w[0] for w in want))
+            close_sum("fused_stats", ysq, sum(w[1] for w in want))
+        else:
+            close_sum("sqdiff_norm", ops.sqdiff_norm_tree(x, y),
+                      sum(ref.sqdiff_norm_ref(a, b) for a, b in zip(x, y)))
+        del x, y
+    for i, (shapes, dtypes) in enumerate(calls["fused_adamw_stats"] + calls["fused_adamw"]):
+        f32 = [torch.float32] * len(shapes)
+        p, g = rand(shapes, dtypes, 10 * i + 2, 0.02), rand(shapes, f32, 10 * i + 3, 1e-3)
+        m = rand(shapes, f32, 10 * i + 4, 1e-4)
+        v = [x ** 2 for x in rand(shapes, f32, 10 * i + 5, 1e-3)]
+        if i < len(calls["fused_adamw_stats"]):
+            kernel = "fused_adamw_stats"
+            want = [ref.adamw_stats_ref(*b, **sc, clip_scale=clip, **hyper)
+                    for b in zip(p, g, m, v)]
+            gsq = fused_adamw_stats_buckets(p, g, m, v, adamw_scalars(*sc.values(), clip, dev),
+                                            **hyper)
+            close_sum(kernel, gsq, sum(w[3] for w in want))
+        else:
+            kernel = "fused_adamw"
+            want = [ref.adamw_ref(*b, **sc, **hyper) for b in zip(p, g, m, v)]
+            ops.fused_adamw_tree(p, g, m, v, **sc, **hyper)
+        for b, w in zip(zip(p, m, v), want):
+            for got, expect in zip(b, w):
+                torch.testing.assert_close(got, expect, rtol=1e-6, atol=1e-9)
+                err[kernel] = max(err[kernel], float((got - expect).abs().max()))
+        del p, g, m, v, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err
+
+
+def mesh_rank(runs, layers, root):
+    """The runs of phase mesh on one world size, in order, each a
+    `run_training` of a TrainJob dict as this rank of the process group
+    (the ranks stay up between runs), the config cut to `layers` layers when
+    fewer than its own.  A run named "...-resume" first takes the step-2
+    checkpoint of the run before it into a directory of its own.  Returns,
+    per run, the history's step metrics and timestamps, each rank's
+    launches, peak memory and TP all-reduce seconds, the whole final
+    parameters on the CPU, its seconds, and the shapes of its kernel calls."""
+    import functools
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.distributed import train_step as TS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    from repro_torch.tree import tree_leaves
+
+    full, adamw_cfg, stats = T.get_config, T.AdamWConfig, TS.worker_variance_stats
+    if layers < full(runs[0][1]["arch"]).num_layers:
+        T.get_config = lambda arch: full(arch).replace(num_layers=layers)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    out = {}
+    try:
+        for name, job in runs:
+            # the tree runs take the opt-in tree routes: the `fused_adamw`
+            # update (`AdamWConfig(use_kernel=True)`) and the statistic's
+            # `sqdiff_norm` (`sqdiff_fn=`)
+            tree = job["params_impl"] == "tree"
+            T.AdamWConfig = functools.partial(adamw_cfg, use_kernel=True) if tree else adamw_cfg
+            TS.worker_variance_stats = (functools.partial(
+                stats, sqdiff_fn=lambda a, b: ops.sqdiff_norm_tree(a, b)) if tree else stats)
+            if name.endswith("-resume") and rank == 0:
+                src = job["checkpoint_dir"].removesuffix("-resume")
+                os.makedirs(job["checkpoint_dir"])
+                for f in os.listdir(src):
+                    if "00000002" in f:
+                        shutil.copy(os.path.join(src, f), job["checkpoint_dir"])
+            if dist.is_initialized():
+                dist.barrier()
+            t0 = time.time()
+            with recorded_kernel_calls(ops) as calls, recorded_flat_calls(ops) as flat:
+                hist = T.run_training(T.TrainJob(**job))
+            r = {k: hist[k] for k in ("loss", "var_l1", "grad_sqnorm", "val_loss", "time",
+                                      "global_batch", "samples", "ranks", "resumed_from")}
+            r.update(seconds=time.time() - t0, calls=calls, flat_calls=flat,
+                     final_params=[x.detach().cpu() for x in
+                                   tree_leaves(hist["final_params"])])
+            out[name] = r
+            del hist
+            gc.collect()
+    finally:
+        T.get_config, T.AdamWConfig, TS.worker_variance_stats = full, adamw_cfg, stats
+    return out
+
+
+def mesh_phase(smi, ops, dev) -> tuple:
+    """Phase mesh: the model axis on the card (module docstring): the 2 x 2
+    runs on one group of 4 ranks, the 2 x 1 runs on one of 2, J = 1 in this
+    process.  Returns (each kernel's launches on the grid's main run,
+    summed over its ranks; each kernel's max abs error at the shapes the
+    phase gave it)."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.mesh import spawn_workers
+
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    L = MESH_LAYERS
+    ck = os.path.join(root, "ckpt")
+    tree = dict(stats_impl="tree", params_impl="tree")
+    grid, line, accum = (dict(mesh_data=2, mesh_model=2), dict(mesh_data=2),
+                         dict(step_impl="accum_norm"))
+    plan = {4: [("fsdp-flat-2x2", grid),
+                ("fsdp-tree-2x2", dict(checkpoint_dir=ck, checkpoint_every=2, **tree, **grid)),
+                ("fsdp-tree-2x2-resume", dict(checkpoint_dir=ck + "-resume", resume=True,
+                                              **tree, **grid))],
+            2: [("fsdp-flat-2x1", line), ("fsdp-tree-2x1", dict(**tree, **line)),
+                ("accum-flat-J2", dict(**accum, **line))],
+            1: [("accum-flat-J1", dict(mesh_data=1, base_micro_batch=4,
+                                       max_micro_batch=4, **accum))]}
+    runs = {}
+    try:
+        for world, group in plan.items():
+            jobs = [(name, dict(MESH_JOB, **kw)) for name, kw in group]
+            out = (spawn_workers(mesh_rank, world, jobs, L, root, backend="gloo")
+                   if world > 1 else mesh_rank(jobs, L, root))
+            for name, job in jobs:
+                r = runs[name] = out[name]
+                steps = [b - a for a, b in zip([0.0] + r["time"][:-1], r["time"])]
+                say("mesh", nvidia_smi=smi, run=name,
+                    grid=f"{job.get('mesh_data', 1)}x{job.get('mesh_model', 1)}",
+                    step_impl=job["step_impl"], residency=job["params_impl"],
+                    seconds=round(r["seconds"], 3),
+                    step_ms=[round(1e3 * x, 3) for x in steps],
+                    loss=r["loss"], var_l1=r["var_l1"], grad_sqnorm=r["grad_sqnorm"],
+                    peak_mem_bytes=[x["peak_mem_bytes"] for x in r["ranks"]],
+                    tp_allreduce_s_per_step=[round(x["tp_allreduce_s"] / len(steps), 4)
+                                             for x in r["ranks"] if "tp_allreduce_s" in x],
+                    launches=r["ranks"][0]["launches"])
+        ck_bytes = same_checkpoint(ck, ck + "-resume", MESH_JOB["steps"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def agree(a, b, what, var_scale=1.0):
+        """Metrics at MESH_RTOL (b's var_l1 times var_scale) and the final
+        parameters by the per-entry share; returns the largest entry error
+        and the share past rtol 1e-5 / atol 1e-7."""
+        for k in ("loss", "var_l1", "grad_sqnorm"):
+            for x, y in zip(runs[a][k], runs[b][k]):
+                y = y * (var_scale if k == "var_l1" else 1.0)
+                if not close(x, y, MESH_RTOL):
+                    raise AssertionError(f"{what}: {k} {runs[a][k]} vs {runs[b][k]}")
+        worst, off, n = 0.0, 0, 0
+        for x, y in zip(runs[a]["final_params"], runs[b]["final_params"]):
+            x, y = x.to(dev).float(), y.to(dev).float()
+            d = (x - y).abs()
+            worst = max(worst, float(d.max()))
+            off += int((d > 1e-7 + 1e-5 * y.abs()).sum())
+            n += y.numel()
+        if worst > 1e-4 or off / n > MESH_SHARE:
+            raise AssertionError(f"{what}: params max err {worst}, share {off / n}")
+        return {"max_abs_err": worst, "share_past_1e-5": off / n}
+
+    flat_pair = agree("fsdp-flat-2x2", "fsdp-flat-2x1", "flat 2x2 vs 2x1")
+    tree_pair = agree("fsdp-tree-2x2", "fsdp-tree-2x1", "tree 2x2 vs 2x1")
+    accum_pair = agree("accum-flat-J2", "accum-flat-J1", "ACCUM-NORM J=2 vs J=1",
+                       var_scale=2.0)
+    res, full = runs["fsdp-tree-2x2-resume"], runs["fsdp-tree-2x2"]
+    same_suffix(res, full, 2)
+    if not all(torch.equal(x, y) for x, y in zip(res["final_params"], full["final_params"])):
+        raise AssertionError("resumed params differ from the uninterrupted run's")
+    for r in runs.values():
+        del r["final_params"]
+
+    main = runs["fsdp-flat-2x2"]
+    groups = len({dt for _, dts in main["flat_calls"]["fused_adamw_stats"] for dt in dts})
+    steps = MESH_JOB["steps"]
+    evals = {"flash_attention": L, "rmsnorm": 2 * L + 1}
+    zero = {k: 0 for k in KERNELS}
+    want = {"fsdp-flat-2x2": zero | evals | {"fused_stats": steps,
+                                             "fused_adamw_stats": steps * groups},
+            "accum-flat-J2": zero | evals | {"fused_adamw_stats": steps * groups},
+            "fsdp-tree-2x2": zero | evals | {"fused_adamw": steps, "sqdiff_norm": steps}}
+    for name, w in want.items():
+        for rank, r in enumerate(runs[name]["ranks"]):
+            if r["launches"] != w:
+                raise AssertionError(f"{name} rank {rank} launched {r['launches']}, "
+                                     f"expected {w}")
+    flash_heads = {c[0][2] for c in main["calls"]["flash_attention"]}
+    if flash_heads != {16 // 2}:
+        raise AssertionError(f"flash ran on {flash_heads} heads, not 8 of 16")
+    flat = {k: main["flat_calls"][k] + runs["accum-flat-J2"]["flat_calls"][k]
+            + runs["fsdp-tree-2x2"]["flat_calls"][k] for k in main["flat_calls"]}
+    err = {**check_path_shapes(main["calls"], dev), **check_flat_shapes(flat, dev)}
+    # the grid's launches: the 2 x 2 flat run's, and the tree routes' of the
+    # 2 x 2 tree run (every rank)
+    launches = {k: sum(r["launches"][k] for r in main["ranks"]) for k in KERNELS}
+    for k in ("fused_adamw", "sqdiff_norm"):
+        launches[k] = sum(r["launches"][k] for r in runs["fsdp-tree-2x2"]["ranks"])
+    peaks = {n: max(x["peak_mem_bytes"] for x in r["ranks"]) for n, r in runs.items()}
+    say("mesh", nvidia_smi=smi, layers=L, seconds=round(time.time() - t_phase, 3),
+        flat_2x2_vs_2x1=flat_pair, tree_2x2_vs_2x1=tree_pair,
+        accum_J2_vs_J1=accum_pair, resume="bit-identical", checkpoint_bytes=ck_bytes,
+        peak_mem_bytes_max_rank=peaks,
+        tree_peak_saving_bytes=peaks["fsdp-tree-2x1"] - peaks["fsdp-tree-2x2"],
+        flash_calls=[list(c[0]) for c in main["calls"]["flash_attention"]],
+        rmsnorm_calls=[list(c[0]) for c in main["calls"]["rmsnorm"]],
+        flat_buckets={k: [len(c[0]) for c in v] for k, v in flat.items()},
+        launches=launches, max_abs_err=err)
+    return launches, err
 
 
 def check_archs(smi, ops, dev):
@@ -2241,6 +2534,9 @@ def main() -> int:
         bytes_all_gather=4 * sum(fsdp_layout.buffer_sizes), probe_elements=1 << 24,
         ranks=coll)
 
+    # mesh: the model axis, a data x model grid of gloo ranks ------------------
+    mesh_launches, mesh_err = mesh_phase(smi, ops, dev)
+
     # serve: serving's main path, full-width llama3.2-1b -----------------------
     serve_launches = serve_path(smi, ops, dev)
 
@@ -2456,6 +2752,9 @@ def main() -> int:
     path_launches = {**fsdp_launches, **tree_launches,
                      **{k: serve_launches[k] + arch_launches[k]
                         for k in ("rmsnorm", "flash_attention")}}
+    # and the mesh phase's 2 x 2 grid (every rank)
+    path_launches = {k: n + mesh_launches[k] for k, n in path_launches.items()}
+    err = {k: max(e, mesh_err.get(k, 0.0)) for k, e in err.items()}
     entries = []
     for k, t in timed.items():
         # the operations each kernel does, at their type's rate: flash's
@@ -2479,5 +2778,29 @@ def main() -> int:
     return 0
 
 
+def mesh_alone(layers: int) -> int:
+    """`python3 chip_smoke.py mesh [layers]`: the device, the build and
+    phase mesh at `layers` layers, nothing else (no result line)."""
+    global MESH_LAYERS
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    kernels.build_all(sorted(p.stem for p in kernels.CSRC.glob("*.cu")))
+    MESH_LAYERS = layers
+    mesh_phase(smi, ops, torch.device("cuda"))
+    left = child_processes()
+    if left:
+        raise AssertionError(f"processes the run started are still there: {left}")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["mesh"]:
+        sys.exit(mesh_alone(int(sys.argv[2]) if len(sys.argv) > 2 else MESH_LAYERS))
     sys.exit(main())

@@ -10,8 +10,10 @@ T_k = var_l1 / (η² · grad_sqnorm):
   DDP-/FSDP-Norm: the variance of the J workers' minibatch gradients.  A
   worker is a `torch.distributed` rank (`launch/mesh.py`); where the
   reference reduces over the mesh's data axes (`psum`, `pmean`), the port
-  all-reduces over the default process group.  With one worker there is
-  no group and no collective.
+  all-reduces over the data group (`group`; default: every rank).  With
+  one worker there is no group and no collective.  Under a model axis the
+  caller passes each rank's leaves with every replicated leaf on one rank
+  only, and `model_group` sums the pieces.
 * `accum_variance_stats` — beyond-paper ACCUM-NORM: variance across the M
   gradient-accumulation microbatch gradients, rescaled onto the per-worker
   minibatch scale of eq. (5).
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.launch.mesh import pmean
+from repro_torch.launch.mesh import SELF, pmean, psum
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -83,7 +85,8 @@ def per_sample_norm_test(loss_fn, params, batch, eta: float):
 
 # ------------------------------------------- eq. (5) DDP-/FSDP-Norm ----
 
-def worker_variance_stats(local_grad, mean_grad, *, sqdiff_fn=None):
+def worker_variance_stats(local_grad, mean_grad, *, sqdiff_fn=None,
+                          group=None, model_group=SELF):
     """Per-worker statistic from this worker's minibatch gradient g_j
     (`local_grad`) and the workers' mean gradient g (`mean_grad`), trees.
     Returns (var_l1, grad_sqnorm): ‖Var̂‖₁ = (1/J)Σ_j‖g_j − g‖² and ‖g‖².
@@ -93,11 +96,13 @@ def worker_variance_stats(local_grad, mean_grad, *, sqdiff_fn=None):
     §7.1).  `sqdiff_fn` computes that local sum (default `tree_sqdiff`;
     `kernels.ops.sqdiff_norm_tree` runs the `sqdiff_norm` kernel)."""
     sqdiff = sqdiff_fn or tree_sqdiff
-    var_l1 = pmean(sqdiff(local_grad, mean_grad))
-    return var_l1, tree_sqnorm(mean_grad)
+    var_l1 = pmean(psum(sqdiff(local_grad, mean_grad), model_group),
+                   group)
+    return var_l1, psum(tree_sqnorm(mean_grad), model_group)
 
 
-def worker_variance_stats_flat(local_grad, mean_grad, *, layout=None):
+def worker_variance_stats_flat(local_grad, mean_grad, *, layout=None,
+                               group=None):
     """Flat-buffer variant of `worker_variance_stats` (DESIGN §9): both trees
     are packed into the layout's buckets and the fused-stats kernel computes
     ‖g_j − g‖² AND ‖g‖² in ONE read of each bucket.  `layout` is the step's
@@ -109,11 +114,11 @@ def worker_variance_stats_flat(local_grad, mean_grad, *, layout=None):
         layout = FlatLayout.from_tree(mean_grad)
     local_b = layout.flatten(local_grad)
     mean_b = layout.flatten(mean_grad)
-    var_l1, gsq = worker_variance_stats_buffers(local_b, mean_b)
+    var_l1, gsq = worker_variance_stats_buffers(local_b, mean_b, group=group)
     return var_l1, gsq, mean_b
 
 
-def worker_variance_stats_buffers(local_buffers, mean_buffers):
+def worker_variance_stats_buffers(local_buffers, mean_buffers, *, group=None):
     """Born-flat variant (DESIGN §10): g_j and g already live as bucket
     buffers, so this performs no pack — one `ops.stats_flat_buckets` call
     over every bucket (on the card one `fused_stats` launch per dtype
@@ -121,19 +126,21 @@ def worker_variance_stats_buffers(local_buffers, mean_buffers):
     nothing to either sum.  Returns (var_l1, grad_sqnorm)."""
     from repro_torch.kernels import ops
     local_sq, gsq = ops.stats_flat_buckets(local_buffers, mean_buffers)
-    return pmean(local_sq), gsq
+    return pmean(local_sq, group), gsq
 
 
-def paper_faithful_worker_variance(local_grad, mean_grad):
+def paper_faithful_worker_variance(local_grad, mean_grad, *, group=None,
+                                   model_group=SELF):
     """The paper's literal formulation: all-reduce the full (g_j − g)² vector
     (eq. 5 computes Var̂ as a d-vector, then takes ‖·‖₁).  Mathematically
     identical to `worker_variance_stats`; kept as the baseline for the
     collective-bytes comparison."""
     diff_sq = tree_map(lambda a, b: torch.square(a.float() - b.float()),
                        local_grad, mean_grad)
-    var_vec = tree_map(pmean, diff_sq)
+    var_vec = tree_map(lambda x: pmean(x, group), diff_sq)
     var_l1 = tree_sqnorm(tree_map(torch.sqrt, var_vec))   # ‖Var̂‖₁ = Σ coords
-    return var_l1, tree_sqnorm(mean_grad)
+    return (psum(var_l1, model_group),
+            psum(tree_sqnorm(mean_grad), model_group))
 
 
 # --------------------------------------------- beyond-paper ACCUM-NORM ----

@@ -1,21 +1,312 @@
-"""Flat-buffer sharding over the data-parallel workers (the flat-buffer
-helpers of `repro/distributed/sharding.py` and the shard view of
+"""Logical-axis sharding rules, the tensor-parallel hooks, and flat-buffer
+sharding over the data workers (counterpart of
+`repro/distributed/sharding.py`, and of the shard view of
 `repro/distributed/train_step.py::_shard_bucket`).
 
-Bucket buffers are padded to a J-divisible size (`FlatLayout.from_tree(...,
-shard_divisor=J)`), so worker j's shard of a bucket of n·J elements is the
-contiguous slice [j·n, (j+1)·n) — the order the reference's `P(daxes)`
-lays shards out in.  Flat parameters REST as the worker's shards; the step
-all-gathers them into full buffers before the forward pass.
+Rules.  Model code names the logical axes of a tensor ("batch", "heads",
+"ffn", ...); a `ShardingRules` maps them to mesh axes.  A spec is a plain
+tuple whose entries are None, an axis name or a tuple of names — what
+`tuple(PartitionSpec(...))` gives in the reference.
+
+Tensor parallelism.  The reference constrains activations at its
+`maybe_shard` points and lets GSPMD insert the collectives over `model`.
+The port holds each rank's shard explicitly and places the collectives by
+hand (Megatron-style), at those same points, through two autograd
+functions over the active mesh's model group:
+
+* `tp_enter` — the column-parallel entry: identity forward; the input's
+  gradient all-reduced over the model group backward (each rank's
+  projections saw only its own heads or ffn columns);
+* `maybe_shard` — at the reference's row-parallel exits (attention's and
+  the MLP's output, spec replicated over `model`): the rank's partial sum
+  all-reduced forward; identity backward.
+
+Outside `use_sharding_rules(rules, mesh)`, or with a model axis of size
+1, both are the identity and the model computes what it always did.
+
+Flat buffers.  Bucket buffers are padded to a J-divisible size
+(`FlatLayout.from_tree(..., shard_divisor=J)`), so worker j's shard of a
+bucket of n·J elements is the contiguous slice [j·n, (j+1)·n) — the order
+the reference's `P(daxes)` lays shards out in; they are whole across
+`model` (`flat_buffer_specs`).  Flat parameters REST as the worker's
+shards; the step all-gathers them over the data group before the forward.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
+from dataclasses import dataclass, field
+
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.launch.mesh import num_workers, worker_index
+from repro_torch.launch.mesh import MODEL, group_size, num_workers, worker_index
 
+MeshAxes = tuple[str, ...] | str | None
+
+
+def entry_axes(entry: MeshAxes) -> tuple:
+    """The axes of one spec dim as a tuple (None: none)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_entry(axes: MeshAxes) -> MeshAxes:
+    """One dim of a spec as `PartitionSpec` normalizes it: no axes is None,
+    one axis its name, several a tuple."""
+    if axes is None or isinstance(axes, str):
+        return axes
+    axes = tuple(axes)
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else axes
+
+
+@dataclass(frozen=True)
+class ShardingRules:
+    """Mapping from logical axis names to physical mesh axes."""
+
+    rules: dict = field(default_factory=dict)
+
+    def spec(self, logical_axes) -> tuple:
+        return tuple(None if name is None else spec_entry(self.rules.get(name))
+                     for name in logical_axes)
+
+
+# The production layout: tensor/expert/vocab dims over the `model` axis,
+# batch over the data axes.
+DEFAULT_RULES = ShardingRules(
+    rules={
+        "batch": ("data",),
+        "heads": ("model",),
+        "kv_heads": ("model",),
+        "ffn": ("model",),
+        "experts": ("model",),
+        "vocab": ("model",),
+        "embed": None,          # d_model replicated (activations)
+        "seq": None,
+        "kv_seq": None,
+        "act_seq": None,        # sequence parallelism: off by default
+        "lru_width": ("model",),
+        "ssm_heads": ("model",),
+        "state": None,
+    }
+)
+
+MULTIPOD_RULES = ShardingRules(
+    rules={**DEFAULT_RULES.rules, "batch": ("pod", "data")}
+)
+
+
+def with_sequence_parallel(rules: ShardingRules) -> ShardingRules:
+    """Sequence parallelism: the residual stream's seq dim over the model
+    axis between TP regions."""
+    return ShardingRules(rules={**rules.rules, "act_seq": ("model",)})
+
+
+# Full-mesh FSDP layout for ACCUM-NORM: parameters' large dims sharded over
+# both axes.
+FULL_FSDP_RULES = ShardingRules(
+    rules={**DEFAULT_RULES.rules, "param_fsdp": ("data", "model")}
+)
+
+
+def manual_data_rules(rules: ShardingRules, manual_axes) -> ShardingRules:
+    """Strip `manual_axes` from every rule (the reference's rules inside a
+    region manual over the data axes: FSDP-Norm's workers)."""
+    new = {}
+    for name, axes in rules.rules.items():
+        if axes is None:
+            new[name] = None
+        elif isinstance(axes, str):
+            new[name] = None if axes in manual_axes else axes
+        else:
+            kept = tuple(a for a in axes if a not in manual_axes)
+            new[name] = kept if kept else None
+    return ShardingRules(rules=new)
+
+
+def flat_buffer_specs(num_buffers: int, axes) -> tuple:
+    """Per-bucket specs of the flat buffers: the single dim over the data
+    axes (buckets are padded to a divisible size); no axes: replicated."""
+    spec = (spec_entry(axes),) if axes else ()
+    return tuple(spec for _ in range(num_buffers))
+
+
+# ------------------------------------------------------------ context ----
+
+class _Ctx:
+    """The active rules and mesh.  Process-wide, not thread-local (as the
+    reference's is): on the card autograd runs the backward, and with it a
+    checkpointed block's recomputed forward, on its own device thread,
+    which must see the hooks the forward saw."""
+    rules = None
+    mesh = None
+
+
+_CTX = _Ctx()
+
+
+@contextlib.contextmanager
+def use_sharding_rules(rules: ShardingRules | None, mesh=None):
+    prev_rules, prev_mesh = _CTX.rules, _CTX.mesh
+    _CTX.rules, _CTX.mesh = rules, mesh
+    try:
+        yield
+    finally:
+        _CTX.rules, _CTX.mesh = prev_rules, prev_mesh
+
+
+def current_rules() -> ShardingRules | None:
+    return _CTX.rules
+
+
+def logical_spec(*logical_axes) -> tuple:
+    rules = _CTX.rules
+    if rules is None:
+        return (None,) * len(logical_axes)
+    return rules.spec(tuple(logical_axes))
+
+
+# ----------------------------------------------------- tensor parallelism ----
+
+# host seconds inside the TP collectives (each gloo call blocks until it is
+# done), and their count; reset by the caller
+TP_STATS = {"calls": 0, "seconds": 0.0}
+
+
+def model_axis():
+    """(model group, this rank's model index) of the active mesh when its
+    model axis has more than one rank and the rules shard over it; else
+    None."""
+    mesh, rules = _CTX.mesh, _CTX.rules
+    if (mesh is None or rules is None or mesh.model_size == 1
+            or MODEL not in entry_axes(rules.rules.get("heads"))):
+        return None
+    return mesh.model_group, mesh.model_index
+
+
+def _all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    y = x.contiguous().clone()
+    if group_size(group) > 1:
+        t0 = time.perf_counter()
+        dist.all_reduce(y, op=op or dist.ReduceOp.SUM, group=group)
+        TP_STATS["calls"] += 1
+        TP_STATS["seconds"] += time.perf_counter() - t0
+    return y
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
+class _Exit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def tp_enter(x: torch.Tensor) -> torch.Tensor:
+    """The column-parallel entry (identity forward, gradient all-reduced
+    over the model group backward); the identity without a model axis."""
+    tp = model_axis()
+    return x if tp is None else _Enter.apply(x, tp[0])
+
+
+def tp_reduce(x: torch.Tensor) -> torch.Tensor:
+    """A partial sum over the model group made whole: all-reduced forward,
+    identity backward (every rank holds the same result, so each passes
+    the loss's gradient to its own part)."""
+    tp = model_axis()
+    return x if tp is None else _Exit.apply(x, tp[0])
+
+
+def tp_max(x: torch.Tensor) -> torch.Tensor:
+    """Element-wise max over the model group, outside autograd."""
+    tp = model_axis()
+    return x.detach() if tp is None else _all_reduce(x.detach(), tp[0],
+                                                     dist.ReduceOp.MAX)
+
+
+def maybe_shard(x: torch.Tensor, *logical_axes) -> torch.Tensor:
+    """At the reference's row-parallel exits: a tensor whose spec leaves
+    every dim off `model` is this rank's partial sum of a product over its
+    heads or ffn columns, all-reduced here (`tp_reduce`).  A spec with a
+    dim on `model` names a tensor that already is this rank's shard: the
+    identity.  Outside a model axis: the identity.  Inside
+    `checkpoint_tp_boundary` the all-reduced result is kept, and the
+    backward pass's recompute takes it instead of reducing again."""
+    tp = model_axis()
+    if tp is None or any(MODEL in entry_axes(a)
+                         for a in logical_spec(*logical_axes)):
+        return x
+    b = _BOUNDARY[0]
+    if b is None:
+        return _Exit.apply(x, tp[0])
+    if b.replay:
+        b.i += 1
+        return _Replay.apply(x, b.saved[b.i - 1])
+    y = _Exit.apply(x, tp[0])
+    b.saved.append(y.detach())
+    return y
+
+
+class _Replay(torch.autograd.Function):
+    """A row-parallel exit's kept result in place of its all-reduce."""
+
+    @staticmethod
+    def forward(ctx, x, kept):
+        return kept.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Boundary:
+    def __init__(self):
+        self.saved, self.replay, self.i = [], False, 0
+
+
+_BOUNDARY = [None]       # the block `checkpoint_tp_boundary` is running
+
+
+def checkpoint_tp_boundary(fn, *args):
+    """`fn(*args)` (a layer) under activation checkpointing that keeps only
+    the outputs of its row-parallel exits (the reference's
+    remat="tp_boundary", which saves its "tp_out" names): the backward pass
+    recomputes the layer from its inputs, each exit taking its kept result,
+    so no forward all-reduce runs twice.  Without a model axis there is no
+    exit and this is full recomputation."""
+    b = _Boundary()
+
+    def run(*a):
+        prev, _BOUNDARY[0] = _BOUNDARY[0], b
+        b.i = 0
+        try:
+            return fn(*a)
+        finally:
+            _BOUNDARY[0] = prev
+            b.replay = True
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+# -------------------------------------------------------- flat buffers ----
 
 def shard_bucket(b: torch.Tensor, idx: int, J: int) -> torch.Tensor:
     """Worker `idx`'s 1/J slice of one J-divisible bucket, as a view (J = 1:
@@ -26,26 +317,40 @@ def shard_bucket(b: torch.Tensor, idx: int, J: int) -> torch.Tensor:
     return b[idx * n:(idx + 1) * n]
 
 
-def shard_flat_buffers(buffers):
+def shard_flat_buffers(buffers, mesh=None):
     """This worker's shard of each bucket, each its own tensor (a copy, so
     that no shard aliases a full buffer it is gathered into); one worker:
-    the buffers themselves."""
-    J = num_workers()
+    the buffers themselves.  Workers are the mesh's data coordinates (no
+    mesh: the process group's ranks)."""
+    J = num_workers(mesh)
     if J == 1:
         return list(buffers)
-    idx = worker_index()
+    idx = worker_index(mesh)
     return [shard_bucket(b, idx, J).clone() for b in buffers]
 
 
-def gather_flat_buffers(shards, out=None):
-    """All-gather each bucket's shards into the full buffer, one
-    `all_gather_into_tensor` per bucket, into `out` when given (fresh
-    buffers otherwise).  One worker: the shards are the full buffers."""
-    J = num_workers()
+def gather_flat_buffers(shards, out=None, mesh=None):
+    """All-gather each bucket's shards over the data group into the full
+    buffer, one `all_gather_into_tensor` per bucket, into `out` when given
+    (fresh buffers otherwise).  One worker: the shards are the full
+    buffers."""
+    J = num_workers(mesh)
     if J == 1:
         return list(shards)
+    group = None if mesh is None else mesh.data_group
     if out is None:
         out = [s.new_empty(s.numel() * J) for s in shards]
     for full, s in zip(out, shards):
-        dist.all_gather_into_tensor(full, s)
+        dist.all_gather_into_tensor(full, s, group=group)
     return list(out)
+
+
+__all__ = [
+    "ShardingRules", "DEFAULT_RULES", "MULTIPOD_RULES", "FULL_FSDP_RULES",
+    "entry_axes", "spec_entry", "with_sequence_parallel", "manual_data_rules",
+    "flat_buffer_specs",
+    "use_sharding_rules", "current_rules", "logical_spec", "maybe_shard",
+    "model_axis", "tp_enter", "tp_reduce", "tp_max", "TP_STATS",
+    "checkpoint_tp_boundary",
+    "shard_bucket", "shard_flat_buffers", "gather_flat_buffers",
+]

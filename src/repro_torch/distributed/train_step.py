@@ -5,9 +5,34 @@
   slice of the global batch, accumulates its minibatch gradient g_j, and
   the workers' valid-token-weighted mean g is all-reduced; the eq. (5)
   statistic comes from g_j and g.  With J = 1 there is no collective.
-* `make_accum_norm_step` — beyond-paper ACCUM-NORM on one device: the
-  variance statistic comes from the M gradient-accumulation microbatch
-  gradients.
+* `make_accum_norm_step` — beyond-paper ACCUM-NORM: the variance
+  statistic comes from the M gradient-accumulation microbatch gradients.
+  On one rank it needs no collective; over J data ranks each microbatch
+  spans every worker, its gradient averaged over them before ‖ĝ^m‖² (as
+  the reference's GSPMD step does inside its scan).
+
+Both take `mesh=` (`launch/mesh.py`): J is then the mesh's data workers
+and M its model axis.  Without a mesh FSDP-Norm's workers are the process
+group's ranks and ACCUM-NORM runs on one rank, as before.  Under a model
+axis the model runs tensor-parallel (`distributed/sharding.py`) on each
+rank's slices of the leaves (`distributed/params.py`):
+
+* FSDP-Norm, tree residency: params and moments rest as the
+  `param_pspecs(fsdp=False)` slices; a replicated leaf used inside a
+  sharded attention (`model_roles` "partial") has its gradient summed over
+  the model group; the statistic and the clip count every replicated leaf
+  once.  Flat residency: the same `FlatLayout` as at M = 1, buckets whole
+  across `model` and sharded over the data workers; the forward runs on
+  TP views of the gathered buffers, and each rank's gradient buffers are
+  made whole over the model group before the statistic.
+* ACCUM-NORM, tree residency: params and moments rest as the
+  `param_pspecs(fsdp=True)` slices (ZeRO-3: the "F" dims over the data
+  workers), gathered over the data group each step.  Flat residency:
+  buckets sharded over the data workers, the AdamW kernel on the shard,
+  the clip from the summed Σg².
+
+The mixed residencies stay single-axis: under a model axis, or ACCUM-NORM
+over several ranks, they raise.
 
 Both take a stacked-microbatch batch {tokens/labels: (M, B_global, seq)}
 and perform: accumulate grads over M -> statistic -> AdamW -> metrics.
@@ -47,12 +72,17 @@ from repro_torch.core.norm_test import (
     worker_variance_stats, worker_variance_stats_buffers,
     worker_variance_stats_flat)
 from repro_torch.distributed.flatbuf import FlatLayout
+from repro_torch.distributed.params import (
+    gather_tree, map_specs, model_roles, param_pspecs, shard_tree, strip_spec)
 from repro_torch.distributed.sharding import (
-    gather_flat_buffers, shard_bucket, shard_flat_buffers)
-from repro_torch.launch.mesh import num_workers, psum, worker_index
+    DEFAULT_RULES, MULTIPOD_RULES, flat_buffer_specs, gather_flat_buffers,
+    manual_data_rules, shard_bucket, shard_flat_buffers, use_sharding_rules)
+from repro_torch.launch.mesh import (
+    MODEL, data_axes, num_workers, psum, worker_index)
+from repro_torch.models.blocks import check_model_axis
 from repro_torch.optim.adamw import (
     AdamWConfig, adamw_update, adamw_update_buffers, clip_scale_from_norm)
-from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 
 def _check_impls(stats_impl: str, params_impl: str):
@@ -105,6 +135,84 @@ def _accumulate(loss_fn, params, batch, track_micro_sqnorm: bool, acc_g):
     return acc_loss / denom, acc_aux / denom, acc_sq, acc_m, acc_w
 
 
+# ------------------------------------------------------------- grid ----
+
+class _Grid:
+    """A step's view of its mesh: J, j and the data group; M, m and the
+    model group; the rules the model runs under; the specs that cut whole
+    leaves into this rank's tensor-parallel slices, and each leaf's part
+    under the model axis (`params.model_roles`)."""
+
+    def __init__(self, model, mesh, params_like, model_specs, manual: bool):
+        check_model_axis(model.cfg, mesh.model_size)
+        self.mesh = mesh
+        self.J, self.idx = num_workers(mesh), worker_index(mesh)
+        self.m = mesh.model_index
+        self.dg, self.mg = mesh.data_group, mesh.model_group
+        self.daxes = data_axes(mesh)
+        base = MULTIPOD_RULES if "pod" in mesh.axis_names else DEFAULT_RULES
+        self.rules = manual_data_rules(base, self.daxes) if manual else base
+        self.model_specs = model_specs
+        roles = tree_flatten(model_roles(params_like, model_specs))[0]
+        self.partial = [r == "partial" for r in roles]
+        self.once_mask = [r == "sharded" or self.m == 0 for r in roles]
+        self.copies = [r == "replicated" and self.m != 0 for r in roles]
+
+    def rules_on(self):
+        return use_sharding_rules(self.rules, self.mesh)
+
+    def local(self, tree):
+        """This rank's tensor-parallel views of whole leaves."""
+        return shard_tree(tree, self.model_specs, self.mesh, axes=(MODEL,))
+
+    def once(self, leaves):
+        """The leaves this rank counts in a sum over the model group: its
+        slices, and the replicated leaves on model index 0 only."""
+        return [x for x, keep in zip(leaves, self.once_mask) if keep]
+
+    def sum_partial(self, leaves):
+        for x, partial in zip(leaves, self.partial):
+            if partial:
+                psum(x, self.mg)
+
+    def drop_copies(self, buffers, layout):
+        """Zero the slots of replicated leaves off model index 0, so that a
+        sum over the model group counts them once."""
+        for slot, copy in zip(layout.slots, self.copies):
+            if copy:
+                buffers[slot.buffer_index][
+                    slot.offset:slot.offset + slot.size].zero_()
+
+
+def _tp_grid(model, mesh, params_like, *, fsdp: bool, manual: bool):
+    """(the step's `_Grid`, the specs its tree params rest in), or None
+    where the mesh adds nothing to the single-axis step (no mesh; FSDP-Norm
+    with no model axis; ACCUM-NORM on one rank)."""
+    if mesh is None:
+        return None
+    if mesh.coords is None:
+        raise ValueError(f"{mesh!r} describes a layout only: build it "
+                         f"inside a process group of {mesh.size} ranks")
+    if mesh.model_size == 1 and (manual or num_workers(mesh) == 1):
+        return None
+    specs = param_pspecs(params_like, mesh, fsdp=fsdp)
+    model_specs = map_specs(lambda sp: strip_spec(sp, data_axes(mesh)), specs)
+    return _Grid(model, mesh, params_like, model_specs, manual), specs
+
+
+def _contiguous_copy(tree):
+    return tree_map(lambda x: x.clone(memory_format=torch.contiguous_format),
+                    tree)
+
+
+def _check_grid_impls(stats_impl: str, params_impl: str):
+    if stats_impl != params_impl:
+        raise NotImplementedError(
+            f"stats_impl={stats_impl!r} with params_impl={params_impl!r} on a "
+            f"model axis or over several ACCUM-NORM ranks: only tree/tree and "
+            f"flat/flat are ported (ROADMAP.md §1 item 7)")
+
+
 # --------------------------------------------------------- FSDP-Norm ----
 
 def worker_batch(batch, idx: int, J: int):
@@ -126,15 +234,16 @@ def worker_batch(batch, idx: int, J: int):
     return out
 
 
-def worker_mean(local, w_j, out):
-    """The valid-token-weighted mean over the workers, into the tensors
-    `out`: out_i = Σ_j(local_i·w_j) / max(Σ_j w_j, 1).  It equals the plain
-    mean on unpadded batches and stays exact when the padded tail of a
-    bucketed batch lands unevenly across workers (DESIGN §8).  One worker
-    runs the same arithmetic with no collective.  Returns max(Σ_j w_j, 1)."""
-    w_sum = torch.clamp(psum(w_j.clone()), min=1.0)
+def worker_mean(local, w_j, out, group=None):
+    """The valid-token-weighted mean over the workers (the data `group`),
+    into the tensors `out`: out_i = Σ_j(local_i·w_j) / max(Σ_j w_j, 1).  It
+    equals the plain mean on unpadded batches and stays exact when the
+    padded tail of a bucketed batch lands unevenly across workers (DESIGN
+    §8).  One worker runs the same arithmetic with no collective.  Returns
+    max(Σ_j w_j, 1)."""
+    w_sum = torch.clamp(psum(w_j.clone(), group), min=1.0)
     for o, x in zip(out, local):
-        psum(o.copy_(x).mul_(w_j)).div_(w_sum)
+        psum(o.copy_(x).mul_(w_j), group).div_(w_sum)
     return w_sum
 
 
@@ -157,28 +266,33 @@ def _sharded_buffer_update(pb_local, gb, opt_state, opt_cfg, lr,
 def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
                         variance_impl: str = "scalar",
                         stats_impl: str = "tree", params_impl: str = "tree",
-                        params_like=None, device=None):
-    """Build the FSDP-Norm step of this worker (J = `num_workers()`, j =
-    `worker_index()`; every worker builds and calls it in lockstep).
-    Returns `wrap`, with `wrap(batch_like)` -> `step(params, opt_state,
-    batch, lr) -> (params, opt_state, metrics)` and `wrap.flat_layout` the
-    step's shared `FlatLayout` (None on the tree path).
+                        params_like=None, device=None, mesh=None):
+    """Build the FSDP-Norm step of this rank (every rank builds and calls
+    it in lockstep).  Workers: the `mesh`'s data coordinates (J =
+    `num_workers(mesh)`, j = `worker_index(mesh)`); no mesh: the process
+    group's ranks.  Returns `wrap`, with `wrap(batch_like)` -> `step(params,
+    opt_state, batch, lr) -> (params, opt_state, metrics)`,
+    `wrap.flat_layout` the step's shared `FlatLayout` (None on the tree
+    path), `wrap.param_specs` the specs its params and moments rest in
+    (tree: per leaf; flat: per bucket; None off a grid) and `wrap.grid` its
+    view of the mesh (None off a grid).
 
     variance_impl: 'scalar' (one pre-reduced f32 all-reduce, DESIGN §7.1)
     or 'paper' (eq. 5 literal: all-reduce the full (g_j − g)² vector; tree
     residency only, as in the reference).
 
-    Tree params are whole trees, replicated on every worker; flat params
-    are the tuple of the worker's 1/J bucket shards
+    Tree params are whole trees, replicated on every worker — on a model
+    axis, this rank's slices (`params.shard_tree(tree, wrap.param_specs,
+    mesh)`); flat params are the tuple of the worker's 1/J bucket shards
     (`sharding.shard_flat_buffers` of the packed buffers).  Tree stats keep
-    whole moment trees; flat stats take `opt_state` from
+    moment trees shaped as the params; flat stats take `opt_state` from
     `init_adamw_flat(layout=wrap.flat_layout)`, whose buffers are shards
     too.  Flat/flat updates params and moments in place and returns them.
     `batch` holds the GLOBAL batch on the params' device; each worker
     takes its own slice.  Metrics are 0-d f32 tensors, equal on every
-    worker.  Without `params_like` the step is built from `model.init(0,
-    device)`: on the CUDA card unless `device` names another, and it
-    raises without one."""
+    rank.  `params_like` is the whole tree; without it the step is built
+    from `model.init(0, device)`: on the CUDA card unless `device` names
+    another, and it raises without one."""
     _check_impls(stats_impl, params_impl)
     if variance_impl not in ("scalar", "paper"):
         raise ValueError(f"variance_impl must be 'scalar' or 'paper', got "
@@ -195,7 +309,12 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
     if device is None:
         device = tree_flatten(params_like)[0][0].device
     device = torch.device(device)
-    J, idx = num_workers(), worker_index()
+    grid = _tp_grid(model, mesh, params_like, fsdp=False, manual=True)
+    J, idx = num_workers(mesh), worker_index(mesh)
+    dg = None if mesh is None else mesh.data_group
+    if grid is not None:
+        _check_grid_impls(stats_impl, params_impl)
+        grid, tree_specs = grid
     # ONE layout per step, shared by the statistics, the AdamW tail and
     # the residency (None on the pure tree path)
     layout = (FlatLayout.from_tree(params_like, shard_divisor=J, device=device)
@@ -217,49 +336,80 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
                 b.zero_()
             # the params rest as this worker's shards: gather the full
             # buffers (one worker: the params are the full buffers)
-            tree = layout.unflatten(gather_flat_buffers(params, bufs["full"]))
-            acc = tree_leaves(layout.unflatten(g_j))
+            tree = layout.unflatten(gather_flat_buffers(params, bufs["full"],
+                                                        mesh))
+            acc = layout.unflatten(g_j)
+            if grid is not None:
+                tree, acc = grid.local(tree), grid.local(acc)
+            acc = tree_leaves(acc)
         else:
             tree, (leaves, treedef) = params, tree_flatten(params)
             g_j = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                    for p in leaves]
             g = [torch.empty_like(x) for x in g_j]
             acc = g_j
-        loss, aux, _, _, w_j = _accumulate(model.loss, tree, batch, False, acc)
-        w_sum = worker_mean(g_j, w_j, g)     # g_j stays: the statistic needs it
-        if params_impl == "flat" and stats_impl == "flat":
-            var_l1, gsq = worker_variance_stats_buffers(g_j, g)
+        if grid is None:
+            loss, aux, _, _, w_j = _accumulate(model.loss, tree, batch, False,
+                                               acc)
+        else:
+            with grid.rules_on():
+                loss, aux, _, _, w_j = _accumulate(model.loss, tree, batch,
+                                                   False, acc)
+            if params_impl == "flat":
+                # this rank's slices, made whole over the model group
+                grid.drop_copies(g_j, layout)
+                for b in g_j:
+                    psum(b, grid.mg)
+            else:
+                grid.sum_partial(g_j)
+        w_sum = worker_mean(g_j, w_j, g, dg)  # g_j stays: the statistic needs it
+        if grid is not None and params_impl == "tree":
+            g_j, g = tree_unflatten(treedef, g_j), tree_unflatten(treedef, g)
+            stats = (paper_faithful_worker_variance if variance_impl == "paper"
+                     else worker_variance_stats)
+            var_l1, gsq = stats(grid.once(tree_leaves(g_j)),
+                                grid.once(tree_leaves(g)), group=dg,
+                                model_group=grid.mg)
+            with torch.no_grad():
+                new_params, new_opt, gnorm = adamw_update(
+                    params, g, opt_state, opt_cfg, lr, grad_sqnorm=gsq)
+        elif params_impl == "flat" and stats_impl == "flat":
+            var_l1, gsq = worker_variance_stats_buffers(g_j, g, group=dg)
             new_params, new_opt, gnorm = _sharded_buffer_update(
                 tuple(params), g, opt_state, opt_cfg, lr, gsq, idx, J)
         elif params_impl == "flat":
             # tree-oracle tail on the views, then the worker's shard of the
             # packed result
             g_tree = layout.unflatten(g)
-            var_l1, gsq = worker_variance_stats(layout.unflatten(g_j), g_tree)
+            var_l1, gsq = worker_variance_stats(layout.unflatten(g_j), g_tree,
+                                                group=dg)
             with torch.no_grad():
                 new_tree, new_opt, gnorm = adamw_update(tree, g_tree, opt_state,
                                                         opt_cfg, lr)
-            new_params = tuple(shard_flat_buffers(layout.flatten(new_tree)))
+            new_params = tuple(shard_flat_buffers(layout.flatten(new_tree),
+                                                  mesh))
         elif stats_impl == "flat":
             # pack g and the params once; the fused pair hands back the
             # packed mean gradient, the worker updates its shard, and the
             # updated shards are gathered into the tree's buffers
             g_j, g = tree_unflatten(treedef, g_j), tree_unflatten(treedef, g)
-            var_l1, gsq, gb = worker_variance_stats_flat(g_j, g, layout=layout)
+            var_l1, gsq, gb = worker_variance_stats_flat(g_j, g, layout=layout,
+                                                         group=dg)
             pb_local = [shard_bucket(b, idx, J) for b in layout.flatten(params)]
             pb_local, new_opt, gnorm = _sharded_buffer_update(
                 pb_local, gb, opt_state, opt_cfg, lr, gsq, idx, J)
-            new_params = layout.unflatten(gather_flat_buffers(pb_local))
+            new_params = layout.unflatten(gather_flat_buffers(pb_local,
+                                                              mesh=mesh))
         else:
             g_j, g = tree_unflatten(treedef, g_j), tree_unflatten(treedef, g)
             stats = (paper_faithful_worker_variance if variance_impl == "paper"
                      else worker_variance_stats)
-            var_l1, gsq = stats(g_j, g)
+            var_l1, gsq = stats(g_j, g, group=dg)
             with torch.no_grad():
                 new_params, new_opt, gnorm = adamw_update(params, g, opt_state,
                                                           opt_cfg, lr)
         # the workers' token-weighted loss and aux, in one collective
-        loss, aux = psum(torch.stack([loss * w_j, aux * w_j])) / w_sum
+        loss, aux = psum(torch.stack([loss * w_j, aux * w_j]), dg) / w_sum
         metrics = {"loss": loss, "aux": aux, "var_l1": var_l1,
                    "grad_sqnorm": gsq, "grad_norm": gnorm,
                    "clip_scale": clip_scale_from_norm(gnorm, opt_cfg.grad_clip)}
@@ -269,38 +419,183 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
         return step
 
     wrap.flat_layout = layout
+    wrap.mesh = mesh
+    wrap.param_specs = (
+        flat_buffer_specs(layout.num_buffers, data_axes(mesh) if mesh else ())
+        if params_impl == "flat" else (tree_specs if grid is not None else None))
+    wrap.grid = grid
     return wrap
 
 
 # -------------------------------------------------------- ACCUM-NORM ----
 
+def _accumulate_spanning(loss_fn, params, batch, grid, add):
+    """ACCUM-NORM's microbatch loop over J data ranks: each microbatch spans
+    every worker (each holds its slice of it).  Per microbatch the rank's
+    gradient g_jm, weighted by its VALID-TOKEN count w_j, goes to `add(grads,
+    w_j)`, which sums w_j·g_jm over the workers (and the model group where
+    needed) into the step's accumulator and returns ‖Σ_j w_j·g_jm‖², every
+    leaf counted once; with W_m = Σ_j w_j that is W_m²‖ĝ^m‖², ĝ^m the
+    microbatch's gradient.  Returns (loss, aux, Σ_m‖ĝ^m‖², m_eff,
+    max(Σ_m W_m, 1)) as 0-d tensors, equal on every rank; the caller
+    divides the accumulator by the last."""
+    leaves, treedef = tree_flatten(params)
+    xs = [p.detach().requires_grad_(True) for p in leaves]
+    tree = tree_unflatten(treedef, xs)
+    device = xs[0].device
+    zero = lambda: torch.zeros((), dtype=torch.float32, device=device)
+    acc_loss, acc_aux, acc_sq, acc_w, acc_m = (zero() for _ in range(5))
+    for i in range(batch["tokens"].shape[0]):
+        mb = {k: v[i] for k, v in batch.items()}
+        with grid.rules_on():
+            loss, metrics = loss_fn(tree, mb)
+            grads = torch.autograd.grad(loss, xs)
+        with torch.no_grad():
+            w = (mb["labels"] >= 0).sum().float()
+            w_m = psum(w.clone(), grid.dg)
+            sq = add(grads, w)
+            acc_sq += torch.where(w_m > 0, sq / torch.clamp(w_m * w_m, min=1.0),
+                                  0.0)
+            acc_loss += w * loss.detach()
+            acc_aux += w * metrics["aux"].detach()
+            acc_w += w_m
+            acc_m += (w_m > 0).float()
+    denom = torch.clamp(acc_w, min=1.0)
+    loss, aux = psum(torch.stack([acc_loss, acc_aux]), grid.dg) / denom
+    return loss, aux, acc_sq, acc_m, denom
+
+
+def _accum_grid_step(model, opt_cfg, grid, rest_specs, layout, params_impl,
+                     device):
+    """ACCUM-NORM on a grid (J data ranks, a model axis, or both), tree/tree
+    or flat/flat (module docstring)."""
+    bufs = {}
+
+    def step(params, opt_state, batch, lr):
+        batch = worker_batch(batch, grid.idx, grid.J)
+        if params_impl == "flat":
+            if not bufs:
+                bufs["acc"] = layout.zeros(torch.float32, device)
+                bufs["g_m"] = layout.zeros(torch.float32, device)
+                bufs["full"] = ([torch.empty(n, dtype=dt, device=device)
+                                 for n, dt in zip(layout.buffer_sizes,
+                                                  layout.buffer_dtypes)]
+                                if grid.J > 1 else None)
+            acc, g_m = bufs["acc"], bufs["g_m"]
+            for b in acc:
+                b.zero_()
+            tree = grid.local(layout.unflatten(gather_flat_buffers(
+                params, bufs["full"], grid.mesh)))
+            views = tree_leaves(grid.local(layout.unflatten(g_m)))
+
+            def add(grads, w):
+                for b in g_m:
+                    b.zero_()
+                for v, g in zip(views, grads):
+                    v.copy_(g).mul_(w)
+                grid.drop_copies(g_m, layout)
+                sq = torch.zeros((), dtype=torch.float32, device=device)
+                for a, b in zip(acc, g_m):
+                    psum(b)                   # every rank: data x model
+                    a.add_(b)
+                    sq += torch.sum(torch.square(b))
+                return sq
+        else:
+            # ZeRO-3: this rank's slices gathered over the data workers
+            tree = gather_tree(params, rest_specs, grid.mesh, axes=grid.daxes)
+            acc = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+                   for x in tree_leaves(tree)]
+
+            def add(grads, w):
+                parts = [g.float() * w for g in grads]
+                grid.sum_partial(parts)
+                for a, x in zip(acc, parts):
+                    a.add_(psum(x, grid.dg))
+                return psum(tree_sqnorm(grid.once(parts)), grid.mg)
+
+        loss, aux, sq_sum, m_eff, denom = _accumulate_spanning(
+            model.loss, tree, batch, grid, add)
+        for a in acc:
+            a.div_(denom)
+        if params_impl == "flat":
+            # the worker's shard of the mean gradient; Σg² over the shards
+            g_local = [shard_bucket(b, grid.idx, grid.J) for b in acc]
+            gsq = torch.zeros((), dtype=torch.float32, device=device)
+            for b in g_local:
+                gsq += torch.sum(torch.square(b))
+            gsq = psum(gsq, grid.dg)
+            _, new_mb, new_vb, count, gnorm, _ = adamw_update_buffers(
+                list(params), g_local, list(opt_state["m"]),
+                list(opt_state["v"]), opt_cfg, lr, opt_state["count"],
+                grad_sqnorm=gsq)
+            new_params = tuple(params)
+            new_opt = {"m": tuple(new_mb), "v": tuple(new_vb), "count": count}
+        else:
+            gsq = psum(tree_sqnorm(grid.once(acc)), grid.mg)
+            g = tree_unflatten(tree_flatten(params)[1], acc)
+            g_local = _contiguous_copy(shard_tree(g, rest_specs, grid.mesh,
+                                                  axes=grid.daxes))
+            with torch.no_grad():
+                new_params, new_opt, gnorm = adamw_update(
+                    params, g_local, opt_state, opt_cfg, lr, grad_sqnorm=gsq)
+        var_l1, gsq = accum_variance_stats(sq_sum, None, m_eff, grid.J, gsq=gsq)
+        metrics = {"loss": loss, "aux": aux, "var_l1": var_l1,
+                   "grad_sqnorm": gsq, "grad_norm": gnorm,
+                   "clip_scale": clip_scale_from_norm(gnorm, opt_cfg.grad_clip)}
+        return new_params, new_opt, metrics
+
+    return step
+
+
 def make_accum_norm_step(model, opt_cfg: AdamWConfig, *,
                          stats_impl: str = "tree", params_impl: str = "tree",
-                         params_like=None, device=None):
+                         params_like=None, device=None, mesh=None):
     """Build the ACCUM-NORM step.  Returns `wrap`, with `wrap(batch_like)`
     -> `step(params, opt_state, batch, lr) -> (params, opt_state, metrics)`
-    (one eager step serves every batch shape) and `wrap.flat_layout` the
-    step's shared `FlatLayout` (None on the tree path).  The reference also
-    returns sharding specs; a single-device step has none.
+    (one eager step serves every batch shape), `wrap.flat_layout` the
+    step's shared `FlatLayout` (None on the tree path), and
+    `wrap.param_specs` and `wrap.grid` as in `make_fsdp_norm_step`.
 
-    Flat params are the tuple of bucket buffers; flat stats take
-    `opt_state` from `init_adamw_flat(layout=wrap.flat_layout)`.  Flat/flat
-    updates both in place and returns them.  `batch` holds tensors on the
-    params' device (`batch_to_device`); `lr` is a float or 0-d tensor.
-    Metrics are 0-d f32 tensors on the device.  Without `params_like` the
-    step is built from `model.init(0, device)`: on the CUDA card unless
-    `device` names another, and it raises without one."""
+    Flat params are the tuple of bucket buffers (on a mesh of J data
+    workers, this rank's 1/J shards of them); flat stats take `opt_state`
+    from `init_adamw_flat(layout=wrap.flat_layout)`.  Flat/flat updates
+    both in place and returns them.  Tree params are whole trees, on a mesh
+    this rank's `param_pspecs(fsdp=True)` slices (`params.shard_tree`).
+    `batch` holds tensors on the params' device (`batch_to_device`), the
+    GLOBAL batch on a mesh; `lr` is a float or 0-d tensor.  Metrics are 0-d
+    f32 tensors on the device, equal on every rank.  Without `params_like`
+    (the whole tree) the step is built from `model.init(0, device)`: on the
+    CUDA card unless `device` names another, and it raises without one."""
     _check_impls(stats_impl, params_impl)
     if params_like is None:
         params_like = model.init(0, device)
     if device is None:
         device = tree_flatten(params_like)[0][0].device
     device = torch.device(device)
-    J = 1                      # one device: the data-parallel worker count
+    # tree params rest ZeRO-3 (fsdp=True); flat buffers are sharded over
+    # the data workers and the forward's TP views follow FSDP-Norm's specs
+    grid = _tp_grid(model, mesh, params_like, fsdp=params_impl == "tree",
+                    manual=False)
+    J = 1 if grid is None else grid[0].J
     layout = (FlatLayout.from_tree(params_like, shard_divisor=J, device=device)
               if "flat" in (stats_impl, params_impl) else None)
-    grad_bufs = []             # persistent f32 gradient buffers (flat params)
 
+    def wrap(batch_like=None):
+        return step
+
+    wrap.flat_layout = layout
+    wrap.mesh = mesh
+    if grid is not None:
+        _check_grid_impls(stats_impl, params_impl)
+        grid, rest_specs = grid
+        step = _accum_grid_step(model, opt_cfg, grid, rest_specs, layout,
+                                params_impl, device)
+        wrap.param_specs = (flat_buffer_specs(layout.num_buffers, grid.daxes)
+                            if params_impl == "flat" else rest_specs)
+        wrap.grid = grid
+        return wrap
+    wrap.param_specs, wrap.grid = None, None
+    grad_bufs = []             # persistent f32 gradient buffers (flat params)
     def step(params, opt_state, batch, lr):
         if params_impl == "flat":
             if not grad_bufs:
@@ -358,8 +653,4 @@ def make_accum_norm_step(model, opt_cfg: AdamWConfig, *,
                    "clip_scale": clip_scale_from_norm(gnorm, opt_cfg.grad_clip)}
         return new_params, new_opt, metrics
 
-    def wrap(batch_like=None):
-        return step
-
-    wrap.flat_layout = layout
     return wrap

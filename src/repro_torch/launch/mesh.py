@@ -1,22 +1,34 @@
-"""Data-parallel workers on `torch.distributed` (counterpart of
+"""Workers and the device mesh on `torch.distributed` (counterpart of
 `repro/launch/mesh.py`).
 
-The reference's norm-test workers are the instances of a `shard_map` over
-the mesh's data axes; here each worker j is one process, rank j of the
-default process group, and a collective over the data axes is a
-collective over that group.  J = 1 means no group and no collective.
+The reference lays its devices out as a mesh with named axes — the data
+axes ("pod", "data": the norm test's J workers) and "model" (tensor
+parallelism).  Here every mesh position is one process, one rank of the
+default process group, in row-major order over (pod, data, model), as
+`jax.make_mesh` orders devices: rank r has model coordinate r % M.
 
-* `num_workers`, `worker_index` — J and j of this process;
-* `psum`, `pmean` — the reference's reductions over the data axes;
+* `Mesh` — `axis_names`, `shape` (a dict, as `jax.sharding.Mesh.shape`
+  is), and, when built inside a process group, this rank's coordinates
+  and two groups: its data line (the ranks that share its model
+  coordinate) and its model line (the ranks that share its data
+  coordinates).  A mesh built outside a group of its size only describes
+  a layout (`param_pspecs` reads nothing else);
+* `make_host_mesh`, `make_production_mesh`, `data_axes`;
+* `num_workers`, `worker_index` — J and j over the data axes of a mesh;
+  with no mesh, the default group's size and this rank (one worker a
+  rank), 1 and 0 outside a process group;
+* `psum`, `pmean` — the reference's reductions, over a group (default:
+  every rank);
 * `init_workers` — join the group as one rank (the caller names the
   backend: "nccl" needs a card per rank, "gloo" lets ranks share a card or
   run on the CPU; nothing switches silently);
-* `spawn_workers` — run a function on J new local processes, one rank
+* `spawn_workers` — run a function on n new local processes, one rank
   each, and return rank 0's result.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import shutil
 import tempfile
@@ -26,35 +38,176 @@ from multiprocessing import resource_tracker
 from multiprocessing.connection import wait
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+
+DATA_AXES = ("pod", "data")
+MODEL = "model"
 
 
 def _grouped() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def num_workers() -> int:
-    """J: the number of data-parallel workers (1 outside a process group)."""
+class Mesh:
+    """Named axes over ranks.  `coords` (axis -> index) and the groups
+    exist only for a mesh built inside a process group of its size;
+    `data_group` / `model_group` are None where the line is every rank
+    (the default group) and `SELF` where it is this rank alone."""
+
+    def __init__(self, shape, axis_names, *, coords=None, data_group=None,
+                 model_group=None):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, shape))
+        self.size = math.prod(shape)
+        self.coords = coords
+        self.data_group, self.model_group = data_group, model_group
+
+    def __repr__(self):
+        return f"Mesh({self.shape})"
+
+    @property
+    def model_size(self) -> int:
+        return self.shape.get(MODEL, 1)
+
+    @property
+    def model_index(self) -> int:
+        return self.coords.get(MODEL, 0) if self.coords else 0
+
+    def axes_index(self, axes) -> int:
+        """This rank's flattened index along `axes` (first axis major), the
+        order a spec lays shards out in."""
+        idx = 0
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    def group_for(self, axes):
+        """The group of the ranks that differ only along `axes`: the data
+        axes (all of them) or "model"."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if axes == (MODEL,):
+            return self.model_group
+        if axes == data_axes(self):
+            return self.data_group
+        raise ValueError(f"no group for axes {axes} of {self!r}")
+
+
+# the group of a line that is this rank alone: collectives over it are
+# the identity
+SELF = "self"
+
+
+def _line_groups(shape: dict):
+    """Every rank calls `new_group` for every line in the same order (the
+    call is collective); keeps its own data line and model line."""
+    names = tuple(shape)
+    dims = [shape[a] for a in names]
+    rank, world = dist.get_rank(), dist.get_world_size()
+    coords_of = lambda r: dict(zip(names, np.unravel_index(r, dims)))
+    mine = coords_of(rank)
+
+    def lines(axis_set):
+        key = lambda r: tuple(c for a, c in coords_of(r).items()
+                              if a not in axis_set)
+        out = {}
+        for r in range(world):
+            out.setdefault(key(r), []).append(r)
+        return out, key(rank)
+
+    groups = []
+    for axis_set in (set(DATA_AXES), {MODEL}):
+        members, my_key = lines(axis_set)
+        chosen = None
+        for k in sorted(members):
+            ranks = members[k]
+            if len(ranks) == world:
+                g = None                         # the default group
+            elif len(ranks) == 1:
+                g = SELF
+            else:
+                g = dist.new_group(ranks)
+            if k == my_key:
+                chosen = g
+        groups.append(chosen)
+    return {a: int(c) for a, c in mine.items()}, groups
+
+
+def _make_mesh(shape, axis_names) -> Mesh:
+    size = math.prod(shape)
+    if _grouped():
+        world = dist.get_world_size()
+        if world != size:
+            raise ValueError(f"a mesh of {dict(zip(axis_names, shape))} needs "
+                             f"{size} ranks, the process group has {world}")
+        coords, (dg, mg) = _line_groups(dict(zip(axis_names, shape)))
+        return Mesh(shape, axis_names, coords=coords, data_group=dg,
+                    model_group=mg)
+    if size == 1:
+        return Mesh(shape, axis_names, coords={a: 0 for a in axis_names},
+                    data_group=SELF, model_group=SELF)
+    return Mesh(shape, axis_names)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0) -> Mesh:
+    """The (data, model) or (pod, data, model) mesh over this process
+    group's ranks (a description only outside a group of its size)."""
+    if pod:
+        return _make_mesh((pod, data, model), ("pod", "data", "model"))
+    return _make_mesh((data, model), ("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production layouts, (16, 16) or (2, 16, 16), as a
+    description: no ranks, no groups."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(shape, axes)
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """The data-parallel (norm-test worker) axes of a mesh."""
+    return tuple(a for a in mesh.axis_names if a in DATA_AXES)
+
+
+def num_workers(mesh=None) -> int:
+    """J: the product of the mesh's data axes; with no mesh, the process
+    group's size (1 outside a group)."""
+    if mesh is not None:
+        return math.prod(mesh.shape[a] for a in data_axes(mesh))
     return dist.get_world_size() if _grouped() else 1
 
 
-def worker_index() -> int:
-    """j ∈ [0, J): this process's worker index (its rank)."""
+def worker_index(mesh=None) -> int:
+    """j ∈ [0, J): this rank's index over the mesh's data axes (first axis
+    major); with no mesh, its rank (0 outside a group)."""
+    if mesh is not None:
+        return mesh.axes_index(data_axes(mesh))
     return dist.get_rank() if _grouped() else 0
 
 
-def psum(x: torch.Tensor) -> torch.Tensor:
-    """Sum of `x` over the workers, IN PLACE; one worker: `x` itself."""
-    if num_workers() > 1:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM)
+def group_size(group=None) -> int:
+    """Ranks in `group` (None: every rank of the default group)."""
+    if group is SELF:
+        return 1
+    if group is None:
+        return num_workers()
+    return dist.get_world_size(group)
+
+
+def psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum of `x` over the group's ranks, IN PLACE; one rank: `x` itself."""
+    if group_size(group) > 1:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 
 
-def pmean(x: torch.Tensor) -> torch.Tensor:
-    """Mean of `x` over the workers, as a new tensor."""
-    return psum(x.clone()) / num_workers()
+def pmean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Mean of `x` over the group's ranks, as a new tensor."""
+    return psum(x.clone(), group) / group_size(group)
 
 
 def default_backend(device) -> str:

@@ -12,19 +12,25 @@ determines the (M, J*micro, seq) stacked batch; the step accumulates over
 M, computes the norm-test statistic and runs the AdamW update; the host
 controller consumes (var_l1, grad_sqnorm) and emits the next plan.
 
-FSDP-Norm with J = `mesh_data` > 1 workers runs one process per worker:
-inside a process group (e.g. under `torchrun`) as this process's rank,
-otherwise it spawns J local ranks (`launch/mesh.py`) and returns rank 0's
-history.  Every rank runs the same loop and controller on the same
-metrics, so all take the same batch-size decisions.
+The mesh is J = `mesh_data` data workers by M = `mesh_model` ranks of
+tensor parallelism, one process per rank, J·M in all, in row-major order
+over (data, model) (`launch/mesh.py`): inside a process group (e.g. under
+`torchrun`) as this process's rank, otherwise it spawns J·M local ranks
+and returns rank 0's history.  Both steps run on it: FSDP-Norm's workers
+are the data coordinates, and ACCUM-NORM's microbatches span them; the
+BatchPlan's workers are J.  Every rank runs the same loop and controller
+on the same metrics, so all take the same batch-size decisions.  NCCL
+needs a card per rank; ranks that share a card or run on the CPU name
+`--dist-backend gloo` (the CPU's default).
 
 Crash-safe training (DESIGN §12): `checkpoint_every` > 0 writes a
 crash-atomic checkpoint (params/opt + controller state + samples cursor)
 every N steps, in the reference's on-disk layout (`checkpoint/store.py`),
 and `resume` restarts from the newest complete checkpoint in
 `checkpoint_dir`, reproducing the uninterrupted run's losses bit for bit.
-Under J > 1 workers rank 0 writes the WHOLE state (flat shards gathered
-first) and every rank takes its own shard back on resume.
+On a mesh rank 0 writes the WHOLE state (flat shards and tree slices
+gathered first), so a checkpoint crosses mesh shapes, and every rank
+takes its own slices back on resume.
 
 Multi-host coordination (DESIGN §8.1): `coord` "file" (a shared
 directory, `coord_dir`) or "distributed" (the process group) puts
@@ -43,6 +49,7 @@ convolutions stay float32 (TF32 off), as on the reference's CPU runs.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -71,14 +78,16 @@ from repro_torch.distributed.coordination import (
     CoordinationError, enable_persistent_cache, make_coordinator)
 from repro_torch.distributed.engine import BucketedEngine
 from repro_torch.distributed.flatbuf import FlatLayout
+from repro_torch.distributed.params import gather_tree, shard_tree
 from repro_torch.distributed.sharding import (
-    gather_flat_buffers, shard_flat_buffers)
+    TP_STATS, gather_flat_buffers, shard_flat_buffers)
 from repro_torch.distributed.train_step import (
     batch_to_device, make_accum_norm_step, make_fsdp_norm_step)
 from repro_torch.kernels.ops import launch_counts
 from repro_torch.launch.mesh import (
-    default_backend, init_workers, num_workers, rank_device, spawn_workers,
-    worker_index)
+    data_axes, default_backend, init_workers, make_host_mesh, num_workers,
+    rank_device, spawn_workers)
+from repro_torch.models.blocks import check_model_axis
 from repro_torch.models.common import resolve_device
 from repro_torch.models.convert import stack_layers, unstack_layers
 from repro_torch.models.model import build_model
@@ -127,8 +136,9 @@ class TrainJob:
     data: str = "markov"                  # markov | uniform
     data_seed: int = 0
     seed: int = 0
-    # J data-parallel workers, one process each; 0 = the launcher's world
-    # size (torchrun), else 1
+    # J data-parallel workers by mesh_model ranks of tensor parallelism,
+    # one process a rank; mesh_data 0 = the launcher's world size
+    # (torchrun) over mesh_model, else 1
     mesh_data: int = 0
     mesh_model: int = 1
     dist_backend: str = ""                # "" = nccl on the card, gloo on the CPU
@@ -152,25 +162,42 @@ class TrainJob:
     device: str = ""                      # "" = the CUDA card; or "cpu"
 
 
+def _world(job: TrainJob) -> int:
+    """The ranks of the job: the process group's, else the launcher's,
+    else J·M from the job."""
+    if num_workers() > 1:
+        return num_workers()
+    if "WORLD_SIZE" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
+    return max(job.mesh_data, 1) * job.mesh_model
+
+
 def _workers(job: TrainJob) -> int:
-    """J: `mesh_data`, else the launcher's world size, else 1."""
-    if job.mesh_data:
-        return job.mesh_data
-    return num_workers() if num_workers() > 1 else int(
-        os.environ.get("WORLD_SIZE", 1))
+    """J: `mesh_data`, else the world over `mesh_model`."""
+    return job.mesh_data or _world(job) // job.mesh_model
 
 
 def _check_supported(job: TrainJob):
     if job.step_impl not in ("fsdp_norm", "accum_norm"):
         raise ValueError(f"step_impl must be 'fsdp_norm' or 'accum_norm', "
                          f"got {job.step_impl!r}")
-    later = []
-    if job.step_impl == "accum_norm" and _workers(job) > 1:
-        later.append("ACCUM-NORM over several workers (ROADMAP §1, item 7)")
-    if job.mesh_model > 1:
-        later.append("a model axis, mesh_model > 1 (ROADMAP §1, item 7)")
-    if later:
-        raise NotImplementedError("not ported yet: " + "; ".join(later))
+    world = _world(job)
+    if job.mesh_model < 1 or world % job.mesh_model:
+        raise ValueError(f"mesh_model {job.mesh_model} does not divide the "
+                         f"world of {world} ranks")
+    if _workers(job) * job.mesh_model != world:
+        raise ValueError(f"a mesh of {_workers(job)} x {job.mesh_model} needs "
+                         f"{_workers(job) * job.mesh_model} ranks, the world "
+                         f"has {world}")
+    cfg = get_smoke_config(job.arch) if job.smoke else get_config(job.arch)
+    check_model_axis(cfg, job.mesh_model)
+    grid = job.mesh_model > 1 or (job.step_impl == "accum_norm" and world > 1)
+    if grid and job.stats_impl != job.params_impl:
+        raise NotImplementedError(
+            f"stats_impl={job.stats_impl!r} with params_impl="
+            f"{job.params_impl!r} on a model axis or over several ACCUM-NORM "
+            f"ranks: only tree/tree and flat/flat are ported (ROADMAP.md §1 "
+            f"item 7)")
 
 
 def _make_source(job: TrainJob, vocab: int):
@@ -188,9 +215,11 @@ class _CheckpointLayout:
     both ways is slicing and copying only, so a restore is bit-exact."""
 
     def __init__(self, cfg, layout, params_tree, flat_params: bool,
-                 flat_opt: bool, device):
+                 flat_opt: bool, device, mesh=None, tree_specs=None):
         self.cfg, self.layout, self.device = cfg, layout, device
         self.flat_params, self.flat_opt = flat_params, flat_opt
+        # tree leaves rest as this rank's slices on a grid (`tree_specs`)
+        self.mesh, self.tree_specs = mesh, tree_specs
         meta = tree_map(lambda x: torch.empty_like(x, device="meta"),
                         params_tree)
         self.ref_meta = stack_layers(meta, cfg)
@@ -200,11 +229,12 @@ class _CheckpointLayout:
 
     def to_reference(self, params, opt_state, rank: int):
         """The whole state, host tensors, on rank 0 (None on the others);
-        every rank must call it, since it gathers the flat shards."""
+        every rank must call it, since it gathers the flat shards and the
+        tree slices."""
         parts = [(params, self.flat_params), (opt_state["m"], self.flat_opt),
                  (opt_state["v"], self.flat_opt)]
-        parts = [(gather_flat_buffers(list(x)) if flat else x, flat)
-                 for x, flat in parts]
+        parts = [(gather_flat_buffers(list(x), mesh=self.mesh) if flat
+                  else self.whole(x), flat) for x, flat in parts]
         if rank != 0:
             return None
 
@@ -219,6 +249,19 @@ class _CheckpointLayout:
         p, m, v = (ref(*part) for part in parts)
         return {"params": p,
                 "opt": {"m": m, "v": v, "count": opt_state["count"].cpu()}}
+
+    def whole(self, tree):
+        """Whole leaves of a tree part (gathered from this grid's slices)."""
+        if self.tree_specs is None:
+            return tree
+        return gather_tree(tree, self.tree_specs, self.mesh)
+
+    def slices(self, tree):
+        """This rank's slices of a whole tree part (its own storage)."""
+        if self.tree_specs is None:
+            return tree
+        return tree_map(lambda t: t.clone(memory_format=torch.contiguous_format),
+                        shard_tree(tree, self.tree_specs, self.mesh))
 
     def like(self):
         """The state's structure, shapes and dtypes (meta tensors)."""
@@ -240,15 +283,17 @@ class _CheckpointLayout:
 
     def from_reference(self, state):
         """(params, opt_state) in the job's residency on its device: a
-        flat part as this worker's shard of each bucket."""
+        flat part as this worker's shard of each bucket, a tree part as
+        this rank's slices on a grid."""
         def part(x, flat):
             if flat:
                 tree = unstack_layers(self.ref_layout.unflatten(list(x)),
                                       self.cfg)
                 return tuple(shard_flat_buffers(
-                    [b.to(self.device) for b in self.layout.flatten(tree)]))
-            return tree_map(lambda t: t.to(self.device),
-                            unstack_layers(x, self.cfg))
+                    [b.to(self.device) for b in self.layout.flatten(tree)],
+                    self.mesh))
+            return self.slices(tree_map(lambda t: t.to(self.device),
+                                         unstack_layers(x, self.cfg)))
         opt = state["opt"]
         return part(state["params"], self.flat_params), {
             "m": part(opt["m"], self.flat_opt),
@@ -260,16 +305,16 @@ def run_training(job: TrainJob) -> dict:
     """Train as `job` says; returns the history (rank 0's, with J > 1)."""
     _check_supported(job)
     device = resolve_device(job.device)
-    J = _workers(job)
-    if J > 1 and num_workers() == 1:
+    world = _workers(job) * job.mesh_model
+    if world > 1 and num_workers() == 1:
         backend = job.dist_backend or default_backend(device)
         if "RANK" not in os.environ:
-            return spawn_workers(_train, J, job, backend=backend)
+            return spawn_workers(_train, world, job, backend=backend)
         init_workers(backend, int(os.environ["RANK"]),    # under torchrun
                      int(os.environ["WORLD_SIZE"]), "env://")
-    if num_workers() != J:
-        raise ValueError(f"the job asks for {J} workers, the process group "
-                         f"has {num_workers()} ranks")
+    if num_workers() != world:
+        raise ValueError(f"the job asks for {world} ranks, the process group "
+                         f"has {num_workers()}")
     return _train(job)
 
 
@@ -285,8 +330,12 @@ def _run_id(job: TrainJob) -> str:
 
 
 def _train(job: TrainJob) -> dict:
-    """The loop of one worker (all of them in lockstep)."""
-    workers, rank = num_workers(), worker_index()
+    """The loop of one rank (all of them in lockstep)."""
+    world = num_workers()
+    rank = dist.get_rank() if world > 1 else 0
+    mesh = (make_host_mesh(data=_workers(job), model=job.mesh_model)
+            if world > 1 else None)
+    workers = _workers(job)
     if job.compile_cache:
         # before any kernel loads (in this worker's process): every library
         # the job builds lands in, or comes from, the persistent cache
@@ -302,6 +351,7 @@ def _train(job: TrainJob) -> dict:
     cfg = get_smoke_config(job.arch) if job.smoke else get_config(job.arch)
     model = build_model(cfg)
     params = model.init(job.seed, device)
+    TP_STATS.update(calls=0, seconds=0.0)
 
     opt_cfg = AdamWConfig(lr=job.peak_lr, weight_decay=job.weight_decay,
                           grad_clip=job.grad_clip)
@@ -310,14 +360,19 @@ def _train(job: TrainJob) -> dict:
                                    variance_impl=job.variance_impl,
                                    stats_impl=job.stats_impl,
                                    params_impl=job.params_impl,
-                                   params_like=params, device=device)
+                                   params_like=params, device=device, mesh=mesh)
     else:
         wrap = make_accum_norm_step(model, opt_cfg, stats_impl=job.stats_impl,
                                     params_impl=job.params_impl,
-                                    params_like=params, device=device)
-    layout = wrap.flat_layout
+                                    params_like=params, device=device, mesh=mesh)
+    layout, grid = wrap.flat_layout, wrap.grid
+    # tree leaves rest as this rank's slices on a grid
+    tree_specs = (wrap.param_specs
+                  if grid is not None and job.params_impl == "tree" else None)
     ckpt = _CheckpointLayout(cfg, layout, params, job.params_impl == "flat",
-                             job.stats_impl == "flat", device)
+                             job.stats_impl == "flat", device, mesh, tree_specs)
+    if tree_specs is not None:
+        params = ckpt.slices(params)
     # flat moments are this worker's 1/J shard of each J-divisible bucket
     opt_state = (init_adamw_flat(params, shard_divisor=workers, layout=layout,
                                  device=device)
@@ -326,13 +381,24 @@ def _train(job: TrainJob) -> dict:
         # flat residency (DESIGN §10): the only pack of the run — from here
         # on params are bucket buffers (the worker's shards of them) and the
         # model runs on views of the gathered buffers
-        params = tuple(shard_flat_buffers(layout.flatten(params)))
+        params = tuple(shard_flat_buffers(layout.flatten(params), mesh))
 
     def full_tree(params):
-        """The whole parameter tree (flat: gathered from every worker)."""
-        if job.params_impl != "flat":
-            return params
-        return layout.unflatten(gather_flat_buffers(params))
+        """The whole parameter tree (gathered from every rank)."""
+        if job.params_impl == "flat":
+            return layout.unflatten(gather_flat_buffers(params, mesh=mesh))
+        return ckpt.whole(params)
+
+    def model_tree(params):
+        """The tree this rank's model runs on: its tensor-parallel slices
+        on a model axis."""
+        if grid is None:
+            return full_tree(params)
+        if job.params_impl == "flat":
+            return grid.local(full_tree(params))
+        if job.step_impl == "accum_norm":       # ZeRO-3: gather the data dims
+            return gather_tree(params, tree_specs, mesh, axes=data_axes(mesh))
+        return params
 
     if job.bucket_ladder == "off":
         ladder = None
@@ -417,9 +483,10 @@ def _train(job: TrainJob) -> dict:
     def eval_loss(params):
         bplan = BatchPlan(global_batch=workers * 2, micro_batch=2,
                           accum_steps=1, workers=workers)
-        tree = full_tree(params)
+        tree = model_tree(params)
         losses = []
-        with torch.no_grad():
+        rules = grid.rules_on() if grid is not None else contextlib.nullcontext()
+        with torch.no_grad(), rules:
             for i in range(job.eval_batches):
                 vb = make_batch(val_source, VAL_STEP_BASE + i, bplan,
                                 job.seq_len, extra_specs)
@@ -487,7 +554,7 @@ def _train(job: TrainJob) -> dict:
                 meta[FLAT_PARAMS_META] = flat_params_metadata(ckpt.ref_layout)
             save_checkpoint(job.checkpoint_dir, step, state, metadata=meta)
         del state
-        if workers > 1:
+        if world > 1:
             dist.barrier()         # no rank runs ahead of the commit
         last_saved[0] = step
 
@@ -642,15 +709,19 @@ def _train(job: TrainJob) -> dict:
     if coordinator is not None:
         coordinator.close()
     history["final_params"] = full_tree(params)
-    # what each worker ran: its kernel launches in this run and its peak
-    # device memory (a spawned rank's counters are not the caller's)
+    # what each rank ran: its kernel launches in this run, its peak device
+    # memory (a spawned rank's counters are not the caller's), and on a
+    # model axis the host seconds in its tensor-parallel all-reduces
     mine = {"launches": {k: n - launches_before[k]
                          for k, n in launch_counts().items()},
             "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
                                if device.type == "cuda" else None)}
+    if job.mesh_model > 1:
+        mine.update(tp_allreduce_s=TP_STATS["seconds"],
+                    tp_allreduce_calls=TP_STATS["calls"])
     history["ranks"] = [mine]
-    if workers > 1:
-        history["ranks"] = [None] * workers
+    if world > 1:
+        history["ranks"] = [None] * world
         torch.distributed.all_gather_object(history["ranks"], mine)
     return history
 

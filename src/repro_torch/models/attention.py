@@ -15,6 +15,15 @@ kernel (`kernels.ops.flash_attention`, any head dim up to 256), the
 reference's TPU drop-in for the same math; so does cross-attention there,
 non-causal over the encoder's frames (decode steps included).  Decode's
 self-attention runs the plain `_sdpa_grouped`, as the reference does.
+
+Tensor parallelism (`distributed/sharding.py`): when `wq` holds fewer
+heads than the config's `num_heads`, it is this rank's shard over the
+model axis (heads [m·h, (m+1)·h)); `wk` / `wv` are its kv heads' shard
+too, or whole when the kv heads do not divide the axis, and then each
+local q head reads its kv head by its global index (the local heads then
+run as MHA).  The input enters
+through `tp_enter`, `wo`'s product is a partial sum made whole by
+`maybe_shard` at the reference's exit.  Training and prefill only.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import maybe_shard, model_axis, tp_enter
 from repro_torch.kernels import ops
 from repro_torch.models.common import normal_init
 from repro_torch.models.embeddings import apply_rope
@@ -137,13 +147,41 @@ def _sdpa_chunked(q, k, v, softcap, causal, window, q_chunk=Q_CHUNK):
     return torch.cat(outs, dim=1)
 
 
+def _tp_heads(params, num_heads):
+    """(model index, local heads) when `params` hold this rank's shard of
+    the heads; else None."""
+    tp = model_axis()
+    if tp is None or num_heads is None or params["wq"].shape[1] == num_heads:
+        return None
+    return tp[1], params["wq"].shape[1]
+
+
+def _local_kv(k, v, shard, num_heads, num_kv_heads):
+    """The kv heads of this rank's q heads: k, v themselves when they are
+    its shard; from whole k, v (kv heads that do not divide the model axis)
+    one kv head per local q head, picked by the q head's global index."""
+    if k.shape[2] < num_kv_heads:
+        return k, v
+    m, h = shard
+    idx = torch.div(m * h + torch.arange(h, device=k.device),
+                    num_heads // num_kv_heads, rounding_mode="floor")
+    return k[:, :, idx], v[:, :, idx]
+
+
 def attend_full(params, x, positions, *, rope_theta, softcap=0.0, window=0,
-                causal=True, qk_norm=False, return_kv=False):
+                causal=True, qk_norm=False, return_kv=False, num_heads=None,
+                num_kv_heads=None):
     """Self-attention over a full sequence (training / prefill).  On the
     card with grad mode off it runs the flash-attention kernel.  With
     `return_kv` it returns (out, k, v), k and v after RoPE — the prefill
-    cache."""
+    cache.  `num_heads` / `num_kv_heads` are the config's: leaves with
+    fewer heads are this rank's shard (module docstring)."""
+    shard = _tp_heads(params, num_heads)
+    if shard is not None:
+        x = tp_enter(x)
     q, k, v = _project_qkv(params, x, positions, rope_theta, qk_norm)
+    if shard is not None:
+        k, v = _local_kv(k, v, shard, num_heads, num_kv_heads)
     t = x.shape[1]
     if q.is_cuda and not torch.is_grad_enabled():
         out = ops.flash_attention(q, k, v, causal=causal,
@@ -155,23 +193,35 @@ def attend_full(params, x, positions, *, rope_theta, softcap=0.0, window=0,
         mask = causal_mask(t, t, 0, window, device=x.device) if causal else None
         out = _sdpa(q, k, v, mask, softcap)
     out = torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
+    if shard is not None:
+        out = maybe_shard(out, "batch", "seq", "embed")
     return (out, k, v) if return_kv else out
 
 
-def cross_attend(params, x, kv_source, *, softcap=0.0):
+def cross_attend(params, x, kv_source, *, softcap=0.0, num_heads=None,
+                 num_kv_heads=None):
     """Encoder-decoder cross-attention, non-causal; kv_source is either
     encoder hidden states (b, s, d) or a precomputed {"k", "v"}.  On the
-    card with grad mode off it runs the flash-attention kernel."""
+    card with grad mode off it runs the flash-attention kernel.  Sharded
+    leaves as in `attend_full` (the encoder states enter like x)."""
+    shard = _tp_heads(params, num_heads)
+    if shard is not None:
+        x = tp_enter(x)
     q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(x.dtype))
     if isinstance(kv_source, dict):
         k, v = kv_source["k"].to(x.dtype), kv_source["v"].to(x.dtype)
     else:
-        k, v = precompute_cross_kv(params, kv_source.to(x.dtype)).values()
+        src = kv_source.to(x.dtype)
+        k, v = precompute_cross_kv(params, src if shard is None
+                                   else tp_enter(src)).values()
+    if shard is not None:
+        k, v = _local_kv(k, v, shard, num_heads, num_kv_heads)
     if q.is_cuda and not torch.is_grad_enabled():
         out = ops.flash_attention(q, k, v, causal=False, softcap=softcap)
     else:
         out = _sdpa(q, k, v, None, softcap)
-    return torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
+    out = torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
+    return out if shard is None else maybe_shard(out, "batch", "seq", "embed")
 
 
 def precompute_cross_kv(params, enc_out):

@@ -28,11 +28,25 @@ from repro_torch.models.norms import init_norm, apply_norm
 
 def check_supported(cfg: ModelConfig):
     """Raise NotImplementedError for any part of `cfg` the port does not
-    implement: remat policies other than none and full (the reference's
-    "tp_boundary" names tensor-parallel boundaries the port has no axis
-    for)."""
-    if cfg.remat not in ("none", "full"):
+    implement: a remat policy other than the reference's none, full and
+    tp_boundary."""
+    if cfg.remat not in ("none", "full", "tp_boundary"):
         raise NotImplementedError(f"{cfg.name}: remat={cfg.remat!r}")
+
+
+def check_model_axis(cfg: ModelConfig, model_size: int):
+    """Raise NotImplementedError when `cfg` has a layer the port's tensor
+    parallelism does not shard and `model_size` > 1: MoE experts and
+    router, MLA, SSD and RG-LRU (attention, dense MLPs and embeddings
+    are sharded)."""
+    if model_size == 1:
+        return
+    kinds = set(cfg.prefix_pattern + cfg.block_pattern)
+    later = sorted(kinds & {MLA_ATTN, SSD, RGLRU}) + (["moe"] if cfg.moe else [])
+    if later:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(later)} layers on a model axis of "
+            f"{model_size} are not ported (ROADMAP.md §1 item 7)")
 
 
 def has_mlp(cfg: ModelConfig, kind: str) -> bool:
@@ -95,7 +109,8 @@ def block_full(params, x, positions, cfg: ModelConfig, kind: str,
         mixed = attn_lib.attend_full(
             params["attn"], h, positions, rope_theta=_rope_theta(cfg),
             softcap=cfg.attn_logit_softcap, window=window, causal=causal,
-            qk_norm=cfg.qk_norm, return_kv=collect_cache)
+            qk_norm=cfg.qk_norm, return_kv=collect_cache,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads)
         if collect_cache:
             mixed, k, v = mixed
             cache = {"k": k, "v": v}
@@ -161,7 +176,7 @@ def _block_tail(params, x, mixed, cfg: ModelConfig, kind: str, moe_layer: bool,
             h, aux = moe_apply(params["mlp"], h, cfg.moe,
                                capacity_factor=capacity_factor)
         else:
-            h = apply_mlp(params["mlp"], h, cfg.mlp_kind)
+            h = apply_mlp(params["mlp"], h, cfg.mlp_kind, d_ff=cfg.d_ff)
         if cfg.post_attn_norm:
             h = apply_norm(params["post_mlp_norm"], h, cfg.norm_kind)
         x = x + h

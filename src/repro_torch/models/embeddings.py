@@ -1,5 +1,11 @@
 """Token embeddings, tied/untied unembedding, RoPE and sinusoidal positions
-(counterpart of `repro/models/embeddings.py`)."""
+(counterpart of `repro/models/embeddings.py`).
+
+Tensor parallelism: a `table` with fewer rows than the config's vocab is
+this rank's vocab shard (rows [m·n, (m+1)·n)).  The lookup is then
+vocab-parallel — each rank looks up the tokens in its rows, zeros for the
+rest, and the sum over the model group is every token's row — and the
+unembedding gives this rank's columns of the logits (`vocab_shard`)."""
 
 from __future__ import annotations
 
@@ -8,6 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import model_axis, tp_enter, tp_reduce
 from repro_torch.models.common import normal_init
 
 
@@ -15,22 +22,47 @@ def init_embedding(gen, vocab: int, d: int, dtype, device):
     return {"table": normal_init(gen, (vocab, d), dtype, device)}
 
 
-def embed_tokens(params, tokens, scale: bool, d_model: int):
+def vocab_shard(table, vocab: int | None):
+    """(first row, rows) of this rank's vocab shard when `table` is one;
+    else None."""
+    tp = model_axis()
+    if tp is None or vocab is None or table.shape[0] == vocab:
+        return None
+    return tp[1] * table.shape[0], table.shape[0]
+
+
+def embed_tokens(params, tokens, scale: bool, d_model: int,
+                 vocab: int | None = None):
+    shard = vocab_shard(params["table"], vocab)
+    if shard is not None:
+        v0, n = shard
+        local = tokens.long() - v0
+        inside = (local >= 0) & (local < n)
+        x = F.embedding(local.clamp(0, n - 1), params["table"])
+        x = tp_reduce(x * inside[..., None].to(x.dtype))
+    else:
+        x = _lookup(params["table"], tokens)
+    if scale:
+        x = x * torch.tensor(math.sqrt(d_model), dtype=x.dtype)
+    return x
+
+
+def _lookup(table, tokens):
     # F.embedding, not indexing: the backward of `table[tokens]` accumulates
     # with parallel float atomics on the CPU once a batch holds 32768
     # elements or more, so repeated tokens summed in a different order from
     # run to run; F.embedding's backward adds each table row's gradients in
     # token order on the CPU and sorts on the card — the same bits every
     # run, which bit-exact resume needs
-    x = F.embedding(tokens.long(), params["table"])
-    if scale:
-        x = x * torch.tensor(math.sqrt(d_model), dtype=x.dtype)
-    return x
+    return F.embedding(tokens.long(), table)
 
 
-def unembed(params, x, tied_table=None):
-    """Project hidden states to vocab logits (tied or untied)."""
+def unembed(params, x, tied_table=None, vocab: int | None = None):
+    """Project hidden states to vocab logits (tied or untied); a vocab
+    shard gives this rank's columns, x entering through `tp_enter`."""
     table = tied_table if tied_table is not None else params["table"]
+    if vocab_shard(table, vocab) is not None:
+        x = tp_enter(x)
     return torch.einsum("...d,vd->...v", x, table.to(x.dtype))
 
 

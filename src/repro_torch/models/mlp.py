@@ -1,11 +1,17 @@
 """Dense MLP variants: SwiGLU / GeGLU / GELU / squared-ReLU (counterpart of
-`repro/models/mlp.py`)."""
+`repro/models/mlp.py`).
+
+Tensor parallelism: when `w_up` holds fewer columns than the config's
+`d_ff`, the leaves are this rank's ffn shard; the input enters through
+`tp_enter` and `w_down`'s partial sum is made whole by `maybe_shard` at
+the reference's exit."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import maybe_shard, model_axis, tp_enter
 from repro_torch.models.common import normal_init
 
 
@@ -29,7 +35,11 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(params, x, kind: str):
+def apply_mlp(params, x, kind: str, d_ff: int | None = None):
+    sharded = (d_ff is not None and params["w_up"].shape[1] != d_ff
+               and model_axis() is not None)
+    if sharded:
+        x = tp_enter(x)
     if kind in ("swiglu", "geglu"):
         gate = torch.einsum("btd,df->btf", x, params["w_gate"].to(x.dtype))
         up = torch.einsum("btd,df->btf", x, params["w_up"].to(x.dtype))
@@ -43,4 +53,5 @@ def apply_mlp(params, x, kind: str):
             h = torch.square(F.relu(h))
         else:
             raise ValueError(kind)
-    return torch.einsum("btf,fd->btd", h, params["w_down"].to(x.dtype))
+    out = torch.einsum("btf,fd->btd", h, params["w_down"].to(x.dtype))
+    return maybe_shard(out, "batch", "seq", "embed") if sharded else out

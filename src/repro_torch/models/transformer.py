@@ -18,6 +18,14 @@ two layouts.
 Cross-entropy can run in sequence chunks (`cfg.xent_chunk`), each chunk's
 logits recomputed in the backward pass, so the (batch, seq, vocab) logits
 tensor is never materialized whole.
+
+Under a model axis (`distributed/sharding.py`) the leaves are this rank's
+shards: attention and the MLP run on its heads and ffn columns, and with
+the table on the axis the lookup and the cross-entropy are vocab-parallel
+— the max, Σexp and the target logit are reduced over the model group, so
+no rank holds the whole logits.  `remat="tp_boundary"` recomputes each
+layer in the backward pass but keeps its row-parallel outputs, so the
+forward's all-reduces never run twice.
 """
 
 from __future__ import annotations
@@ -25,13 +33,16 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import (
+    checkpoint_tp_boundary, tp_max, tp_reduce)
 from repro_torch.models import blocks as blk
 from repro_torch.models.attention import (
     cross_attend, init_attention, precompute_cross_kv)
 from repro_torch.models.common import resolve_device
 from repro_torch.models.config import ATTN, MLA_ATTN, ModelConfig
 from repro_torch.models.embeddings import (
-    embed_tokens, init_embedding, sinusoidal_at, sinusoidal_positions, unembed)
+    embed_tokens, init_embedding, sinusoidal_at, sinusoidal_positions, unembed,
+    vocab_shard)
 from repro_torch.models.norms import init_norm, apply_norm
 
 
@@ -64,10 +75,12 @@ def _init_one_block(gen, cfg, kind, moe_layer, device):
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters: normal(0, 0.02) weights, unit norm scales, drawn
     from a `torch.Generator` seeded with `seed` on `device` (default: the
-    CUDA card; raises when there is none)."""
+    CUDA card; raises when there is none).  On the "meta" device: shapes
+    and dtypes only (what `distributed/params.py` reads)."""
     blk.check_supported(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     params = {"embed": init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                       cfg.p_dtype, device)}
     params["layers"] = [_init_one_block(gen, cfg, kind, moe_layer, device)
@@ -105,7 +118,8 @@ def encode(params, frames, cfg: ModelConfig):
 def _apply_cross(p, x, enc, cfg):
     if enc is not None and "cross_attn" in p:
         h = apply_norm(p["cross_norm"], x, cfg.norm_kind)
-        x = x + cross_attend(p["cross_attn"], h, enc)
+        x = x + cross_attend(p["cross_attn"], h, enc, num_heads=cfg.num_heads,
+                             num_kv_heads=cfg.num_kv_heads)
     return x
 
 
@@ -137,6 +151,9 @@ def run_stack(params, x, positions, cfg: ModelConfig, enc=None,
         elif cfg.remat == "full":
             x, a = checkpoint(_block, p, x, positions, enc, cfg, kind, moe_layer,
                               use_reentrant=False)
+        elif cfg.remat == "tp_boundary":
+            x, a = checkpoint_tp_boundary(_block, p, x, positions, enc, cfg,
+                                          kind, moe_layer)
         else:
             x, a = _block(p, x, positions, enc, cfg, kind, moe_layer)
         aux = aux + a
@@ -146,10 +163,15 @@ def run_stack(params, x, positions, cfg: ModelConfig, enc=None,
 
 # ------------------------------------------------------------------ loss ----
 
+def _unembed_table(params, cfg: ModelConfig):
+    return (params["embed"] if cfg.tie_embeddings else params["unembed"])["table"]
+
+
 def _logits(params, hidden, cfg: ModelConfig):
+    """Logits; under a vocab-sharded table this rank's columns."""
     tied = params["embed"]["table"] if cfg.tie_embeddings else None
     src = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    logits = unembed(src, hidden, tied_table=tied)
+    logits = unembed(src, hidden, tied_table=tied, vocab=cfg.vocab_size)
     if cfg.final_logit_softcap > 0:
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)
@@ -167,17 +189,39 @@ def _xent(logits, labels):
     return nll.sum(), mask.sum()
 
 
+def _xent_vocab_parallel(logits, labels, v0: int):
+    """`_xent` over this rank's vocab columns [v0, v0 + n): logz = max +
+    log Σexp with the max and Σexp reduced over the model group, and the
+    target logit from the one rank whose columns hold it."""
+    mask = labels >= 0
+    logits = logits.float()
+    n = logits.shape[-1]
+    top = tp_max(logits.max(dim=-1).values)
+    logz = top + torch.log(tp_reduce(torch.exp(logits - top[..., None]).sum(-1)))
+    local = labels.long() - v0
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = tp_reduce(gold * inside)
+    nll = (logz - gold) * mask
+    return nll.sum(), mask.sum()
+
+
 def token_loss(params, hidden, labels, cfg: ModelConfig):
     """Masked mean cross-entropy, chunked over the sequence axis when
     `cfg.xent_chunk` divides it."""
+    shard = vocab_shard(_unembed_table(params, cfg), cfg.vocab_size)
+    if shard is None:
+        xent = _xent
+    else:
+        xent = lambda logits, lab: _xent_vocab_parallel(logits, lab, shard[0])
     chunk = cfg.xent_chunk
     t = hidden.shape[1]
     if chunk <= 0 or t <= chunk or t % chunk != 0:
-        s, c = _xent(_logits(params, hidden, cfg), labels)
+        s, c = xent(_logits(params, hidden, cfg), labels)
         return s / torch.clamp(c, min=1)
 
     def body(hc, lc):
-        return _xent(_logits(params, hc, cfg), lc)
+        return xent(_logits(params, hc, cfg), lc)
 
     s = torch.zeros((), dtype=torch.float32, device=hidden.device)
     c = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -193,7 +237,8 @@ def token_loss(params, hidden, labels, cfg: ModelConfig):
 # ------------------------------------------------------------- model API ----
 
 def _embed(params, tokens, cfg: ModelConfig):
-    x = embed_tokens(params["embed"], tokens, cfg.scale_embed, cfg.d_model)
+    x = embed_tokens(params["embed"], tokens, cfg.scale_embed, cfg.d_model,
+                     vocab=cfg.vocab_size)
     return x.to(cfg.act_dtype)
 
 

@@ -64,15 +64,24 @@ def _bias_corrections(cfg: AdamWConfig, count):
     return 1.0 - cfg.beta1 ** n, 1.0 - cfg.beta2 ** n
 
 
-def adamw_update(params, grads, state, cfg: AdamWConfig, lr):
+def adamw_update(params, grads, state, cfg: AdamWConfig, lr, *,
+                 grad_sqnorm=None):
     """One AdamW step on trees (the oracle); returns (new_params, new_state,
     grad_norm) as new tensors.  `lr` may be a float or a 0-d tensor.
+    `grad_sqnorm`, when given, is the whole gradient's Σg² for the clip —
+    under a model axis `grads` holds only this rank's slices, so the caller
+    sums them over the group, each replicated leaf once.
 
     With `cfg.use_kernel` the update runs leaf by leaf through
     `kernels.ops.fused_adamw_tree` (the per-tensor `fused_adamw` kernel on
     the card), IN PLACE on the params and moments passed in, where the
     reference step donates them."""
-    if cfg.grad_clip > 0:
+    if grad_sqnorm is not None:
+        gnorm = torch.sqrt(grad_sqnorm)
+        if cfg.grad_clip > 0:
+            scale = clip_scale_from_norm(gnorm, cfg.grad_clip)
+            grads = tree_map(lambda g: (g.float() * scale).to(g.dtype), grads)
+    elif cfg.grad_clip > 0:
         grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     else:
         gnorm = torch.sqrt(tree_sqnorm(grads))

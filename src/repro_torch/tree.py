@@ -19,11 +19,15 @@ class TreeDef:
     node: tuple
 
 
-def tree_flatten(tree):
-    """(leaves, treedef) in the reference's leaf order."""
+def tree_flatten(tree, is_leaf=None):
+    """(leaves, treedef) in the reference's leaf order; `is_leaf(x)` true
+    stops the walk at x (a spec tuple, say)."""
     leaves = []
 
     def rec(x):
+        if is_leaf is not None and is_leaf(x):
+            leaves.append(x)
+            return ("leaf",)
         if isinstance(x, dict):
             keys = tuple(sorted(x))
             return ("dict", keys, tuple(rec(x[k]) for k in keys))

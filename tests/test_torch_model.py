@@ -115,8 +115,15 @@ def test_full_width_microllama_and_unsupported_configs():
     assert cfg.act_dtype == torch.float32
     with pytest.raises(KeyError, match="supported"):
         get_config("mamba3-1b")
-    with pytest.raises(NotImplementedError, match="tp_boundary"):
-        build_model(cfg.replace(remat="tp_boundary")).init(device="cpu")
+    # tp_boundary is ported (tests/test_torch_tp.py); an unknown remat
+    # policy, and a model axis over layers the port does not shard, raise
+    build_model(cfg.replace(remat="tp_boundary")).init(device="cpu")
+    with pytest.raises(NotImplementedError, match="remat='offload'"):
+        build_model(cfg.replace(remat="offload")).init(device="cpu")
+    from repro_torch.models.blocks import check_model_axis
+    check_model_axis(cfg, 2)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        check_model_axis(get_config("mamba2-370m"), 2)
     p = build_model(get_smoke_config("llama3.2-1b")).init(seed=1, device="cpu")
     q = build_model(get_smoke_config("llama3.2-1b")).init(seed=1, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p), tree_leaves(q)))

@@ -129,8 +129,11 @@ def test_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch, tmp_path, c
                                         checkpoint_every=1))
     assert sorted(f.name for f in ck.glob("*.npz")) == [
         "ckpt_00000001.npz", "ckpt_00000002.npz"]
-    for kw, item in ((dict(step_impl="accum_norm", mesh_data=2), "item 7"),
-                     (dict(mesh_model=2), "item 7")):
+    # the grid is ported (tests/test_torch_tp.py); what it does not cover
+    # yet raises before any rank starts
+    for kw, item in ((dict(arch="dbrx-132b", mesh_model=2), "item 7"),
+                     (dict(step_impl="accum_norm", mesh_data=2,
+                           stats_impl="flat"), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             ttrain.run_training(ttrain.TrainJob(device="cpu", **kw))
     # coordination, warm-up and the compile cache are ported: the CLI runs

@@ -126,6 +126,26 @@ exit (nothing is caught):
               kernel held against its plain version at the shapes the
               phase gave it.  `python3 chip_smoke.py
               mesh [layers]` runs the device, build and this phase alone.
+   mesh-kinds — the MoE, MLA, SSD and RG-LRU layers on the model axis,
+              gloo ranks sharing the card: (a) dbrx's MoE layer (d 6144, 16
+              experts of 10752, top-4), deepseek-v2's MLA (128 heads,
+              kv_lora 512) and MoE (160 experts of 1536 and 2 shared) layers,
+              one mamba2-370m SSD layer and one recurrentgemma-9b RG-LRU
+              block, full width, 2 x 512 tokens from a seed, at a capacity
+              where no pair drops, on 2 ranks against the same layer whole
+              (each rank runs it in turn first): output, dx and every
+              leaf's gradient within KINDS_RTOL; (b) `run_training` at full
+              width, depth cut (KINDS_LAYERS): mamba2-370m FSDP-Norm
+              flat/flat and stats flat with params tree on 2 x 2 against
+              2 x 1, recurrentgemma-9b FSDP-Norm tree/tree on 1 x 2 against
+              1 x 1 (flash on 8 local q heads of 16 at d 256 in its eval);
+              metrics within MESH_RTOL, params by the per-entry share, each
+              rank's launches, step ms, peak memory and TP seconds, and
+              every kernel against its plain version at the phase's shapes.
+              dbrx and deepseek-v2 train on the grid at smoke width only
+              (`mesh_kinds_phase` gives the memory).  `python3 chip_smoke.py
+              mesh-kinds [layers]` runs the device, build and this phase
+              alone.
    serve    — serving's main path, full-width llama3.2-1b (16 layers):
               `make_prefill` at 4 x 2048 tokens (launch counts 0 just
               before, exactly 16 flash_attention and 33 rmsnorm just after;
@@ -196,7 +216,7 @@ exit (nothing is caught):
               the save and restore times are printed, and the checkpoint
               directory is removed, passed or failed.
    resume-fsdp — the same with FSDP-Norm on 2 gloo ranks sharing the card
-              (full depth): 6 steps; 4 steps with checkpoints, then a fresh
+              (RESUME_FSDP_LAYERS of 12): 6 steps; 4 steps with checkpoints, then a fresh
               `run_training(resume=True)` to 6, in one process group; the
               flat shards are gathered on save and re-split on resume.
 
@@ -295,7 +315,7 @@ KERNELS = ("fused_adamw_stats", "fused_adamw", "fused_stats", "sqdiff_norm",
            "rmsnorm", "flash_attention")
 # phase mesh: the model axis, full-width microllama-300m on gloo ranks that
 # share the card; a constant plan of 8 a step (M = 2 microbatches of 4)
-MESH_LAYERS = 4           # of 12: at full depth the phase took 234 s (PERF.md §4)
+MESH_LAYERS = 2           # of 12: at full depth the phase took 234 s, at 4 105 s (PERF.md §4, §6)
 MESH_JOB = dict(arch="microllama-300m", smoke=False, schedule="constant",
                 step_impl="fsdp_norm", stats_impl="flat", params_impl="flat",
                 seq_len=512, base_global_batch=8, max_global_batch=8,
@@ -303,6 +323,20 @@ MESH_JOB = dict(arch="microllama-300m", smoke=False, schedule="constant",
                 eval_every=3, eval_batches=1, device="cuda", dist_backend="gloo")
 MESH_RTOL = 1e-5          # loss, var_l1, grad_sqnorm across grids
 MESH_SHARE = 2.5e-2       # params after step 3: entries past rtol 1e-5 / atol 1e-7
+# phase mesh-kinds: the MoE, MLA, SSD and RG-LRU layers on the model axis.
+# (a) each layer at full width, 2 x 512 tokens, on 2 ranks against whole
+KINDS_TOKENS = (2, 512)
+KINDS_RTOL = 1e-5         # max abs error over the largest magnitude, f32
+KINDS_PIECES = {"dbrx-moe": ("dbrx-132b", "moe"),
+                "deepseek-v2-mla": ("deepseek-v2-236b", "mla"),
+                "deepseek-v2-moe": ("deepseek-v2-236b", "moe"),
+                "mamba2-ssd": ("mamba2-370m", "ssd"),
+                "recurrentgemma-rglru": ("recurrentgemma-9b", "rglru")}
+# (b) training on the grid at full width, depth cut: mamba2-370m 4 of its 48
+# SSD layers; recurrentgemma-9b its 2 RG-LRU prefix layers and one (rglru,
+# rglru, local) repeat
+KINDS_LAYERS = {"mamba2-370m": 4, "recurrentgemma-9b": 5}
+KINDS_JOB = dict(MESH_JOB, arch="mamba2-370m")
 
 
 def say(phase: str, **kv):
@@ -1156,6 +1190,27 @@ def mesh_rank(runs, layers, root):
     return out
 
 
+def mesh_agree(runs, a, b, what, dev, var_scale=1.0) -> dict:
+    """Runs a and b agree: metrics at MESH_RTOL (b's var_l1 times
+    var_scale) and the final parameters by the per-entry share; returns the
+    largest entry error and the share past rtol 1e-5 / atol 1e-7."""
+    for k in ("loss", "var_l1", "grad_sqnorm"):
+        for x, y in zip(runs[a][k], runs[b][k]):
+            y = y * (var_scale if k == "var_l1" else 1.0)
+            if not close(x, y, MESH_RTOL):
+                raise AssertionError(f"{what}: {k} {runs[a][k]} vs {runs[b][k]}")
+    worst, off, n = 0.0, 0, 0
+    for x, y in zip(runs[a]["final_params"], runs[b]["final_params"]):
+        x, y = x.to(dev).float(), y.to(dev).float()
+        d = (x - y).abs()
+        worst = max(worst, float(d.max()))
+        off += int((d > 1e-7 + 1e-5 * y.abs()).sum())
+        n += y.numel()
+    if worst > 1e-4 or off / n > MESH_SHARE:
+        raise AssertionError(f"{what}: params max err {worst}, share {off / n}")
+    return {"max_abs_err": worst, "share_past_1e-5": off / n}
+
+
 def mesh_phase(smi, ops, dev) -> tuple:
     """Phase mesh: the model axis on the card (module docstring): the 2 x 2
     runs on one group of 4 ranks, the 2 x 1 runs on one of 2, J = 1 in this
@@ -1204,30 +1259,10 @@ def mesh_phase(smi, ops, dev) -> tuple:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    def agree(a, b, what, var_scale=1.0):
-        """Metrics at MESH_RTOL (b's var_l1 times var_scale) and the final
-        parameters by the per-entry share; returns the largest entry error
-        and the share past rtol 1e-5 / atol 1e-7."""
-        for k in ("loss", "var_l1", "grad_sqnorm"):
-            for x, y in zip(runs[a][k], runs[b][k]):
-                y = y * (var_scale if k == "var_l1" else 1.0)
-                if not close(x, y, MESH_RTOL):
-                    raise AssertionError(f"{what}: {k} {runs[a][k]} vs {runs[b][k]}")
-        worst, off, n = 0.0, 0, 0
-        for x, y in zip(runs[a]["final_params"], runs[b]["final_params"]):
-            x, y = x.to(dev).float(), y.to(dev).float()
-            d = (x - y).abs()
-            worst = max(worst, float(d.max()))
-            off += int((d > 1e-7 + 1e-5 * y.abs()).sum())
-            n += y.numel()
-        if worst > 1e-4 or off / n > MESH_SHARE:
-            raise AssertionError(f"{what}: params max err {worst}, share {off / n}")
-        return {"max_abs_err": worst, "share_past_1e-5": off / n}
-
-    flat_pair = agree("fsdp-flat-2x2", "fsdp-flat-2x1", "flat 2x2 vs 2x1")
-    tree_pair = agree("fsdp-tree-2x2", "fsdp-tree-2x1", "tree 2x2 vs 2x1")
-    accum_pair = agree("accum-flat-J2", "accum-flat-J1", "ACCUM-NORM J=2 vs J=1",
-                       var_scale=2.0)
+    flat_pair = mesh_agree(runs, "fsdp-flat-2x2", "fsdp-flat-2x1", "flat 2x2 vs 2x1", dev)
+    tree_pair = mesh_agree(runs, "fsdp-tree-2x2", "fsdp-tree-2x1", "tree 2x2 vs 2x1", dev)
+    accum_pair = mesh_agree(runs, "accum-flat-J2", "accum-flat-J1",
+                            "ACCUM-NORM J=2 vs J=1", dev, var_scale=2.0)
     res, full = runs["fsdp-tree-2x2-resume"], runs["fsdp-tree-2x2"]
     same_suffix(res, full, 2)
     if not all(torch.equal(x, y) for x, y in zip(res["final_params"], full["final_params"])):
@@ -1269,6 +1304,228 @@ def mesh_phase(smi, ops, dev) -> tuple:
         flash_calls=[list(c[0]) for c in main["calls"]["flash_attention"]],
         rmsnorm_calls=[list(c[0]) for c in main["calls"]["rmsnorm"]],
         flat_buckets={k: [len(c[0]) for c in v] for k, v in flat.items()},
+        launches=launches, max_abs_err=err)
+    return launches, err
+
+
+def kinds_piece(name: str, dev):
+    """(build(gen) -> the piece's leaves, fn(leaves, x, positions) -> out,
+    d_model) of one layer piece of phase mesh-kinds at its config's full
+    width; MoE at a capacity factor of E, where every slot count is the
+    row's n and no pair drops."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import mla, moe, rglru, ssd
+    arch, kind = KINDS_PIECES[name]
+    cfg = get_config(arch)
+    f32, d = torch.float32, cfg.d_model
+    if kind == "moe":
+        m = dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.num_experts))
+        return (lambda gen: moe.init_moe(gen, d, m, f32, dev),
+                lambda p, x, pos: sum(moe.moe_apply(p, x, m)), d)
+    if kind == "mla":
+        return (lambda gen: mla.init_mla(gen, d, cfg.num_heads, cfg.mla, f32, dev),
+                lambda p, x, pos: mla.mla_full(p, x, pos, cfg.mla, num_heads=cfg.num_heads), d)
+    if kind == "ssd":
+        return (lambda gen: ssd.init_ssd(gen, d, cfg.ssm, f32, dev),
+                lambda p, x, pos: ssd.ssd_block(p, x, cfg.ssm), d)
+    return (lambda gen: rglru.init_rglru(gen, d, cfg.rglru, f32, dev),
+            lambda p, x, pos: rglru.rglru_block(p, x, cfg.rglru), d)
+
+
+def kinds_piece_rank(names):
+    """One rank of phase mesh-kinds (a) on a (1, 2) mesh.  Per piece the
+    ranks first run the whole layer one after another (one whole layer on
+    the card at a time), each keeping its slices of the output, dx and the
+    leaves' gradients on the host; then the piece runs tensor-parallel.
+    Returns every rank's {piece: largest relative error (a "partial"
+    leaf's gradient summed over the model group first), roles, seconds of
+    the TP forward and backward, TP collective seconds, peak bytes}."""
+    import torch.distributed as dist
+    from repro_torch.distributed import params as P
+    from repro_torch.distributed.sharding import (
+        DEFAULT_RULES, TP_STATS, use_sharding_rules)
+    from repro_torch.launch import mesh as M
+    from repro_torch.tree import (
+        tree_flatten, tree_leaves, tree_map, tree_paths, tree_unflatten)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = M.make_host_mesh(data=1, model=2)
+    rank = dist.get_rank()
+    b, t = KINDS_TOKENS
+    out = {}
+    for i, name in enumerate(names):
+        build, fn, d = kinds_piece(name, dev)
+        make = lambda: {"layers": [{"p": build(torch.Generator(device=dev).manual_seed(i))}]}
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        x0 = torch.randn((b, t, d), device=dev, generator=gen)
+        pos = torch.arange(t, device=dev).expand(b, t)
+
+        def run(tree, tp):
+            leaves, treedef = tree_flatten(tree)
+            xs = [p.detach().requires_grad_(True) for p in leaves]
+            x = x0.clone().requires_grad_(True)
+            with use_sharding_rules(DEFAULT_RULES if tp else None, mesh):
+                y = fn(tree_unflatten(treedef, xs)["layers"][0]["p"], x, pos)
+                up = torch.randn(y.shape, device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(200 + i))
+                grads = torch.autograd.grad((y * up).sum(), xs + [x])
+            return y.detach(), grads[-1], grads[:-1]
+
+        for r in range(2):
+            if r == rank:
+                tree = make()
+                specs = P.param_pspecs(tree, mesh)
+                y, dx, g = run(tree, False)
+                g = P.shard_tree(tree_unflatten(tree_flatten(tree)[1], list(g)), specs, mesh)
+                want = [y.cpu(), dx.cpu()] + [x.cpu() for x in tree_leaves(g)]
+                del tree, y, dx, g
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        tree = make()
+        roles = tree_flatten(P.model_roles(tree, specs))[0]
+        local = tree_map(lambda x: x.contiguous(), P.shard_tree(tree, specs, mesh))
+        del tree
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        TP_STATS.update(calls=0, seconds=0.0)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        y, dx, g = run(local, True)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        got = [y, dx] + [M.psum(x.clone(), mesh.model_group) if role == "partial" else x
+                         for x, role in zip(g, roles)]
+        errs = {k: float((a - w.to(dev)).abs().max() / w.abs().max().to(dev))
+                for k, a, w in zip(["out", "dx"] + [k for k, _ in tree_paths(local)],
+                                   got, want)}
+        worst = max(errs, key=errs.get)
+        out[name] = {"max_rel_err": errs[worst], "worst": worst,
+                     "sharded": roles.count("sharded"),
+                     "partial": roles.count("partial"),
+                     "replicated": roles.count("replicated"),
+                     "tp_fwd_bwd_s": round(seconds, 3),
+                     "tp_collective_s": round(TP_STATS["seconds"], 3),
+                     "tp_collectives": TP_STATS["calls"],
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+        del local, y, dx, g, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    every = [None] * 2
+    dist.all_gather_object(every, out)
+    return every
+
+
+def mesh_kinds_phase(smi, ops, dev) -> tuple:
+    """Phase mesh-kinds: the MoE, MLA, SSD and RG-LRU layers on the model
+    axis, on gloo ranks that share the card.
+
+    (a) Each layer at full width (dbrx's MoE, 16 experts of 10752 at d 6144,
+    top-4; deepseek-v2's MLA, 128 heads at kv_lora 512, and its MoE, 160
+    experts of 1536 and 2 shared; one mamba2-370m SSD layer; one
+    recurrentgemma-9b RG-LRU block), 2 x 512 tokens from a seed, on 2 ranks
+    against the same layer whole: output, dx and every leaf's gradient
+    within KINDS_RTOL.
+    (b) `run_training` at full width, depth cut (KINDS_LAYERS): mamba2-370m
+    FSDP-Norm flat/flat and the mixed residency (stats flat, params tree)
+    on 2 x 2 against 2 x 1; recurrentgemma-9b FSDP-Norm tree/tree (the tree
+    routes) on 1 x 2 against 1 x 1, its eval's flash on 8 local q heads of
+    16 at head dim 256 beside its one kv head, replicated.  The metrics
+    within MESH_RTOL, the final params by the per-entry share, each rank's
+    launches, every kernel against its plain version at the phase's
+    shapes.  Memory rules out the rest: recurrentgemma-9b's 2.17 B f32
+    parameters need p, m, v and two whole gradient buffers on each rank of
+    a flat ACCUM-NORM 1 x 2 (~44 GB a rank, two on one card), and ~38 GB a
+    rank as a tree (its vocab table whole under ZeRO-3's specs), while
+    FSDP-Norm's tree slices hold ~26 GB a rank; dbrx's and deepseek-v2's
+    expert layers alone are 12.7 and 15.1 GB of f32 parameters, so p, m, v,
+    g and g_j of one layer pass 80 GB even over 2 ranks, and they train on
+    the grid at smoke width only (tests/test_torch_tp_kinds.py).
+    Returns (each kernel's launches on the phase's main runs, summed over
+    their ranks; each kernel's max abs error at the phase's shapes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_workers
+
+    t_phase = time.time()
+    # the card as empty as this process can leave it: recurrentgemma's 1 x 1
+    # run here peaks near 70 GB
+    gc.collect()
+    torch.cuda.empty_cache()
+    pieces = spawn_workers(kinds_piece_rank, 2, list(KINDS_PIECES), backend="gloo")
+    for name in KINDS_PIECES:
+        worst = max(r[name]["max_rel_err"] for r in pieces)
+        say("mesh-kinds", nvidia_smi=smi, piece=name, tokens=list(KINDS_TOKENS),
+            max_rel_err=worst, limit=KINDS_RTOL, ranks=[r[name] for r in pieces])
+        if not worst <= KINDS_RTOL:
+            raise AssertionError(f"{name}: TP vs whole {worst} > {KINDS_RTOL}")
+
+    grid, line = dict(mesh_data=2, mesh_model=2), dict(mesh_data=2)
+    mixed = dict(stats_impl="flat", params_impl="tree")
+    tree = dict(arch="recurrentgemma-9b", stats_impl="tree", params_impl="tree")
+    plan = [("mamba2-370m", 4, [("ssd-flat-2x2", grid), ("ssd-mixed-2x2", dict(**mixed, **grid))]),
+            ("mamba2-370m", 2, [("ssd-flat-2x1", line), ("ssd-mixed-2x1", dict(**mixed, **line))]),
+            ("recurrentgemma-9b", 2, [("rglru-tree-1x2", dict(mesh_data=1, mesh_model=2, **tree))]),
+            ("recurrentgemma-9b", 1, [("rglru-tree-1x1", dict(mesh_data=1, **tree))])]
+    runs = {}
+    for arch, world, group in plan:
+        jobs = [(name, dict(KINDS_JOB, **kw)) for name, kw in group]
+        out = (spawn_workers(mesh_rank, world, jobs, KINDS_LAYERS[arch], "", backend="gloo")
+               if world > 1 else mesh_rank(jobs, KINDS_LAYERS[arch], ""))
+        for name, job in jobs:
+            r = runs[name] = out[name]
+            steps = [b - a for a, b in zip([0.0] + r["time"][:-1], r["time"])]
+            say("mesh-kinds", nvidia_smi=smi, run=name, arch=arch,
+                layers=KINDS_LAYERS[arch], grid=f"{job['mesh_data']}x{job.get('mesh_model', 1)}",
+                stats=job["stats_impl"], params=job["params_impl"],
+                seconds=round(r["seconds"], 3), step_ms=[round(1e3 * x, 3) for x in steps],
+                loss=r["loss"], var_l1=r["var_l1"], grad_sqnorm=r["grad_sqnorm"],
+                peak_mem_bytes=[x["peak_mem_bytes"] for x in r["ranks"]],
+                tp_allreduce_s_per_step=[round(x["tp_allreduce_s"] / len(steps), 4)
+                                         for x in r["ranks"] if "tp_allreduce_s" in x],
+                launches=r["ranks"][0]["launches"])
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    pairs = {what: mesh_agree(runs, a, b, what, dev) for what, a, b in (
+        ("ssd flat 2x2 vs 2x1", "ssd-flat-2x2", "ssd-flat-2x1"),
+        ("ssd mixed 2x2 vs 2x1", "ssd-mixed-2x2", "ssd-mixed-2x1"),
+        ("rglru tree 1x2 vs 1x1", "rglru-tree-1x2", "rglru-tree-1x1"))}
+    for r in runs.values():
+        del r["final_params"]
+    steps = KINDS_JOB["steps"]
+    zero = {k: 0 for k in KERNELS}
+    ssd_cfg, rg_cfg = (get_config(a).replace(num_layers=n) for a, n in KINDS_LAYERS.items())
+    flat = runs["ssd-flat-2x2"]
+    groups = len({dt for _, dts in flat["flat_calls"]["fused_adamw_stats"] for dt in dts})
+    tail = {"fused_stats": steps, "fused_adamw_stats": steps * groups}
+    want = {"ssd-flat-2x2": zero | forward_kernel_launches(ssd_cfg) | tail,
+            "ssd-mixed-2x2": zero | forward_kernel_launches(ssd_cfg) | tail,
+            "rglru-tree-1x2": zero | forward_kernel_launches(rg_cfg)
+            | {"fused_adamw": steps, "sqdiff_norm": steps}}
+    for name, w in want.items():
+        for rank, r in enumerate(runs[name]["ranks"]):
+            if r["launches"] != w:
+                raise AssertionError(f"{name} rank {rank} launched {r['launches']}, "
+                                     f"expected {w}")
+    rg = runs["rglru-tree-1x2"]
+    flash = {(c[0][2], c[0][3], c[1][2]) for c in rg["calls"]["flash_attention"]}
+    if flash != {(rg_cfg.num_heads // 2, rg_cfg.head_dim, rg_cfg.num_heads // 2)}:
+        raise AssertionError(f"recurrentgemma's flash ran as (q heads, d, kv heads) "
+                             f"{flash}, not 8 local q heads of 16 at d 256")
+    calls = {k: flat["calls"][k] + rg["calls"][k] for k in flat["calls"]}
+    flat_calls = {k: flat["flat_calls"][k] + runs["ssd-mixed-2x2"]["flat_calls"][k]
+                  + rg["flat_calls"][k] for k in flat["flat_calls"]}
+    err = {**check_path_shapes(calls, dev), **check_flat_shapes(flat_calls, dev)}
+    launches = {k: sum(sum(r["launches"][k] for r in runs[n]["ranks"]) for n in want)
+                for k in KERNELS}
+    say("mesh-kinds", nvidia_smi=smi, seconds=round(time.time() - t_phase, 3),
+        layers=KINDS_LAYERS, **{k.replace(" ", "_"): v for k, v in pairs.items()},
+        peak_mem_bytes_max_rank={n: max(x["peak_mem_bytes"] for x in r["ranks"])
+                                 for n, r in runs.items()},
+        flash_calls=[list(c[0]) + list(c[1]) for c in rg["calls"]["flash_attention"]],
+        rmsnorm_calls=[list(c[0]) for c in calls["rmsnorm"]],
         launches=launches, max_abs_err=err)
     return launches, err
 
@@ -1727,6 +1984,8 @@ def time_serving_kernels(dev, bw):
 RESUME_JOB = dict(TRAIN_JOB, total_samples=6 * 32, eval_every=3, eval_batches=1)
 RESUME_FSDP_JOB = dict(RESUME_JOB, step_impl="fsdp_norm", mesh_data=2,
                        dist_backend="gloo")
+# resume-fsdp's depth: at the full 12 layers the phase took 168-172 s (PERF.md §6)
+RESUME_FSDP_LAYERS = 4
 # the mixed and local-SGD phases: microllama-300m at full width, 2 layers
 SMALL_LAYERS = 2
 LOCAL_H = 2
@@ -1890,8 +2149,12 @@ def resume_fsdp_rank(job, root):
     """One rank of phase resume-fsdp: the uninterrupted 6-step run (one
     checkpoint, at the end), a 4-step run with a checkpoint every 2 steps,
     and a fresh `run_training(resume=True)` to step 6, in one process
-    group.  Returns rank 0's histories."""
+    group, the config cut to RESUME_FSDP_LAYERS layers.  Returns rank 0's
+    histories."""
+    from repro_torch.launch import train as T
     from repro_torch.launch.train import TrainJob, run_training
+    full = T.get_config
+    T.get_config = lambda arch: full(arch).replace(num_layers=RESUME_FSDP_LAYERS)
     keep = ("loss", "global_batch", "samples", "var_l1", "val_loss",
             "resumed_from", "time", "ranks")
     runs = (("ref", dict(checkpoint_dir=f"{root}/ref")),
@@ -1918,7 +2181,6 @@ def resume_fsdp(smi, fsdp_layout):
     equal the uninterrupted run's bit for bit."""
     import shutil
     import tempfile
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn_workers
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -1928,7 +2190,7 @@ def resume_fsdp(smi, fsdp_layout):
         out = spawn_workers(resume_fsdp_rank, 2, RESUME_FSDP_JOB, tmp, backend="gloo")
         same_suffix(out["resumed"], out["ref"], 4)
         nbytes = same_checkpoint(f"{tmp}/ref", f"{tmp}/run", 6)
-        layers = get_config(TRAIN_JOB["arch"]).num_layers
+        layers = RESUME_FSDP_LAYERS
         want = {k: 0 for k in KERNELS} | {
             "fused_stats": 2, "fused_adamw_stats": 2 * adamw_groups(fsdp_layout),
             "flash_attention": layers, "rmsnorm": 2 * layers + 1}
@@ -2288,6 +2550,14 @@ def main() -> int:
     from repro_torch.kernels.sqdiff_norm import sqdiff_norm
 
     t_start = time.time()
+    laps, t_lap = {}, [t_start]
+
+    def lap(name):
+        """Seconds since the previous lap, under `name` (the total line)."""
+        now = time.time()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2309,6 +2579,7 @@ def main() -> int:
         ptxas=[line.strip() for log in logs.values() for line in log.splitlines()
                if "registers" in line or "spill" in line])
 
+    lap("build")
     # 3. kernel vs plain version on the card ---------------------------------
     hyper = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1)
     tol = {torch.float32: dict(rtol=1e-6, atol=1e-9),
@@ -2386,9 +2657,12 @@ def main() -> int:
         device=dev)
     list_err = check_bucket_kernels(dev, tol, hyper, sum_rtol, shard_layout)
     check_serving_kernels(dev)
+    lap("check")
     arch_launches, arch_err = check_archs(smi, ops, dev)
+    lap("archs")
     moe_on_card(smi, ops, dev)
 
+    lap("moe")
     # 4. the card's step against the CPU's on a small model -------------------
     from repro_torch.core.schedule import BatchPlan
     from repro_torch.data.pipeline import MarkovTokens, make_batch
@@ -2422,6 +2696,7 @@ def main() -> int:
                 raise AssertionError(f"card vs CPU step metric {k}: {a[k]} vs {b[k]}")
     say("ref", rtol=REF_RTOL, cuda=runs["cuda"], cpu=runs["cpu"])
 
+    lap("ref")
     # 5. FSDP-Norm, card against CPU, 2 gloo ranks -----------------------------
     fplan = BatchPlan(global_batch=8, micro_batch=2, accum_steps=2, workers=2)
     batches = [make_batch(src, t, fplan, 64) for t in range(2)]
@@ -2462,9 +2737,11 @@ def main() -> int:
         table_builds_hits=[{k: (v["table_builds"], v["table_hits"])
                             for k, v in r.items() if k.endswith("cuda")} for r in ranks])
 
+    lap("fsdp-ref")
     # serve-ref: serving, card against CPU, llama3.2-1b full width, 2 layers
     serve_ref(smi)
 
+    lap("serve-ref")
     # 6. slice 1's path: ACCUM-NORM, full-width microllama-300m ----------------
     from repro_torch.launch.train import TrainJob, run_training
 
@@ -2502,6 +2779,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()       # the ranks below need the card's memory
 
+    lap("train")
     # 7. the main path: FSDP-Norm, 2 workers on the one card --------------------
     ops.reset_launch_counts()
     hist = run_training(TrainJob(**FSDP_JOB))
@@ -2534,12 +2812,18 @@ def main() -> int:
         bytes_all_gather=4 * sum(fsdp_layout.buffer_sizes), probe_elements=1 << 24,
         ranks=coll)
 
+    lap("fsdp")
     # mesh: the model axis, a data x model grid of gloo ranks ------------------
     mesh_launches, mesh_err = mesh_phase(smi, ops, dev)
+    lap("mesh")
+    # mesh-kinds: the MoE, MLA, SSD and RG-LRU layers on the model axis ---------
+    kinds_launches, kinds_err = mesh_kinds_phase(smi, ops, dev)
 
+    lap("mesh-kinds")
     # serve: serving's main path, full-width llama3.2-1b -----------------------
     serve_launches = serve_path(smi, ops, dev)
 
+    lap("serve")
     # 8. timing at the main path's shapes --------------------------------------
     sizes = layout.buffer_sizes
     n_total = sum(sizes)
@@ -2727,11 +3011,17 @@ def main() -> int:
 
     # the training surface beyond the main path: the exact estimators, mixed
     # residency, local-SGD, and crash-safe resume in both steps
+    lap("time")
     estimators(smi, dev)
+    lap("estimators")
     mixed_and_local(smi, ops, dev)
+    lap("mixed, local-sgd")
     coord_phase(smi)
+    lap("coord")
     resume_accum(smi, ops, layout)
+    lap("resume-accum")
     resume_fsdp(smi, fsdp_layout)
+    lap("resume-fsdp")
     left = child_processes()
     if left:
         raise AssertionError(f"processes the run started are still there: {left}")
@@ -2752,9 +3042,10 @@ def main() -> int:
     path_launches = {**fsdp_launches, **tree_launches,
                      **{k: serve_launches[k] + arch_launches[k]
                         for k in ("rmsnorm", "flash_attention")}}
-    # and the mesh phase's 2 x 2 grid (every rank)
-    path_launches = {k: n + mesh_launches[k] for k, n in path_launches.items()}
-    err = {k: max(e, mesh_err.get(k, 0.0)) for k, e in err.items()}
+    # and the mesh phase's 2 x 2 grid and mesh-kinds' runs (every rank)
+    path_launches = {k: n + mesh_launches[k] + kinds_launches[k]
+                     for k, n in path_launches.items()}
+    err = {k: max(e, mesh_err.get(k, 0.0), kinds_err.get(k, 0.0)) for k, e in err.items()}
     entries = []
     for k, t in timed.items():
         # the operations each kernel does, at their type's rate: flash's
@@ -2769,7 +3060,7 @@ def main() -> int:
             "bound_ms": bound,
             "bound_by": "bytes" if t["bound_bytes_ms"] >= ops_ms else "operations",
             "library_ms": min(t["library_ms"])})
-    say("total", seconds=round(time.time() - t_start, 3))
+    say("total", seconds=round(time.time() - t_start, 3), phase_seconds=laps)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -2778,9 +3069,10 @@ def main() -> int:
     return 0
 
 
-def mesh_alone(layers: int) -> int:
-    """`python3 chip_smoke.py mesh [layers]`: the device, the build and
-    phase mesh at `layers` layers, nothing else (no result line)."""
+def phase_alone(phase: str, layers: int | None) -> int:
+    """`python3 chip_smoke.py mesh|mesh-kinds [layers]`: the device, the
+    build and that phase alone (mesh at `layers` layers, mesh-kinds with
+    mamba2 at `layers`), nothing else (no result line)."""
     global MESH_LAYERS
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2792,8 +3084,12 @@ def mesh_alone(layers: int) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     kernels.build_all(sorted(p.stem for p in kernels.CSRC.glob("*.cu")))
-    MESH_LAYERS = layers
-    mesh_phase(smi, ops, torch.device("cuda"))
+    if phase == "mesh":
+        MESH_LAYERS = layers or MESH_LAYERS
+        mesh_phase(smi, ops, torch.device("cuda"))
+    else:
+        KINDS_LAYERS["mamba2-370m"] = layers or KINDS_LAYERS["mamba2-370m"]
+        mesh_kinds_phase(smi, ops, torch.device("cuda"))
     left = child_processes()
     if left:
         raise AssertionError(f"processes the run started are still there: {left}")
@@ -2801,6 +3097,6 @@ def mesh_alone(layers: int) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["mesh"]:
-        sys.exit(mesh_alone(int(sys.argv[2]) if len(sys.argv) > 2 else MESH_LAYERS))
+    if sys.argv[1:2] in (["mesh"], ["mesh-kinds"]):
+        sys.exit(phase_alone(sys.argv[1], int(sys.argv[2]) if len(sys.argv) > 2 else None))
     sys.exit(main())

@@ -73,9 +73,6 @@ _MOE_TABLE = {
     "w_down": (MODEL, "F", None),
 }
 
-# the leaves the port's tensor parallelism runs sharded over `model`
-TP_LEAVES = ("table", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-
 
 def _sanitize(spec_axes, shape, mesh) -> tuple:
     out = []
@@ -275,30 +272,44 @@ def map_specs(fn, specs):
     return tree_unflatten(treedef, [fn(x) for x in leaves])
 
 
+# (leaf, the sibling on `model` that makes it "partial"): whole leaves
+# used inside a sharded region on this rank's part only
+_PARTIAL = {
+    "wk": "wq", "wv": "wq",          # kv heads that do not divide the axis
+    "w_q": "w_uk",                   # MLA without a query LoRA
+    # RG-LRU's (w,) vectors, applied to this rank's columns
+    "conv_b": "w_branch_b", "b_rg": "w_branch_b", "b_ig": "w_branch_b",
+    "lam": "w_branch_b",
+}
+
+
 def model_roles(params, specs):
     """Each leaf's part under the model axis, from its spec and its
-    siblings': "sharded" (a dim on `model`: the rank holds its slice),
-    "partial" (replicated, but used inside a sharded attention — wk, wv
-    whose kv heads do not divide the axis — so each rank's gradient is a
-    partial sum over the group) or "replicated" (used outside the sharded
-    regions: every rank computes the same gradient).  Raises
-    NotImplementedError for a leaf on `model` that the port's tensor
-    parallelism does not run sharded."""
+    siblings':
+
+    * "sharded" — a dim on `model`: the rank holds its slice, and its
+      gradient is its slice of the whole gradient;
+    * "partial" — whole, but used inside a sharded region on this rank's
+      part only, so each rank's gradient is a share that the step sums
+      over the model group: attention's `wk` / `wv` whose kv heads do not
+      divide the axis, MLA's `w_q` (no query LoRA), and RG-LRU's
+      `conv_b`, `b_rg`, `b_ig` and `lam`;
+    * "replicated" — whole, with a gradient every rank computes whole and
+      the same, counted once: the norms, the MoE router (its gates'
+      gradient is summed over the group inside the layer), MLA's latent
+      projections and norms, SSD's `conv_b`, `a_log`, `dt_bias`, `d_skip`
+      and `norm_scale` (the mixer runs whole on every rank), and every
+      leaf outside the sharded regions."""
     spec_of = dict(zip((k for k, _ in tree_paths(params)),
                        tree_flatten(specs, is_leaf=_is_spec)[0]))
     on_model = lambda s: any(MODEL in entry_axes(e) for e in s)
 
     def role(key, _):
-        spec = spec_of[key]
-        name = key.split("/")[-1]
-        if on_model(spec):
-            if name not in TP_LEAVES or (name in _MOE_TABLE and len(spec) == 3):
-                raise NotImplementedError(
-                    f"{key}: the model axis runs attention, dense-MLP and "
-                    f"embedding leaves only (ROADMAP.md §1 item 7)")
+        if on_model(spec_of[key]):
             return "sharded"
-        parent = key.rsplit("/", 1)[0]
-        if name in ("wk", "wv") and on_model(spec_of.get(parent + "/wq", ())):
+        parent, name = key.rsplit("/", 1)[0], key.split("/")[-1]
+        sibling = _PARTIAL.get(name)
+        if sibling and on_model(spec_of.get(f"{parent}/{sibling}", ())):
             return "partial"
         return "replicated"
 
@@ -306,5 +317,4 @@ def model_roles(params, specs):
 
 
 __all__ = ["param_pspecs", "opt_pspecs", "cache_pspecs", "shard_tree",
-           "gather_tree", "strip_spec", "map_specs", "model_roles", "spec_paths",
-           "TP_LEAVES"]
+           "gather_tree", "strip_spec", "map_specs", "model_roles", "spec_paths"]

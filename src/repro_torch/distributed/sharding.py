@@ -19,7 +19,11 @@ functions over the active mesh's model group:
   projections saw only its own heads or ffn columns);
 * `maybe_shard` — at the reference's row-parallel exits (attention's and
   the MLP's output, spec replicated over `model`): the rank's partial sum
-  all-reduced forward; identity backward.
+  all-reduced forward; identity backward;
+* `tp_gather` — this rank's slice all-gathered whole along a dim; backward
+  its slice of a gradient that every rank holds the same (SSD's cut
+  leaves, whole for a block that runs whole; RG-LRU's conv output, behind
+  `tp_enter`, whole for the gates' products).
 
 Outside `use_sharding_rules(rules, mesh)`, or with a model axis of size
 1, both are the identity and the model computes what it always did.
@@ -199,6 +203,16 @@ def _all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
     return y
 
 
+def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(group_size(group))]
+    t0 = time.perf_counter()
+    dist.all_gather(parts, x, group=group)
+    TP_STATS["calls"] += 1
+    TP_STATS["seconds"] += time.perf_counter() - t0
+    return torch.cat(parts, dim=dim)
+
+
 class _Enter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -218,6 +232,27 @@ class _Exit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index, dim):
+        ctx.group, ctx.index, ctx.dim = group, index, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = grad.shape[ctx.dim] // group_size(ctx.group)
+        return grad.narrow(ctx.dim, ctx.index * n, n).contiguous(), None, None, None
+
+
+def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's slice of a tensor all-gathered whole along `dim` (the
+    ranks' slices in model order); backward, this rank's slice of the
+    gradient, which must be the same on every rank (what follows runs
+    whole).  The identity without a model axis."""
+    tp = model_axis()
+    return x if tp is None else _Gather.apply(x, tp[0], tp[1], dim)
 
 
 def tp_enter(x: torch.Tensor) -> torch.Tensor:
@@ -350,7 +385,7 @@ __all__ = [
     "entry_axes", "spec_entry", "with_sequence_parallel", "manual_data_rules",
     "flat_buffer_specs",
     "use_sharding_rules", "current_rules", "logical_spec", "maybe_shard",
-    "model_axis", "tp_enter", "tp_reduce", "tp_max", "TP_STATS",
+    "model_axis", "tp_enter", "tp_reduce", "tp_max", "tp_gather", "TP_STATS",
     "checkpoint_tp_boundary",
     "shard_bucket", "shard_flat_buffers", "gather_flat_buffers",
 ]

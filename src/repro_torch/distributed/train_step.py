@@ -31,8 +31,14 @@ rank's slices of the leaves (`distributed/params.py`):
   buckets sharded over the data workers, the AdamW kernel on the shard,
   the clip from the summed Σg².
 
-The mixed residencies stay single-axis: under a model axis, or ACCUM-NORM
-over several ranks, they raise.
+* The mixed residencies on a grid: the gradient is born flat, as on the
+  flat/flat path (whole buffers, made whole over the model group), and
+  the other half follows its residency.  Stats flat with params tree: the
+  flat tail updates this worker's shard of the params packed whole
+  (gathered over the model group, and for ACCUM-NORM its data workers),
+  and the rank keeps its slices of the result.  Stats tree with params
+  flat: the tree oracle runs on the whole views, with whole moment trees,
+  and the worker keeps its shard of the packed result.
 
 Both take a stacked-microbatch batch {tokens/labels: (M, B_global, seq)}
 and perform: accumulate grads over M -> statistic -> AdamW -> metrics.
@@ -79,7 +85,6 @@ from repro_torch.distributed.sharding import (
     manual_data_rules, shard_bucket, shard_flat_buffers, use_sharding_rules)
 from repro_torch.launch.mesh import (
     MODEL, data_axes, num_workers, psum, worker_index)
-from repro_torch.models.blocks import check_model_axis
 from repro_torch.optim.adamw import (
     AdamWConfig, adamw_update, adamw_update_buffers, clip_scale_from_norm)
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
@@ -143,8 +148,7 @@ class _Grid:
     leaves into this rank's tensor-parallel slices, and each leaf's part
     under the model axis (`params.model_roles`)."""
 
-    def __init__(self, model, mesh, params_like, model_specs, manual: bool):
-        check_model_axis(model.cfg, mesh.model_size)
+    def __init__(self, mesh, params_like, model_specs, manual: bool):
         self.mesh = mesh
         self.J, self.idx = num_workers(mesh), worker_index(mesh)
         self.m = mesh.model_index
@@ -165,6 +169,22 @@ class _Grid:
         """This rank's tensor-parallel views of whole leaves."""
         return shard_tree(tree, self.model_specs, self.mesh, axes=(MODEL,))
 
+    def born_flat(self, buffers, layout):
+        """The leaves of this rank's gradient, as views of whole-layout
+        buffers (zeroed here) that `make_whole` then sums."""
+        for b in buffers:
+            b.zero_()
+        return tree_leaves(self.local(layout.unflatten(buffers)))
+
+    def make_whole(self, buffers, layout):
+        """Whole gradient buffers from every rank's slices: the replicated
+        leaves' copies off model index 0 dropped, then a sum over the model
+        group (a sharded leaf's slices are disjoint, a partial leaf's
+        shares add up)."""
+        self.drop_copies(buffers, layout)
+        for b in buffers:
+            psum(b, self.mg)
+
     def once(self, leaves):
         """The leaves this rank counts in a sum over the model group: its
         slices, and the replicated leaves on model index 0 only."""
@@ -184,7 +204,7 @@ class _Grid:
                     slot.offset:slot.offset + slot.size].zero_()
 
 
-def _tp_grid(model, mesh, params_like, *, fsdp: bool, manual: bool):
+def _tp_grid(mesh, params_like, *, fsdp: bool, manual: bool):
     """(the step's `_Grid`, the specs its tree params rest in), or None
     where the mesh adds nothing to the single-axis step (no mesh; FSDP-Norm
     with no model axis; ACCUM-NORM on one rank)."""
@@ -197,20 +217,12 @@ def _tp_grid(model, mesh, params_like, *, fsdp: bool, manual: bool):
         return None
     specs = param_pspecs(params_like, mesh, fsdp=fsdp)
     model_specs = map_specs(lambda sp: strip_spec(sp, data_axes(mesh)), specs)
-    return _Grid(model, mesh, params_like, model_specs, manual), specs
+    return _Grid(mesh, params_like, model_specs, manual), specs
 
 
 def _contiguous_copy(tree):
     return tree_map(lambda x: x.clone(memory_format=torch.contiguous_format),
                     tree)
-
-
-def _check_grid_impls(stats_impl: str, params_impl: str):
-    if stats_impl != params_impl:
-        raise NotImplementedError(
-            f"stats_impl={stats_impl!r} with params_impl={params_impl!r} on a "
-            f"model axis or over several ACCUM-NORM ranks: only tree/tree and "
-            f"flat/flat are ported (ROADMAP.md §1 item 7)")
 
 
 # --------------------------------------------------------- FSDP-Norm ----
@@ -309,41 +321,42 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
     if device is None:
         device = tree_flatten(params_like)[0][0].device
     device = torch.device(device)
-    grid = _tp_grid(model, mesh, params_like, fsdp=False, manual=True)
+    grid = _tp_grid(mesh, params_like, fsdp=False, manual=True)
     J, idx = num_workers(mesh), worker_index(mesh)
     dg = None if mesh is None else mesh.data_group
     if grid is not None:
-        _check_grid_impls(stats_impl, params_impl)
         grid, tree_specs = grid
     # ONE layout per step, shared by the statistics, the AdamW tail and
     # the residency (None on the pure tree path)
     layout = (FlatLayout.from_tree(params_like, shard_divisor=J, device=device)
               if "flat" in (stats_impl, params_impl) else None)
-    bufs = {}        # flat params: persistent full params, g_j and g buffers
+    # the gradient is born flat: flat params, and on a grid any flat half
+    born_flat = params_impl == "flat" or (grid is not None and layout is not None)
+    bufs = {}        # persistent full params (flat params, J > 1), g_j and g
 
     def step(params, opt_state, batch, lr):
         batch = worker_batch(batch, idx, J)
+        if born_flat and not bufs:
+            bufs["g_j"] = layout.zeros(torch.float32, device)
+            bufs["g"] = layout.zeros(torch.float32, device)
+            bufs["full"] = ([torch.empty(n, dtype=dt, device=device)
+                             for n, dt in zip(layout.buffer_sizes,
+                                              layout.buffer_dtypes)]
+                            if J > 1 and params_impl == "flat" else None)
         if params_impl == "flat":
-            if not bufs:
-                bufs["g_j"] = layout.zeros(torch.float32, device)
-                bufs["g"] = layout.zeros(torch.float32, device)
-                bufs["full"] = ([torch.empty(n, dtype=dt, device=device)
-                                 for n, dt in zip(layout.buffer_sizes,
-                                                  layout.buffer_dtypes)]
-                                if J > 1 else None)
-            g_j, g = bufs["g_j"], bufs["g"]
-            for b in g_j:
-                b.zero_()
             # the params rest as this worker's shards: gather the full
             # buffers (one worker: the params are the full buffers)
-            tree = layout.unflatten(gather_flat_buffers(params, bufs["full"],
+            full = layout.unflatten(gather_flat_buffers(params, bufs["full"],
                                                         mesh))
-            acc = layout.unflatten(g_j)
-            if grid is not None:
-                tree, acc = grid.local(tree), grid.local(acc)
-            acc = tree_leaves(acc)
+            tree = full if grid is None else grid.local(full)
         else:
-            tree, (leaves, treedef) = params, tree_flatten(params)
+            tree = params
+        if born_flat:
+            g_j, g = bufs["g_j"], bufs["g"]
+            acc = (grid.born_flat(g_j, layout) if grid is not None
+                   else tree_leaves(layout.unflatten([b.zero_() for b in g_j])))
+        else:
+            leaves, treedef = tree_flatten(params)
             g_j = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                    for p in leaves]
             g = [torch.empty_like(x) for x in g_j]
@@ -355,15 +368,12 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
             with grid.rules_on():
                 loss, aux, _, _, w_j = _accumulate(model.loss, tree, batch,
                                                    False, acc)
-            if params_impl == "flat":
-                # this rank's slices, made whole over the model group
-                grid.drop_copies(g_j, layout)
-                for b in g_j:
-                    psum(b, grid.mg)
+            if born_flat:
+                grid.make_whole(g_j, layout)
             else:
                 grid.sum_partial(g_j)
         w_sum = worker_mean(g_j, w_j, g, dg)  # g_j stays: the statistic needs it
-        if grid is not None and params_impl == "tree":
+        if grid is not None and not born_flat:
             g_j, g = tree_unflatten(treedef, g_j), tree_unflatten(treedef, g)
             stats = (paper_faithful_worker_variance if variance_impl == "paper"
                      else worker_variance_stats)
@@ -378,16 +388,26 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
             new_params, new_opt, gnorm = _sharded_buffer_update(
                 tuple(params), g, opt_state, opt_cfg, lr, gsq, idx, J)
         elif params_impl == "flat":
-            # tree-oracle tail on the views, then the worker's shard of the
-            # packed result
+            # tree-oracle tail on the whole views, then the worker's shard
+            # of the packed result
             g_tree = layout.unflatten(g)
             var_l1, gsq = worker_variance_stats(layout.unflatten(g_j), g_tree,
                                                 group=dg)
             with torch.no_grad():
-                new_tree, new_opt, gnorm = adamw_update(tree, g_tree, opt_state,
+                new_tree, new_opt, gnorm = adamw_update(full, g_tree, opt_state,
                                                         opt_cfg, lr)
             new_params = tuple(shard_flat_buffers(layout.flatten(new_tree),
                                                   mesh))
+        elif stats_impl == "flat" and grid is not None:
+            # the born-flat pair; the params packed whole, the worker
+            # updates its shard, and the rank keeps its slices of the result
+            var_l1, gsq = worker_variance_stats_buffers(g_j, g, group=dg)
+            whole = gather_tree(params, tree_specs, mesh, axes=(MODEL,))
+            pb_local = [shard_bucket(b, idx, J) for b in layout.flatten(whole)]
+            pb_local, new_opt, gnorm = _sharded_buffer_update(
+                pb_local, g, opt_state, opt_cfg, lr, gsq, idx, J)
+            new_params = _contiguous_copy(grid.local(layout.unflatten(
+                gather_flat_buffers(pb_local, mesh=mesh))))
         elif stats_impl == "flat":
             # pack g and the params once; the fused pair hands back the
             # packed mean gradient, the worker updates its shard, and the
@@ -465,32 +485,36 @@ def _accumulate_spanning(loss_fn, params, batch, grid, add):
     return loss, aux, acc_sq, acc_m, denom
 
 
-def _accum_grid_step(model, opt_cfg, grid, rest_specs, layout, params_impl,
-                     device):
-    """ACCUM-NORM on a grid (J data ranks, a model axis, or both), tree/tree
-    or flat/flat (module docstring)."""
+def _accum_grid_step(model, opt_cfg, grid, rest_specs, layout, stats_impl,
+                     params_impl, device):
+    """ACCUM-NORM on a grid (J data ranks, a model axis, or both), in any
+    residency (module docstring)."""
     bufs = {}
 
     def step(params, opt_state, batch, lr):
         batch = worker_batch(batch, grid.idx, grid.J)
+        if layout is not None and not bufs:
+            bufs["acc"] = layout.zeros(torch.float32, device)
+            bufs["g_m"] = layout.zeros(torch.float32, device)
+            bufs["full"] = ([torch.empty(n, dtype=dt, device=device)
+                             for n, dt in zip(layout.buffer_sizes,
+                                              layout.buffer_dtypes)]
+                            if grid.J > 1 and params_impl == "flat" else None)
         if params_impl == "flat":
-            if not bufs:
-                bufs["acc"] = layout.zeros(torch.float32, device)
-                bufs["g_m"] = layout.zeros(torch.float32, device)
-                bufs["full"] = ([torch.empty(n, dtype=dt, device=device)
-                                 for n, dt in zip(layout.buffer_sizes,
-                                                  layout.buffer_dtypes)]
-                                if grid.J > 1 else None)
+            full = layout.unflatten(gather_flat_buffers(params, bufs["full"],
+                                                        grid.mesh))
+            tree = grid.local(full)
+        else:
+            # ZeRO-3: this rank's slices gathered over the data workers
+            tree = gather_tree(params, rest_specs, grid.mesh, axes=grid.daxes)
+        if layout is not None:
+            # born flat: each microbatch's gradient made whole in g_m
             acc, g_m = bufs["acc"], bufs["g_m"]
             for b in acc:
                 b.zero_()
-            tree = grid.local(layout.unflatten(gather_flat_buffers(
-                params, bufs["full"], grid.mesh)))
-            views = tree_leaves(grid.local(layout.unflatten(g_m)))
 
             def add(grads, w):
-                for b in g_m:
-                    b.zero_()
+                views = grid.born_flat(g_m, layout)
                 for v, g in zip(views, grads):
                     v.copy_(g).mul_(w)
                 grid.drop_copies(g_m, layout)
@@ -501,8 +525,6 @@ def _accum_grid_step(model, opt_cfg, grid, rest_specs, layout, params_impl,
                     sq += torch.sum(torch.square(b))
                 return sq
         else:
-            # ZeRO-3: this rank's slices gathered over the data workers
-            tree = gather_tree(params, rest_specs, grid.mesh, axes=grid.daxes)
             acc = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)
                    for x in tree_leaves(tree)]
 
@@ -517,19 +539,38 @@ def _accum_grid_step(model, opt_cfg, grid, rest_specs, layout, params_impl,
             model.loss, tree, batch, grid, add)
         for a in acc:
             a.div_(denom)
-        if params_impl == "flat":
+        if stats_impl == "flat":
             # the worker's shard of the mean gradient; Σg² over the shards
             g_local = [shard_bucket(b, grid.idx, grid.J) for b in acc]
             gsq = torch.zeros((), dtype=torch.float32, device=device)
             for b in g_local:
                 gsq += torch.sum(torch.square(b))
             gsq = psum(gsq, grid.dg)
+            pb_local = (list(params) if params_impl == "flat" else
+                        [shard_bucket(b, grid.idx, grid.J) for b in layout.flatten(
+                            gather_tree(params, rest_specs, grid.mesh))])
             _, new_mb, new_vb, count, gnorm, _ = adamw_update_buffers(
-                list(params), g_local, list(opt_state["m"]),
+                pb_local, g_local, list(opt_state["m"]),
                 list(opt_state["v"]), opt_cfg, lr, opt_state["count"],
                 grad_sqnorm=gsq)
-            new_params = tuple(params)
             new_opt = {"m": tuple(new_mb), "v": tuple(new_vb), "count": count}
+            # tree params: the rank keeps its slices of the updated params
+            new_params = (tuple(params) if params_impl == "flat" else
+                          _contiguous_copy(shard_tree(layout.unflatten(
+                              gather_flat_buffers(pb_local, mesh=grid.mesh)),
+                              rest_specs, grid.mesh)))
+            var_l1, gsq = accum_variance_stats(sq_sum, None, m_eff, grid.J,
+                                               gsq=gsq)
+        elif params_impl == "flat":
+            # the tree oracle on the whole views, with whole moment trees;
+            # the worker keeps its shard of the packed result
+            g = layout.unflatten(acc)
+            var_l1, gsq = accum_variance_stats(sq_sum, g, m_eff, grid.J)
+            with torch.no_grad():
+                new_tree, new_opt, gnorm = adamw_update(full, g, opt_state,
+                                                        opt_cfg, lr)
+            new_params = tuple(shard_flat_buffers(layout.flatten(new_tree),
+                                                  grid.mesh))
         else:
             gsq = psum(tree_sqnorm(grid.once(acc)), grid.mg)
             g = tree_unflatten(tree_flatten(params)[1], acc)
@@ -538,7 +579,8 @@ def _accum_grid_step(model, opt_cfg, grid, rest_specs, layout, params_impl,
             with torch.no_grad():
                 new_params, new_opt, gnorm = adamw_update(
                     params, g_local, opt_state, opt_cfg, lr, grad_sqnorm=gsq)
-        var_l1, gsq = accum_variance_stats(sq_sum, None, m_eff, grid.J, gsq=gsq)
+            var_l1, gsq = accum_variance_stats(sq_sum, None, m_eff, grid.J,
+                                               gsq=gsq)
         metrics = {"loss": loss, "aux": aux, "var_l1": var_l1,
                    "grad_sqnorm": gsq, "grad_norm": gnorm,
                    "clip_scale": clip_scale_from_norm(gnorm, opt_cfg.grad_clip)}
@@ -574,7 +616,7 @@ def make_accum_norm_step(model, opt_cfg: AdamWConfig, *,
     device = torch.device(device)
     # tree params rest ZeRO-3 (fsdp=True); flat buffers are sharded over
     # the data workers and the forward's TP views follow FSDP-Norm's specs
-    grid = _tp_grid(model, mesh, params_like, fsdp=params_impl == "tree",
+    grid = _tp_grid(mesh, params_like, fsdp=params_impl == "tree",
                     manual=False)
     J = 1 if grid is None else grid[0].J
     layout = (FlatLayout.from_tree(params_like, shard_divisor=J, device=device)
@@ -586,10 +628,9 @@ def make_accum_norm_step(model, opt_cfg: AdamWConfig, *,
     wrap.flat_layout = layout
     wrap.mesh = mesh
     if grid is not None:
-        _check_grid_impls(stats_impl, params_impl)
         grid, rest_specs = grid
         step = _accum_grid_step(model, opt_cfg, grid, rest_specs, layout,
-                                params_impl, device)
+                                stats_impl, params_impl, device)
         wrap.param_specs = (flat_buffer_specs(layout.num_buffers, grid.daxes)
                             if params_impl == "flat" else rest_specs)
         wrap.grid = grid

@@ -87,7 +87,6 @@ from repro_torch.kernels.ops import launch_counts
 from repro_torch.launch.mesh import (
     data_axes, default_backend, init_workers, make_host_mesh, num_workers,
     rank_device, spawn_workers)
-from repro_torch.models.blocks import check_model_axis
 from repro_torch.models.common import resolve_device
 from repro_torch.models.convert import stack_layers, unstack_layers
 from repro_torch.models.model import build_model
@@ -189,15 +188,6 @@ def _check_supported(job: TrainJob):
         raise ValueError(f"a mesh of {_workers(job)} x {job.mesh_model} needs "
                          f"{_workers(job) * job.mesh_model} ranks, the world "
                          f"has {world}")
-    cfg = get_smoke_config(job.arch) if job.smoke else get_config(job.arch)
-    check_model_axis(cfg, job.mesh_model)
-    grid = job.mesh_model > 1 or (job.step_impl == "accum_norm" and world > 1)
-    if grid and job.stats_impl != job.params_impl:
-        raise NotImplementedError(
-            f"stats_impl={job.stats_impl!r} with params_impl="
-            f"{job.params_impl!r} on a model axis or over several ACCUM-NORM "
-            f"ranks: only tree/tree and flat/flat are ported (ROADMAP.md §1 "
-            f"item 7)")
 
 
 def _make_source(job: TrainJob, vocab: int):

@@ -34,21 +34,6 @@ def check_supported(cfg: ModelConfig):
         raise NotImplementedError(f"{cfg.name}: remat={cfg.remat!r}")
 
 
-def check_model_axis(cfg: ModelConfig, model_size: int):
-    """Raise NotImplementedError when `cfg` has a layer the port's tensor
-    parallelism does not shard and `model_size` > 1: MoE experts and
-    router, MLA, SSD and RG-LRU (attention, dense MLPs and embeddings
-    are sharded)."""
-    if model_size == 1:
-        return
-    kinds = set(cfg.prefix_pattern + cfg.block_pattern)
-    later = sorted(kinds & {MLA_ATTN, SSD, RGLRU}) + (["moe"] if cfg.moe else [])
-    if later:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(later)} layers on a model axis of "
-            f"{model_size} are not ported (ROADMAP.md §1 item 7)")
-
-
 def has_mlp(cfg: ModelConfig, kind: str) -> bool:
     return cfg.mlp_kind != "none" and kind != SSD
 
@@ -100,7 +85,8 @@ def block_full(params, x, positions, cfg: ModelConfig, kind: str,
         mixed = ssd_lib.ssd_block(params["ssd"], h, cfg.ssm)
     elif kind == MLA_ATTN:
         mixed = mla_lib.mla_full(params["attn"], h, positions, cfg.mla,
-                                 causal=causal, return_latents=collect_cache)
+                                 causal=causal, return_latents=collect_cache,
+                                 num_heads=cfg.num_heads)
         if collect_cache:
             mixed, c_kv, k_rope = mixed
             cache = {"c_kv": c_kv, "k_rope": k_rope}

@@ -8,6 +8,18 @@ K and V.  The attention is plain einsum and softmax, as in the reference
 (MLA's q·k dim differs from its v dim, and the reference never sends it
 through its flash kernel); `q_norm` and `kv_norm` are RMSNorms, so on the
 card with grad mode off they run the `rmsnorm` kernel.
+
+Tensor parallelism (`distributed/sharding.py`): when `w_uk` holds fewer
+heads than the config's, `w_uq`, `w_uk`, `w_uv` and `w_o` are this rank's
+heads [m·h, (m+1)·h).  The latent projections before the head split
+(`w_dq`, `q_norm`, `w_dkv`, `kv_norm`, `w_krope`) run whole on every rank,
+and the column-parallel entry (`tp_enter`) sits after them, on `cq`, `c_kv`
+and the RoPE key, so their gradients come out whole ("replicated").  A
+whole `w_q` (no query LoRA) gives this rank's heads from x entering
+through `tp_enter`, so its gradient is a partial sum ("partial").  `w_o`'s
+product is the exit (`maybe_shard`).  The chunked path runs on the local
+heads.  Training and prefill only: the absorbed decode takes no model
+axis.
 """
 
 from __future__ import annotations
@@ -16,6 +28,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import maybe_shard, model_axis, tp_enter
 from repro_torch.models.attention import NEG_INF, causal_mask
 from repro_torch.models.common import normal_init
 from repro_torch.models.config import MLAConfig
@@ -45,13 +58,21 @@ def init_mla(gen, d_model: int, num_heads: int, m: MLAConfig, dtype, device):
     return p
 
 
-def _queries(params, x, positions, m: MLAConfig):
+def _queries(params, x, positions, m: MLAConfig, shard=None):
+    """(q_nope, q_rope); `shard` (model index, local heads) on a model
+    axis (module docstring)."""
     if "w_dq" in params:
         cq = torch.einsum("btd,dr->btr", x, params["w_dq"].to(x.dtype))
         cq = apply_norm(params["q_norm"], cq, "rmsnorm")
+        if shard is not None:
+            cq = tp_enter(cq)
         q = torch.einsum("btr,rhk->bthk", cq, params["w_uq"].to(x.dtype))
     else:
-        q = torch.einsum("btd,dhk->bthk", x, params["w_q"].to(x.dtype))
+        w_q = params["w_q"]
+        if shard is not None:
+            x = tp_enter(x)
+            w_q = w_q[:, shard[0] * shard[1]:(shard[0] + 1) * shard[1]]
+        q = torch.einsum("btd,dhk->bthk", x, w_q.to(x.dtype))
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, 10000.0)
     return q_nope, q_rope
@@ -87,15 +108,22 @@ def _mla_attend(q_nope, q_rope, k_nope, k_rope, v, m: MLAConfig,
 
 
 def mla_full(params, x, positions, m: MLAConfig, causal: bool = True,
-             q_chunk: int = Q_CHUNK, return_latents: bool = False):
+             q_chunk: int = Q_CHUNK, return_latents: bool = False,
+             num_heads: int | None = None):
     """Expanded-form MLA over a full sequence (training / prefill).  From
     t >= 2048 (a multiple of `q_chunk`) the queries run in chunks, each
     recomputed in the backward pass (the reference's checkpointed scan).
     With `return_latents` it returns (out, c_kv, k_rope) — the prefill
-    cache."""
+    cache.  `num_heads` is the config's: leaves with fewer heads are this
+    rank's shard (module docstring)."""
     b, t, _ = x.shape
-    q_nope, q_rope = _queries(params, x, positions, m)
-    c_kv, k_rope = _latents(params, x, positions, m)
+    tp = model_axis()
+    h = params["w_uk"].shape[1]
+    shard = (tp[1], h) if tp is not None and num_heads not in (None, h) else None
+    q_nope, q_rope = _queries(params, x, positions, m, shard)
+    c_kv, k_rope = cache = _latents(params, x, positions, m)
+    if shard is not None:
+        c_kv, k_rope = tp_enter(c_kv), tp_enter(k_rope)
     k_nope = torch.einsum("btr,rhn->bthn", c_kv, params["w_uk"].to(x.dtype))
     v = torch.einsum("btr,rhv->bthv", c_kv, params["w_uv"].to(x.dtype))
     if t >= CHUNK_THRESHOLD and t % q_chunk == 0:
@@ -111,7 +139,9 @@ def mla_full(params, x, positions, m: MLAConfig, causal: bool = True,
     else:
         out = _mla_attend(q_nope, q_rope, k_nope, k_rope, v, m, causal)
     out = torch.einsum("bthv,hvd->btd", out, params["w_o"].to(x.dtype))
-    return (out, c_kv, k_rope) if return_latents else out
+    if shard is not None:
+        out = maybe_shard(out, "batch", "seq", "embed")
+    return (out, *cache) if return_latents else out
 
 
 def init_mla_cache(batch: int, cache_len: int, m: MLAConfig, dtype, device):

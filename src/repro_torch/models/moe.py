@@ -24,6 +24,20 @@ n·k, which is a real slot whenever E·C > n·k (capacity factor above 1),
 so there a dropped pair can overwrite a kept one (ROADMAP §3); at a
 capacity factor of at most 1, and whenever nothing drops, the two
 dispatches are equal.
+
+Tensor parallelism (`distributed/sharding.py`): when `w_gate` holds fewer
+experts than the config's, the rank holds experts [m·E/M, (m+1)·E/M), and
+the router is whole on every rank.  Every rank routes every token the
+same way and runs its own experts' slots; a pair whose expert lives on
+another rank reads the zero row, so the rank's combine is its partial sum,
+made whole at the reference's exit (`maybe_shard`).  Two gradients meet in
+the router: the gates' through this rank's slots only (partial), the aux
+loss's whole on every rank.  The gates enter through `tp_enter`, so their
+gradient is summed over the group before it reaches the router, whose
+gradient then comes out whole ("replicated"); likewise x reaches the
+router as it is, and the experts through `tp_enter`.  DeepSeek-V2's shared
+experts are a dense SwiGLU: column/row parallel when their leaves are
+slices, their partial sum joining the experts' before the one exit.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import maybe_shard, model_axis, tp_enter
 from repro_torch.models.common import normal_init
 from repro_torch.models.config import MoEConfig
 
@@ -66,14 +81,15 @@ def _top_k(probs, k: int):
 
 
 def route(params, x, m: MoEConfig, capacity_factor: float,
-          normalize_gates: bool = True):
+          normalize_gates: bool = True, enter_gates: bool = False):
     """Routing and dispatch of every row of x (b, n, d).
 
     Returns a dict: `slot_token` (b, E, C) int64, the token each expert slot
     holds (n for an empty slot); `slot_gate` (b, E, C), its gate in x's
     dtype (0 for an empty slot); `pair_slot` (b, n, k) int64, the flat slot
     e·C + c each token's j-th choice landed in (E·C when dropped); `aux`
-    (b,) f32, each row's load-balance loss."""
+    (b,) f32, each row's load-balance loss.  `enter_gates`: the gates pass
+    `tp_enter` (their gradient summed over the model group)."""
     b, n, _ = x.shape
     dt, dev = x.dtype, x.device
     e, k = m.num_experts, m.top_k
@@ -82,6 +98,8 @@ def route(params, x, m: MoEConfig, capacity_factor: float,
     gates, expert_idx = _top_k(probs, k)                       # (b, n, k)
     if normalize_gates:
         gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+    if enter_gates:
+        gates = tp_enter(gates)
 
     # switch-style load balance loss over all-k assignments
     frac_tokens = F.one_hot(expert_idx, e).sum(2).float().mean(1)   # (b, E)
@@ -121,28 +139,59 @@ def _gather_rows(src, idx):
     return F.embedding(rows, src.reshape(b * r, d))
 
 
+def _swiglu(p, x):
+    dt = x.dtype
+    h = F.silu(torch.einsum("bnd,df->bnf", x, p["w_gate"].to(dt)))
+    h = h * torch.einsum("bnd,df->bnf", x, p["w_up"].to(dt))
+    return torch.einsum("bnf,fd->bnd", h, p["w_down"].to(dt))
+
+
 def moe_apply(params, x, m: MoEConfig, *, capacity_factor: float | None = None,
               normalize_gates: bool = True):
     """x: (b, t, d) -> (out, aux_loss): every row is one dispatch group,
-    capacity C = factor·t·top_k/E per row; aux is the mean over rows."""
+    capacity C = factor·t·top_k/E per row; aux is the mean over rows.
+    Expert and shared leaves that are this rank's slices run tensor-parallel
+    (module docstring)."""
     b, n, d = x.shape
     dt = x.dtype
+    tp = model_axis()
+    e_loc = params["w_gate"].shape[0]
+    experts_tp = tp is not None and e_loc != m.num_experts
+    shared_tp = (tp is not None and "shared" in params and params["shared"]["w_up"].shape[1]
+                 != m.num_shared_experts * m.shared_d_expert)
+    x_tp = tp_enter(x) if experts_tp or shared_tp else x
     r = route(params, x, m, capacity_factor if capacity_factor is not None
-              else m.capacity_factor, normalize_gates)
+              else m.capacity_factor, normalize_gates, enter_gates=experts_tp)
+    # this rank's experts' slots; pairs outside them read the zero row
+    e0 = tp[1] * e_loc if experts_tp else 0
+    cap = r["slot_token"].shape[-1]
+    n_loc = e_loc * cap
+    pair_slot = r["pair_slot"] - e0 * cap
+    pair_slot = torch.where((pair_slot >= 0) & (pair_slot < n_loc), pair_slot, n_loc)
     zero_row = torch.zeros((b, 1, d), dtype=dt, device=x.device)
-    edx = _gather_rows(torch.cat([x, zero_row], 1), r["slot_token"])  # (b,E,C,d)
+    xe = x_tp if experts_tp else x
+    edx = _gather_rows(torch.cat([xe, zero_row], 1),
+                       r["slot_token"][:, e0:e0 + e_loc])               # (b,E,C,d)
     h = F.silu(torch.einsum("becd,edf->becf", edx, params["w_gate"].to(dt)))
     h = h * torch.einsum("becd,edf->becf", edx, params["w_up"].to(dt))
     eout = torch.einsum("becf,efd->becd", h, params["w_down"].to(dt))
-    contrib = (eout * r["slot_gate"][..., None]).reshape(b, -1, d)
-    parts = _gather_rows(torch.cat([contrib, zero_row], 1), r["pair_slot"])
+    contrib = (eout * r["slot_gate"][:, e0:e0 + e_loc, :, None]).reshape(b, -1, d)
+    parts = _gather_rows(torch.cat([contrib, zero_row], 1), pair_slot)
     y = parts[:, :, 0]
     for j in range(1, m.top_k):       # each token's slots, in k order
         y = y + parts[:, :, j]
 
+    whole = None                      # a whole part, added after the exit
     if "shared" in params:
-        sh = params["shared"]
-        hs = F.silu(torch.einsum("bnd,df->bnf", x, sh["w_gate"].to(dt)))
-        hs = hs * torch.einsum("bnd,df->bnf", x, sh["w_up"].to(dt))
-        y = y + torch.einsum("bnf,fd->bnd", hs, sh["w_down"].to(dt))
+        ys = _swiglu(params["shared"], x_tp if shared_tp else x)
+        if shared_tp == experts_tp:
+            y = y + ys
+        elif experts_tp:
+            whole = ys
+        else:
+            y, whole = ys, y
+    if experts_tp or shared_tp:
+        y = maybe_shard(y, "batch", "seq", "embed")
+    if whole is not None:
+        y = y + whole
     return y, r["aux"].mean()

@@ -15,6 +15,19 @@ few elementwise operations each, not a t-step loop (8192 steps would be
 some 40 000 launches a layer on the card).  Decode is one recurrence step
 with a convolution ring; it writes the new state into the cache's tensors
 IN PLACE (the reference returns new arrays).
+
+Tensor parallelism (`distributed/sharding.py`): when `w_branch_b` holds
+fewer columns than the lru width, the rank holds its columns [m·w/M,
+(m+1)·w/M) of `w_branch_a`, `w_branch_b`, `conv_w`, `w_rg` and `w_ig` (the
+gates' output columns) and its rows of `w_out`.  x enters through
+`tp_enter`; the branches, the depthwise conv and the scan run on the
+rank's columns; the gates' products need the whole conv output u, which is
+all-gathered (`tp_gather` behind `tp_enter`: its gradient summed over the
+group, then the rank's slice).  `w_out`'s partial sum is made whole at the
+exit (`maybe_shard`).  `conv_b`, `b_rg`, `b_ig` and `lam` are whole (w,)
+vectors that the rank applies to its own columns only, so each rank's
+gradient of them is zero off its columns: "partial", summed over the model
+group by the step (`params.model_roles`).
 """
 
 from __future__ import annotations
@@ -22,6 +35,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (
+    maybe_shard, model_axis, tp_enter, tp_gather)
 from repro_torch.models.common import normal_init, zeros_init
 from repro_torch.models.config import RGLRUConfig
 
@@ -56,12 +71,15 @@ def _causal_conv(x, w, b):
     return out + b[None, None, :]
 
 
-def _gates(params, x, c_constant):
-    r = torch.sigmoid(torch.einsum("btw,wv->btv", x, params["w_rg"].to(x.dtype))
-                      + params["b_rg"].to(x.dtype))
-    i = torch.sigmoid(torch.einsum("btw,wv->btv", x, params["w_ig"].to(x.dtype))
-                      + params["b_ig"].to(x.dtype))
-    log_a = -c_constant * F.softplus(params["lam"])[None, None, :] * r.float()
+def _gates(params, x, c_constant, x_in=None, cols=slice(None)):
+    """(a, gated input) of the columns `cols` of x; the gates' products
+    take `x_in` (default x), whose columns are all of the width."""
+    x_in = x if x_in is None else x_in
+    r = torch.sigmoid(torch.einsum("btw,wv->btv", x_in, params["w_rg"].to(x.dtype))
+                      + params["b_rg"][cols].to(x.dtype))
+    i = torch.sigmoid(torch.einsum("btw,wv->btv", x_in, params["w_ig"].to(x.dtype))
+                      + params["b_ig"][cols].to(x.dtype))
+    log_a = -c_constant * F.softplus(params["lam"][cols])[None, None, :] * r.float()
     a = torch.exp(log_a)
     gated_in = torch.sqrt(torch.clamp(1.0 - torch.square(a), min=1e-12)) * (
         i.float() * x.float())
@@ -82,13 +100,23 @@ def rglru_scan(a, bx):
 
 
 def rglru_block(params, x, r: RGLRUConfig):
-    """Full-sequence RG-LRU block.  x: (b, t, d) -> (b, t, d)."""
+    """Full-sequence RG-LRU block.  x: (b, t, d) -> (b, t, d); leaves with
+    fewer columns than the lru width run tensor-parallel (module
+    docstring)."""
+    tp = model_axis()
+    w = params["w_branch_b"].shape[1]
+    tp = tp if tp is not None and w != (r.lru_width or x.shape[-1]) else None
+    cols = slice(None) if tp is None else slice(tp[1] * w, (tp[1] + 1) * w)
+    if tp is not None:
+        x = tp_enter(x)
     branch_a = _gelu(torch.einsum("btd,dw->btw", x, params["w_branch_a"].to(x.dtype)))
     u = torch.einsum("btd,dw->btw", x, params["w_branch_b"].to(x.dtype))
-    u = _causal_conv(u, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype))
-    a, bx = _gates(params, u, r.c_constant)
+    u = _causal_conv(u, params["conv_w"].to(x.dtype), params["conv_b"][cols].to(x.dtype))
+    a, bx = _gates(params, u, r.c_constant,
+                   x_in=None if tp is None else tp_enter(tp_gather(u, -1)), cols=cols)
     h = rglru_scan(a, bx).to(x.dtype)
-    return torch.einsum("btw,wd->btd", branch_a * h, params["w_out"].to(x.dtype))
+    out = torch.einsum("btw,wd->btd", branch_a * h, params["w_out"].to(x.dtype))
+    return out if tp is None else maybe_shard(out, "batch", "seq", "embed")
 
 
 def init_rglru_state(batch: int, d_model: int, r: RGLRUConfig, dtype, device):

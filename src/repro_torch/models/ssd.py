@@ -12,6 +12,22 @@ are the reference's.
 Decode writes the new SSM and convolution state into the cache's tensors
 IN PLACE (the reference returns new arrays), so a cache whose tensors are
 views of a resident slot buffer updates that buffer.
+
+Tensor parallelism (`distributed/sharding.py`) keeps the reference's
+layout: `w_in` is cut by its output columns, across the fused [z | x | B |
+C | dt] projection (the cut need not fall at a head), `conv_w` by its
+channels across x | B | C, `w_out` by its rows; `conv_b`, `a_log`,
+`dt_bias`, `d_skip` and `norm_scale` are whole.  The block gathers the
+three cut leaves whole (`tp_gather`, whose backward takes the rank's slice
+of a gradient every rank computes the same) and runs whole on every rank,
+so it computes what one process does, to the bit: its gradients of the
+whole leaves are whole on every rank ("replicated"), the cut leaves' the
+rank's slices ("sharded"), and no activation crosses the model group.
+Right rather than fast: each rank repeats the block's work.  Splitting
+the work instead (the projection's columns gathered, y's rows through
+`w_out` summed at the exit) rounds the projection in another order, and
+the scan's decay gradients, sums with much cancellation over a sequence,
+then missed 1e-5 of the whole layer's on the card at full width.
 """
 
 from __future__ import annotations
@@ -19,6 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import model_axis, tp_gather
 from repro_torch.models.common import normal_init, ones_init, zeros_init
 from repro_torch.models.config import SSMConfig
 
@@ -42,10 +59,17 @@ def init_ssd(gen, d_model: int, s: SSMConfig, dtype, device):
     }
 
 
+def _whole(w, dim: int, size: int):
+    """Leaf `w` whole: on a model axis, this rank's slice along `dim`
+    gathered to `size`."""
+    return tp_gather(w, dim) if w.shape[dim] != size and model_axis() is not None else w
+
+
 def _split_proj(params, x, s: SSMConfig, d_model: int):
     di = s.d_inner(d_model)
     nh = s.num_heads(d_model)
-    proj = torch.einsum("btd,dp->btp", x, params["w_in"].to(x.dtype))
+    w_in = _whole(params["w_in"], 1, 2 * di + 2 * s.state_dim + nh)
+    proj = torch.einsum("btd,dp->btp", x, w_in.to(x.dtype))
     z, xbc, dt = torch.split(proj, [di, di + 2 * s.state_dim, nh], dim=-1)
     return z, xbc, dt, di, nh
 
@@ -61,7 +85,8 @@ def _gated_out(params, y, z, x_dtype):
     y = y * F.silu(z.float())
     var = torch.mean(torch.square(y), dim=-1, keepdim=True)
     y = y / torch.sqrt(var + 1e-6) * params["norm_scale"].float()
-    return torch.einsum("btf,fd->btd", y.to(x_dtype), params["w_out"].to(x_dtype))
+    w_out = _whole(params["w_out"], 0, y.shape[-1])
+    return torch.einsum("btf,fd->btd", y.to(x_dtype), w_out.to(x_dtype))
 
 
 def ssd_block(params, x, s: SSMConfig):
@@ -69,7 +94,8 @@ def ssd_block(params, x, s: SSMConfig):
     of `s.chunk_size`, as in the reference."""
     b, t, d_model = x.shape
     z, xbc, dt_raw, di, nh = _split_proj(params, x, s, d_model)
-    xbc = _causal_conv(xbc, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype))
+    conv_w = _whole(params["conv_w"], 1, xbc.shape[-1])
+    xbc = _causal_conv(xbc, conv_w.to(x.dtype), params["conv_b"].to(x.dtype))
     xs, B, C = torch.split(xbc, [di, s.state_dim, s.state_dim], dim=-1)
     p = s.head_dim
     xs = xs.reshape(b, t, nh, p)

@@ -10,6 +10,9 @@ dtype.
   `fused_adamw_stats` launch per dtype group), updating params and moments
   IN PLACE (where the reference step donates its buffers), with the
   gradient's Σg² as the kernel's byproduct.
+* `adamw_update_flat` — the same tail for a params tree and a gradient
+  tree: both packed into buckets on the way in, the params sliced back
+  out.
 """
 
 from __future__ import annotations
@@ -202,6 +205,25 @@ def adamw_update_buffers(pb, gb, mb, vb, cfg: AdamWConfig, lr, count, *,
     if grad_sqnorm is None:   # kernel byproduct: Σg² with zero extra passes
         grad_sqnorm = gsq
     return pb, mb, vb, count, torch.sqrt(grad_sqnorm), grad_sqnorm
+
+
+def adamw_update_flat(params, grads, state, cfg: AdamWConfig, lr, *,
+                      grad_sqnorm=None, layout=None):
+    """One AdamW step over flat buffers for a params tree and a gradient
+    tree; `state` from `init_adamw_flat` / `flat_opt_state` at the same
+    layout, updated IN PLACE.  The params and gradients are packed per
+    bucket (copies: `params` is left as it was) and the updated params are
+    views of the new buffers.  `layout` is the shared `FlatLayout`
+    (rebuilt from `params` when omitted).  Returns (new_params, new_state,
+    grad_norm, grad_sqnorm)."""
+    from repro_torch.distributed.flatbuf import FlatLayout
+    if layout is None:
+        layout = FlatLayout.from_tree(params)
+    pb, mb, vb, count, gnorm, grad_sqnorm = adamw_update_buffers(
+        layout.flatten(params), layout.flatten(grads), list(state["m"]),
+        list(state["v"]), cfg, lr, state["count"], grad_sqnorm=grad_sqnorm)
+    return (layout.unflatten(pb), {"m": tuple(mb), "v": tuple(vb), "count": count},
+            gnorm, grad_sqnorm)
 
 
 # ------------------------------------------------------- lr schedules ----

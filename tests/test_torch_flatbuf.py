@@ -126,3 +126,49 @@ def test_layout_errors_and_defaults():
     assert FlatLayout.from_tree(tt, device="cuda").bucket_bytes == 4 << 20
     assert lay == FlatLayout.from_tree(tt, bucket_bytes=256)
     assert hash(lay) == hash(FlatLayout.from_tree(tt, bucket_bytes=256))
+
+
+@pytest.mark.parametrize("grad_clip", [1.0, 0.0])
+@pytest.mark.parametrize("shard_divisor", [1, 16])
+def test_adamw_update_flat_matches_reference(grad_clip, shard_divisor):
+    """`adamw_update_flat` (a params tree and a gradient tree over flat
+    buffers) against the reference's from the same numpy inputs: params,
+    moments, the norm and Σg² to 1e-6; the pads of the moments stay zero;
+    the input params are left as they were."""
+    import jax
+    import jax.numpy as jnp
+    from repro.optim import adamw as jadamw
+    from repro_torch.optim import adamw as tadamw
+
+    r = np.random.default_rng(int(10 * grad_clip) + shard_divisor)
+    a = lambda *s, dt=np.float32: r.standard_normal(s).astype(dt)
+    params = {"w1": a(64, 33), "b": a(65), "w2": a(200, 3), "h": a(9, dt=BF16)}
+    grads = {k: 0.02 * a(*v.shape) + 0.1 for k, v in params.items()}
+    moments = {k: 0.05 * a(*v.shape) for k, v in params.items()}
+    jp, jg = jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, grads)
+    jm = jax.tree.map(jnp.asarray, moments)
+    jst = {"m": jm, "v": jax.tree.map(jnp.abs, jm), "count": jnp.asarray(5, jnp.int32)}
+    jlayout = JLayout.from_tree(params, shard_divisor=shard_divisor)
+    want = jadamw.adamw_update_flat(
+        jp, jg, jadamw.flat_opt_state(jp, jst, shard_divisor=shard_divisor),
+        jadamw.AdamWConfig(grad_clip=grad_clip), 1e-3, layout=jlayout)
+
+    tp, tg, tm = _torch_tree(params), _torch_tree(grads), _torch_tree(moments)
+    before = {k: v.clone() for k, v in tp.items()}
+    tst = {"m": tm, "v": tree_map(torch.abs, tm), "count": torch.tensor(5, dtype=torch.int32)}
+    layout = FlatLayout.from_tree(tp, shard_divisor=shard_divisor)
+    got = tadamw.adamw_update_flat(
+        tp, tg, tadamw.flat_opt_state(tp, tst, shard_divisor=shard_divisor),
+        tadamw.AdamWConfig(grad_clip=grad_clip), torch.tensor(1e-3), layout=layout)
+    for k in params:
+        np.testing.assert_allclose(got[0][k].float().numpy(),
+                                   np.asarray(want[0][k], np.float32), rtol=1e-6, atol=1e-7)
+        assert torch.equal(tp[k], before[k])
+    for mv in ("m", "v"):
+        for g, w, pad, size in zip(got[1][mv], want[1][mv], layout.buffer_pads,
+                                   layout.buffer_sizes):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-9)
+            assert not pad or bool((g[size - pad:] == 0).all())
+    assert int(got[1]["count"]) == int(want[1]["count"]) == 6
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(float(g), float(w), rtol=1e-6)

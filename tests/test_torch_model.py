@@ -116,14 +116,18 @@ def test_full_width_microllama_and_unsupported_configs():
     with pytest.raises(KeyError, match="supported"):
         get_config("mamba3-1b")
     # tp_boundary is ported (tests/test_torch_tp.py); an unknown remat
-    # policy, and a model axis over layers the port does not shard, raise
+    # policy raises, and the model axis takes every layer kind
+    # (tests/test_torch_tp_kinds.py)
     build_model(cfg.replace(remat="tp_boundary")).init(device="cpu")
     with pytest.raises(NotImplementedError, match="remat='offload'"):
         build_model(cfg.replace(remat="offload")).init(device="cpu")
-    from repro_torch.models.blocks import check_model_axis
-    check_model_axis(cfg, 2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        check_model_axis(get_config("mamba2-370m"), 2)
+    from repro_torch.distributed.params import model_roles, param_pspecs
+    from repro_torch.launch.mesh import Mesh
+    like = build_model(get_config("mamba2-370m")).init(0, "meta")
+    roles = model_roles(like, param_pspecs(like, Mesh((1, 2), ("data", "model"))))
+    ssd = roles["layers"][0]["ssd"]
+    assert [ssd[k] for k in ("w_in", "conv_w", "w_out", "a_log")] == [
+        "sharded", "sharded", "sharded", "replicated"]
     p = build_model(get_smoke_config("llama3.2-1b")).init(seed=1, device="cpu")
     q = build_model(get_smoke_config("llama3.2-1b")).init(seed=1, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p), tree_leaves(q)))

@@ -1,7 +1,7 @@
 """Tensor parallelism on the CPU: the port's pieces against their whole
 versions on 2 gloo ranks, remat="tp_boundary", the loop on a 2 × 2 grid
-against the reference, a checkpoint from the grid, and the configs the
-model axis does not cover.
+against the reference, a checkpoint from the grid, and every config on a
+model axis.
 
 * Attention (kv heads sharded, and kv heads that do not divide the axis,
   replicated by the sanitizer: each local q head reads its kv head by its
@@ -19,9 +19,10 @@ model axis does not cover.
 * A checkpoint written on 2 × 2 (FSDP-Norm's model slices; ACCUM-NORM's
   ZeRO-3 slices) resumes bit-identically on the grid, and the reference's
   store reads it: its parameters equal the run's.
-* mamba2, recurrentgemma, dbrx and deepseek-v2 on a model axis, and the
-  mixed residencies on a grid, raise NotImplementedError naming ROADMAP
-  §1 item 7, before any rank starts."""
+* Every config's FSDP-Norm steps on a (1, 2) mesh equal one process's,
+  and mamba2's, recurrentgemma's, dbrx's and deepseek-v2's ACCUM-NORM
+  steps too; a mixed residency trains on a model axis; a model axis that
+  does not divide the world, or a grid it does not fill, is refused."""
 
 import json
 import os
@@ -316,23 +317,44 @@ def test_grid_checkpoint_resumes_bit_identically_and_crosses(tmp_path, step_impl
 
 # ------------------------------------------------------------ coverage ----
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b", "dbrx-132b",
-                                  "deepseek-v2-236b"])
-def test_uncovered_configs_raise_on_a_model_axis(arch):
-    for step_impl in ("fsdp_norm", "accum_norm"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            run_training(TrainJob(device="cpu", arch=arch, step_impl=step_impl,
-                                  mesh_data=1, mesh_model=2, steps=1))
+def _rank_uncovered():
+    mesh = tmesh.make_host_mesh(data=1, model=2)
+    return {arch: _covered_steps(arch, mesh, "accum_norm") for arch in KINDS}
+
+
+@pytest.fixture(scope="module")
+def uncovered():
+    return tmesh.spawn_workers(_rank_uncovered, 2, timeout_s=TIMEOUT_S)
+
+
+KINDS = ("mamba2-370m", "recurrentgemma-9b", "dbrx-132b", "deepseek-v2-236b")
+
+
+@pytest.mark.parametrize("arch", KINDS)
+def test_uncovered_configs_raise_on_a_model_axis(uncovered, arch):
+    """The configs the model axis once refused (SSD, RG-LRU, MoE, MLA) train
+    on a (1, 2) mesh with ACCUM-NORM as on one process: its step metrics to
+    rtol 1e-5 (tests/test_torch_tp_kinds.py holds them against the
+    reference)."""
+    for got, want in zip(uncovered[arch], _covered_steps(arch, None, "accum_norm")):
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=f"{arch} {k}")
 
 
 def test_grid_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run_training(TrainJob(device="cpu", mesh_model=2, stats_impl="flat",
-                              params_impl="tree"))
+    """A mixed residency trains on a model axis, and `model_roles` takes
+    dbrx's experts; a model axis that does not divide the world, or a grid
+    the world does not fill, is refused."""
+    hist = run_training(TrainJob(device="cpu", mesh_model=2, stats_impl="flat",
+                                 params_impl="tree", steps=1, seq_len=16,
+                                 eval_every=0))
+    assert np.isfinite(hist["loss"]).all() and len(hist["ranks"]) == 2
     mesh = tmesh.Mesh((1, 2), ("data", "model"))
     like = build_model(get_smoke_config("dbrx-132b")).init(0, "meta")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tparams.model_roles(like, tparams.param_pspecs(like, mesh))
+    roles = tparams.model_roles(like, tparams.param_pspecs(like, mesh))
+    moe = roles["layers"][0]["mlp"]
+    assert [moe[k] for k in ("w_gate", "w_up", "w_down", "router")] == [
+        "sharded", "sharded", "sharded", "replicated"]
     monkeypatch.setenv("WORLD_SIZE", "4")
     with pytest.raises(ValueError, match="does not divide"):
         run_training(TrainJob(device="cpu", mesh_model=3))
@@ -342,20 +364,23 @@ def test_grid_refusals(monkeypatch):
 
 COVERED = ("llama3.2-1b", "microllama-300m", "tinyllama-1.1b", "openllama-3b",
            "gemma2-27b", "nemotron-4-15b", "phi3-mini-3.8b", "whisper-base",
-           "internvl2-1b")
+           "internvl2-1b") + KINDS
 
 
-def _covered_steps(arch, mesh):
-    """Two FSDP-Norm tree/tree steps of `arch` smoke from seed-0 params, on
-    `mesh` (this rank's slices) or on one process; the step metrics."""
+def _covered_steps(arch, mesh, step_impl="fsdp_norm"):
+    """Two tree/tree steps (FSDP-Norm, or ACCUM-NORM) of `arch` smoke from
+    seed-0 params, on `mesh` (this rank's slices) or on one process; the
+    step metrics."""
     from repro_torch.core.schedule import BatchPlan
     from repro_torch.data.pipeline import make_batch, MarkovTokens
-    from repro_torch.distributed.train_step import batch_to_device, make_fsdp_norm_step
+    from repro_torch.distributed.train_step import (
+        batch_to_device, make_accum_norm_step, make_fsdp_norm_step)
     from repro_torch.optim.adamw import AdamWConfig, init_adamw
     cfg = get_smoke_config(arch)
     model = build_model(cfg)
     params = model.init(0, "cpu")
-    wrap = make_fsdp_norm_step(model, AdamWConfig(), params_like=params, mesh=mesh)
+    make = make_fsdp_norm_step if step_impl == "fsdp_norm" else make_accum_norm_step
+    wrap = make(model, AdamWConfig(), params_like=params, mesh=mesh)
     if mesh is not None:
         params = tree_map(lambda x: x.contiguous(), tparams.shard_tree(
             params, wrap.param_specs, mesh))
@@ -371,7 +396,8 @@ def _covered_steps(arch, mesh):
     for t in range(2):
         b = make_batch(src, t, plan, 16, extra)
         params, opt, m = wrap(b)(params, opt, batch_to_device(b, "cpu"), 1e-3)
-        out.append({k: float(m[k]) for k in ("loss", "grad_sqnorm", "grad_norm")})
+        out.append({k: float(m[k]) for k in ("loss", "var_l1", "grad_sqnorm",
+                                             "grad_norm")})
     return out
 
 
@@ -387,8 +413,8 @@ def covered():
 
 @pytest.mark.parametrize("arch", COVERED)
 def test_covered_config_on_a_model_axis_matches_one_process(covered, arch):
-    """Every config the model axis covers trains on a (1, 2) mesh as on one
-    process: its step metrics to rtol 1e-5."""
+    """Every config trains on a (1, 2) mesh as on one process: its
+    FSDP-Norm step metrics to rtol 1e-5."""
     for got, want in zip(covered[arch], _covered_steps(arch, None)):
         for k in want:
             np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=f"{arch} {k}")

@@ -129,13 +129,14 @@ def test_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch, tmp_path, c
                                         checkpoint_every=1))
     assert sorted(f.name for f in ck.glob("*.npz")) == [
         "ckpt_00000001.npz", "ckpt_00000002.npz"]
-    # the grid is ported (tests/test_torch_tp.py); what it does not cover
-    # yet raises before any rank starts
-    for kw, item in ((dict(arch="dbrx-132b", mesh_model=2), "item 7"),
-                     (dict(step_impl="accum_norm", mesh_data=2,
-                           stats_impl="flat"), "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            ttrain.run_training(ttrain.TrainJob(device="cpu", **kw))
+    # the grid is ported (tests/test_torch_tp.py, test_torch_tp_kinds.py):
+    # dbrx on a model axis and a mixed residency over two ACCUM-NORM ranks
+    # train
+    for kw in (dict(arch="dbrx-132b", mesh_model=2),
+               dict(step_impl="accum_norm", mesh_data=2, stats_impl="flat")):
+        hist = ttrain.run_training(ttrain.TrainJob(device="cpu", steps=1,
+                                                   seq_len=16, eval_every=0, **kw))
+        assert np.isfinite(hist["loss"]).all() and len(hist["ranks"]) == 2
     # coordination, warm-up and the compile cache are ported: the CLI runs
     # the job through a file coordinator (a world of one)
     capsys.readouterr()

@@ -161,6 +161,34 @@ exit (nothing is caught):
               builds), the steady-state probe a hit with no new build; the
               continuous run's figures for its load window alone beside
               the reference's keys, which also count the probe.
+   serve-mesh — serving on a data x model grid of gloo ranks sharing the
+              card, full-width llama3.2-1b (16 layers, f32, seed-0
+              weights): a 4 x 2048 `make_prefill` on 1 x 2 (16 flash
+              launches a rank on 16 of the 32 heads, 33 rmsnorm), its
+              logits and gathered caches within SERVE_REL (max abs error
+              over the largest magnitude) of the one-process prefill; `run_serving` (batch 8, prompt 128, gen
+              64) on 2 x 1 (each rank's rows a CUDA graph), 1 x 2 and 2 x 2
+              (eager: a model axis's gloo all-reduces cannot be captured),
+              every step's logits (the eager run's own; a graph run's
+              tokens teacher-forced through the grid's eager step) within
+              SERVE_REL of the one-process step on the same tokens,
+              the greedy tokens equal wherever the one-process top-2 margin
+              exceeds twice that, decode ms a step printed beside the
+              one-process run's; `run_continuous_serving` (CONT_JOB) on
+              2 x 1 and 2 x 2: the rung trace, completed requests and
+              engine counters equal to the one-process run's, the probe a
+              hit, the load window's req/s and p50/p99 printed; one
+              full-width block of every other layer kind on 1 x 2
+              (SM_PIECES: dbrx's attention and MoE, deepseek-v2's MLA and
+              MoE with a cache of 8192 whose latents lie over the model
+              axis, mamba2's SSD, recurrentgemma's RG-LRU and its MQA local
+              layer at head dim 256, gemma2's softcapped global layer): a
+              2 x 512 prefill and 8 decode steps at per-row positions,
+              outputs and caches within SERVE_MESH_REL of the block run
+              whole.  The grid runs' launches go into the kernels line, and
+              flash and rmsnorm are held against their plain versions at
+              the shapes the phase gave them.  `python3 chip_smoke.py
+              serve-mesh` runs the device, build and this phase alone.
 8. time     — each kernel, its plain version and the nearest library call
               at the main path's shapes (all buckets of the layout; for
               rmsnorm and flash_attention prefill's shapes), timed with
@@ -203,10 +231,10 @@ exit (nothing is caught):
               libraries keep their inodes); the dead-rank survivor (rank 1
               SIGKILLed at step 3, rank 0 fails with a CoordinationError
               naming it after checkpointing step 6).
-   resume-accum — full-width, full-depth microllama-300m, ACCUM-NORM,
-              flat stats and params: an uninterrupted 6-step run; the same
-              job through `python -m repro_torch.launch.train` with a
-              checkpoint every 2 steps, killed by the fault harness
+   resume-accum — full-width microllama-300m (RESUME_ACCUM_LAYERS of its 12
+              layers), ACCUM-NORM, flat stats and params: an uninterrupted
+              6-step run; the same job through the train CLI's `main` (in
+              a child cut to the same depth) with a checkpoint every 2 steps, killed by the fault harness
               (SIGKILL) at the top of step 5; `run_training(resume=True)`
               to step 6.  Losses, batches, var_l1, eval losses and the
               step-6 checkpoints (params, moments, count, controller state)
@@ -332,11 +360,32 @@ KINDS_PIECES = {"dbrx-moe": ("dbrx-132b", "moe"),
                 "deepseek-v2-moe": ("deepseek-v2-236b", "moe"),
                 "mamba2-ssd": ("mamba2-370m", "ssd"),
                 "recurrentgemma-rglru": ("recurrentgemma-9b", "rglru")}
-# (b) training on the grid at full width, depth cut: mamba2-370m 4 of its 48
-# SSD layers; recurrentgemma-9b its 2 RG-LRU prefix layers and one (rglru,
-# rglru, local) repeat
-KINDS_LAYERS = {"mamba2-370m": 4, "recurrentgemma-9b": 5}
+# (b) training on the grid at full width, depth cut: mamba2-370m 2 of its 48
+# SSD layers (4 until the whole run reached 986 s, PERF.md §4); recurrentgemma-9b
+# its 2 RG-LRU prefix layers and one (rglru, rglru, local) repeat
+KINDS_LAYERS = {"mamba2-370m": 2, "recurrentgemma-9b": 5}
 KINDS_JOB = dict(MESH_JOB, arch="mamba2-370m")
+# phase serve-mesh: serving on a data x model grid of gloo ranks sharing the
+# card, full-width llama3.2-1b (16 layers, f32, seed-0 weights), and one
+# block of every other layer kind at full width on 1 x 2
+# a grid against one process on the card: the whole 16-layer model's
+# logits and caches at SERVE_REL (the serving phases' whole-model
+# tolerance, max abs error over the largest magnitude); one block of a
+# layer kind (the pieces) at 1e-5 of its largest magnitude
+SERVE_MESH_REL = 1e-5
+SM_PIECES = {  # name: (arch, kind, MoE feed-forward)
+    "dbrx-moe": ("dbrx-132b", "attn", True),
+    "deepseek-v2-mla-moe": ("deepseek-v2-236b", "mla", True),
+    "mamba2-ssd": ("mamba2-370m", "ssd", False),
+    "recurrentgemma-rglru": ("recurrentgemma-9b", "rglru", False),
+    "recurrentgemma-local": ("recurrentgemma-9b", "local", False),
+    "gemma2-global": ("gemma2-27b", "attn", False)}
+SM_PIECE_TOKENS = (2, 512)    # each piece's prefill; then SM_PIECE_STEPS decode steps
+SM_PIECE_STEPS = 8
+# the pieces' caches: MLA's at 8192 positions, its latents over the model axis
+SM_PIECE_CACHE = {"deepseek-v2-mla-moe": 8192}
+SM_PIECE_CACHE_DEFAULT = 2048
+SM_TIMEOUT_S = 400        # a group of ranks that has not ended by then is stopped
 
 
 def say(phase: str, **kv):
@@ -1530,6 +1579,407 @@ def mesh_kinds_phase(smi, ops, dev) -> tuple:
     return launches, err
 
 
+def sm_counted(ops, fn):
+    """(fn(), this rank's launches, its kernel calls' shapes): the counts
+    set to 0 just before and read just after."""
+    ops.reset_launch_counts()
+    with recorded_kernel_calls(ops) as calls:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, ops.launch_counts(), calls
+
+
+def sm_prefill(ops, model, whole, mesh, dev) -> dict:
+    """A 4 x 2048 prefill on this rank's slices of the 1 x 2 grid: its
+    launches (flash on 16 of the 32 heads a rank) and ms; rank 0 holds the
+    logits and the gathered caches against the one-process prefill."""
+    import torch.distributed as dist
+    from repro_torch.distributed.params import cache_pspecs, gather_tree
+    from repro_torch.distributed.serve_step import make_prefill, param_slices
+
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
+                           device=dev, generator=gen)
+    wrap, p_specs = make_prefill(model, mesh, batch=PREFILL_BATCH)
+    run, local = wrap(), param_slices(whole, p_specs, mesh)
+    run(local, {"tokens": tokens[:, :64]})                # cuBLAS warm-up
+    dist.barrier()
+    t0 = time.perf_counter()
+    (logits, caches), launches, calls = sm_counted(ops, lambda: run(local, {"tokens": tokens}))
+    ms = 1e3 * (time.perf_counter() - t0)
+    like = model.init_cache(PREFILL_BATCH, PREFILL_LEN, device="meta")
+    caches = gather_tree(caches, cache_pspecs(like, mesh, batch_divisible=True), mesh)
+    del local
+    out = {"ms": ms, "launches": launches, "calls": calls}
+    if dist.get_rank() == 0:
+        with torch.inference_mode():
+            want_logits, want = model.prefill(whole, {"tokens": tokens})
+        out["rel_errs"] = {"logits": rel_err(logits, want_logits),
+                           "caches": caches_rel_err(caches, want)}
+    del caches
+    return out
+
+
+def sm_serving(ops, model, whole, mesh, dev) -> dict:
+    """`run_serving` on this grid (graphs on a model axis of 1, eager
+    above), each step's logits held against the one-process step on the
+    same tokens (on the model index 0 ranks, each its data rows): the
+    eager run's own (`on_logits`), a graph run's through the grid's eager
+    decode step teacher-forced on its tokens; and the greedy tokens
+    wherever the one-process top-2 margin exceeds twice the tolerance."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.distributed.params import cache_pspecs
+    from repro_torch.distributed.serve_step import (
+        data_rows, local_cache, make_decode_step, param_slices)
+    from repro_torch.distributed.sharding import TP_STATS
+    from repro_torch.launch.serve import run_serving
+
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    graphs, stash = m == 1, []
+    keep = None if graphs else (lambda i, logits: stash.append(logits.clone()))
+    dist.barrier()
+    TP_STATS.update(calls=0, seconds=0.0)
+    res, launches, calls = sm_counted(ops, lambda: run_serving(
+        SERVE_ARCH, smoke=False, params=whole, mesh_data=d, mesh_model=m,
+        on_logits=keep, **SERVE_JOB))
+    b, plen, glen = SERVE_JOB["batch"], SERVE_JOB["prompt_len"], SERVE_JOB["gen_len"]
+    tp = dict(TP_STATS, steps=plen + glen - 1)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, model.cfg.vocab_size, (b, plen)).astype(np.int32)
+    rows = data_rows(b, mesh)
+    feed = torch.from_numpy(np.concatenate([prompts, res["tokens"]], 1)[rows]).to(dev)
+    gen_tok = torch.from_numpy(res["tokens"][rows]).to(dev)
+    if graphs:         # the grid's eager step, teacher-forced on the run's tokens
+        like = model.init_cache(b, plen + glen, device="meta")
+        wrap, p_specs = make_decode_step(model, mesh, batch=b)
+        step, local = wrap(like), param_slices(whole, p_specs, mesh)
+        cache = local_cache(like, cache_pspecs(like, mesh, batch_divisible=True), mesh, dev)
+
+        def grid_logits(i):
+            return step(local, cache, feed[:, i], i)[0]
+    else:
+        grid_logits = stash.__getitem__
+    ref = mesh.model_index == 0
+    if ref:
+        solo = make_decode_step(model)
+        ref_cache = model.init_cache(feed.shape[0], plen + glen, device=dev)
+    err, checked, mismatched = 0.0, 0, 0
+    for i in range(plen + glen - 1):
+        logits = grid_logits(i)
+        if not ref:
+            continue
+        want, ref_cache = solo(whole, ref_cache, feed[:, i], i)
+        err = max(err, rel_err(logits, want))
+        if i >= plen - 1:
+            top = torch.topk(want, 2, dim=-1).values
+            decided = (top[:, 0] - top[:, 1]) > 2 * SERVE_REL * want.abs().max()
+            same = gen_tok[:, i - plen + 1] == want.argmax(-1)
+            checked += int(decided.sum())
+            mismatched += int((decided & ~same).sum())
+    del stash
+    return {"tokens": res["tokens"], "decode_ms_per_step": 1e3 * res["decode_s"] / (glen - 1),
+            "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+            "launches": launches, "calls": calls, "max_rel_err": err,
+            "tp_collectives_per_step": tp["calls"] / tp["steps"],
+            "tp_collective_ms_per_step": 1e3 * tp["seconds"] / tp["steps"],
+            "greedy_checked": checked, "greedy_mismatched": mismatched}
+
+
+def sm_continuous(ops, whole, mesh) -> dict:
+    from repro_torch.launch.serve import run_continuous_serving
+
+    res, launches, calls = sm_counted(ops, lambda: run_continuous_serving(
+        SERVE_ARCH, smoke=False, params=whole, mesh_data=mesh.shape["data"],
+        mesh_model=mesh.shape["model"], **CONT_JOB))
+    return {"res": res, "launches": launches, "calls": calls}
+
+
+def sm_piece(ops, name, mesh, dev) -> dict:
+    """One full-width block of a layer kind on this rank's slices of the
+    1 x 2 grid: a prefill of SM_PIECE_TOKENS, its cache placed in a decode
+    cache of SM_PIECE_CACHE positions, then SM_PIECE_STEPS decode steps at
+    per-row positions (row 1 crossing the middle of the cache: MLA's 8192
+    latents change rank there).  Rank 0 first runs the block whole (the
+    other waits); then both run it tensor-parallel, and rank 0 holds the
+    outputs and the gathered caches against the whole run's."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.params import (
+        cache_pspecs, gather_tree, param_pspecs, shard_tree)
+    from repro_torch.distributed.serve_step import _serve_rules, layer_seq_shards
+    from repro_torch.distributed.sharding import use_sharding_rules
+    from repro_torch.models import blocks as B
+    from repro_torch.tree import tree_map
+
+    arch, kind, moe = SM_PIECES[name]
+    cfg = get_config(arch)
+    b, t = SM_PIECE_TOKENS
+    length = SM_PIECE_CACHE.get(name, SM_PIECE_CACHE_DEFAULT)
+    seed = list(SM_PIECES).index(name)
+    make = lambda: {"layers": [B.init_block(torch.Generator(device=dev).manual_seed(seed),
+                                            cfg, kind, moe, dev)]}
+    gen = torch.Generator(device=dev).manual_seed(100 + seed)
+    x = torch.randn((b, t, cfg.d_model), device=dev, generator=gen)
+    xs = [torch.randn((b, 1, cfg.d_model), device=dev, generator=gen)
+          for _ in range(SM_PIECE_STEPS)]
+    positions = torch.arange(t, device=dev).expand(b, t)
+    pos = [torch.tensor([t + i, length // 2 - SM_PIECE_STEPS // 2 + i], device=dev)
+           for i in range(SM_PIECE_STEPS)]
+    cache_of = lambda n, d: [B.init_block_cache(cfg, kind, b, n, cfg.act_dtype, d)]
+    specs = cache_pspecs(cache_of(length, "meta"), mesh, batch_divisible=True)
+    pre_specs = cache_pspecs(cache_of(t, "meta"), mesh, batch_divisible=True)
+    seq = layer_seq_shards(specs)[0]
+
+    def run(p, cache, start, seq_sharded):
+        """The prefill's output and cache, the cache placed in `cache`
+        (which holds positions [start, start + its length)), then the
+        decode steps' outputs; `cache` is written in place."""
+        with torch.inference_mode():
+            y, _, pre = B.block_full(p, x, positions, cfg, kind, moe, collect_cache=True)
+            for k, c in (pre or {}).items():
+                lo, hi = start, min(start + cache[k].shape[1], t)
+                if lo < hi:
+                    cache[k][:, :hi - lo].copy_(c[:, lo:hi])
+            outs = [B.block_decode(p, xi, cache, pi, cfg, kind, moe, seq_sharded=seq_sharded)[0]
+                    for xi, pi in zip(xs, pos)]
+        return y, pre, outs, cache
+
+    want = None
+    if dist.get_rank() == 0:
+        tree = make()
+        want = tree_map(lambda v: v.cpu(), run(tree["layers"][0],
+                                                cache_of(length, dev)[0], 0, False))
+        del tree
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    tree = make()
+    local = tree_map(lambda v: v.contiguous(),
+                     shard_tree(tree, param_pspecs(tree, mesh), mesh))["layers"][0]
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    cache = tree_map(lambda v: v.contiguous(), shard_tree(cache_of(length, dev), specs, mesh))[0]
+    first = next(iter(cache.values()))
+    start = mesh.model_index * first.shape[1] if seq else 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    with use_sharding_rules(_serve_rules(mesh, b), mesh):
+        (y, pre, outs, cache), launches, calls = sm_counted(
+            ops, lambda: run(local, cache, start, seq))
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    cache = gather_tree([cache], specs, mesh)[0]
+    if pre is not None:
+        pre = gather_tree([{k: c.contiguous() for k, c in pre.items()}], pre_specs, mesh)[0]
+    out = {"seconds": secs, "launches": launches, "calls": calls, "peak_mem_bytes": peak,
+           "cache_seq_sharded": seq}
+    if want is not None:
+        wy, wpre, wouts, wcache = want
+        errs = {"prefill_out": rel_err(y, wy),
+                "decode_out": max(rel_err(a, w) for a, w in zip(outs, wouts)),
+                "decode_cache": max(rel_err(cache[k], wcache[k]) for k in wcache)}
+        if wpre is not None:
+            errs["prefill_cache"] = max(rel_err(pre[k], wpre[k]) for k in wpre)
+        out["rel_errs"] = errs
+    del local, cache, y, pre, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def piece_launches(arch: str, kind: str) -> dict:
+    """A piece's kernel launches a rank: flash once in an attention
+    block's prefill; rmsnorm at each of the block's norms where they are
+    RMSNorm (LayerNorm has none), and MLA's `q_norm` and `kv_norm`, in the
+    prefill and every decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import has_mlp
+
+    cfg = get_config(arch)
+    norms = (1 + has_mlp(cfg, kind)) * (1 + cfg.post_attn_norm) * (cfg.norm_kind == "rmsnorm")
+    if kind == "mla":
+        norms += 1 + bool(cfg.mla.q_lora_rank)
+    return {"flash_attention": int(kind in ("attn", "local")),
+            "rmsnorm": norms * (1 + SM_PIECE_STEPS)}
+
+
+def serve_mesh_rank(world: int):
+    """One rank of phase serve-mesh.  On 2 ranks: the 1 x 2 prefill,
+    `run_serving` on 2 x 1 and 1 x 2, `run_continuous_serving` on 2 x 1,
+    then the layer-kind pieces on 1 x 2; on 4: `run_serving` and
+    `run_continuous_serving` on 2 x 2.  Returns every rank's results."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+
+    import faulthandler
+
+    # a rank still here near the group's time limit prints where it waits
+    faulthandler.dump_traceback_later(SM_TIMEOUT_S - 30)
+    rank, t0 = dist.get_rank(), time.time()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = build_model(get_config(SERVE_ARCH))
+    whole = model.init(0, dev)
+    out = {}
+
+    def part(name, fn):
+        out[name] = fn()
+        say("serve-mesh", rank=rank, world=world, done=name,
+            seconds=round(time.time() - t0, 1))
+
+    if world == 2:
+        grid, line = make_host_mesh(data=1, model=2), make_host_mesh(data=2, model=1)
+        part("prefill-1x2", lambda: sm_prefill(ops, model, whole, grid, dev))
+        part("serving-2x1", lambda: sm_serving(ops, model, whole, line, dev))
+        part("serving-1x2", lambda: sm_serving(ops, model, whole, grid, dev))
+        part("continuous-2x1", lambda: sm_continuous(ops, whole, line))
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name in SM_PIECES:
+            part(f"piece-{name}", lambda: sm_piece(ops, name, grid, dev))
+    else:
+        grid = make_host_mesh(data=2, model=2)
+        part("serving-2x2", lambda: sm_serving(ops, model, whole, grid, dev))
+        part("continuous-2x2", lambda: sm_continuous(ops, whole, grid))
+    faulthandler.cancel_dump_traceback_later()
+    every = [None] * world
+    dist.all_gather_object(every, out)
+    return every
+
+
+def serve_mesh_phase(smi, ops, dev) -> tuple:
+    """Phase serve-mesh: serving on a data x model grid of gloo ranks that
+    share the card (module docstring).  Returns (each kernel's launches on
+    the phase's grid runs, summed over their ranks; each kernel's max abs
+    error at the shapes the phase gave it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_workers
+    from repro_torch.launch.serve import run_continuous_serving, run_serving
+    from repro_torch.models.model import build_model
+
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(SERVE_ARCH)
+    params = build_model(cfg).init(0, dev)
+    solo = {"serving": run_serving(SERVE_ARCH, smoke=False, params=params, **SERVE_JOB),
+            "continuous": run_continuous_serving(SERVE_ARCH, smoke=False, params=params,
+                                                 **CONT_JOB)}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("serve-mesh", done="one process", seconds=round(time.time() - t_phase, 1))
+    ranks = {}
+    for world in (2, 4):
+        every = spawn_workers(serve_mesh_rank, world, world, backend="gloo",
+                              timeout_s=SM_TIMEOUT_S)
+        ranks.update({k: [r[k] for r in every] for k in every[0]})
+        del every
+    launches, err = serve_mesh_checks(smi, ranks, solo, cfg, dev)
+    say("serve-mesh", nvidia_smi=smi, seconds=round(time.time() - t_phase, 3),
+        launches=launches, max_abs_err=err)
+    return launches, err
+
+
+def serve_mesh_checks(smi, ranks, solo, cfg, dev) -> tuple:
+    """Phase serve-mesh's assertions and lines, from every rank's results
+    (`ranks`: part -> one result a rank) and the one-process runs
+    (`solo`).  Returns (launches summed over the ranks, each kernel's max
+    abs error at the shapes the grid runs gave it)."""
+    layers, zero = cfg.num_layers, {k: 0 for k in KERNELS}
+    per_step = 2 * layers + 1
+
+    pre = ranks["prefill-1x2"]
+    want = zero | {"flash_attention": layers, "rmsnorm": per_step}
+    heads = {(c[0][2], c[1][2]) for r in pre for c in r["calls"]["flash_attention"]}
+    if any(r["launches"] != want for r in pre) or heads != {(cfg.num_heads // 2,
+                                                            cfg.num_kv_heads // 2)}:
+        raise AssertionError(f"prefill 1x2 launched {[r['launches'] for r in pre]} "
+                             f"on (q, kv) heads {heads}, expected {want} on 16 and 4")
+    if not max(pre[0]["rel_errs"].values()) <= SERVE_REL:
+        raise AssertionError(f"prefill 1x2 vs one process: {pre[0]['rel_errs']} "
+                             f"> {SERVE_REL}")
+    say("serve-mesh", part="prefill", nvidia_smi=smi, grid="1x2", batch=PREFILL_BATCH,
+        tokens=PREFILL_LEN, ms=[r["ms"] for r in pre], rel_errs=pre[0]["rel_errs"],
+        limit=SERVE_REL, flash_heads_q_kv=sorted(heads), launches=pre[0]["launches"])
+
+    steps = SERVE_JOB["prompt_len"] + SERVE_JOB["gen_len"] - 1
+    for grid in ("2x1", "1x2", "2x2"):
+        rs = ranks[f"serving-{grid}"]
+        graphs = grid.endswith("x1")
+        want = zero | {"rmsnorm": per_step * (steps + graphs)}
+        errs = [r["max_rel_err"] for r in rs]
+        bad = [r["launches"] for r in rs if r["launches"] != want]
+        if bad or not max(errs) <= SERVE_REL or any(r["greedy_mismatched"] for r in rs):
+            raise AssertionError(f"run_serving {grid}: launches {bad} (expected {want}), "
+                                 f"teacher-forced logits {errs}, greedy mismatches "
+                                 f"{[r['greedy_mismatched'] for r in rs]}")
+        say("serve-mesh", part="run_serving", nvidia_smi=smi, grid=grid, **SERVE_JOB,
+            cuda_graphs=graphs, decode_ms_per_step=[r["decode_ms_per_step"] for r in rs][:1],
+            solo_decode_ms_per_step=1e3 * solo["serving"]["decode_s"] / (SERVE_JOB["gen_len"] - 1),
+            prefill_s=rs[0]["prefill_s"], decode_s=rs[0]["decode_s"],
+            teacher_forced_max_rel_err=max(errs), limit=SERVE_REL,
+            tp_collectives_per_step=rs[0]["tp_collectives_per_step"],
+            tp_collective_ms_per_step=[round(r["tp_collective_ms_per_step"], 3) for r in rs],
+            greedy_checked=sum(r["greedy_checked"] for r in rs),
+            tokens_equal_solo=bool((rs[0]["tokens"] == solo["serving"]["tokens"]).all()),
+            launches=rs[0]["launches"])
+
+    book = ("steps", "requests_completed", "tokens_generated", "prompt_tokens",
+            "slot_resets", "slot_moves", "rung_transitions", "buckets_used", "compiles")
+    one = solo["continuous"]
+    for grid in ("2x1", "2x2"):
+        rs = ranks[f"continuous-{grid}"]
+        res = rs[0]["res"]
+        same = (res["rung_trace"] == one["rung_trace"]
+                and res["requests_completed"] == one["requests_completed"]
+                and all(res["engine"][k] == one["engine"][k] for k in book))
+        if (not same or not res["probe"]["steady_state_transition_hit"]
+                or any(r["launches"]["flash_attention"] for r in rs)
+                or not all(r["launches"]["rmsnorm"] for r in rs)):
+            raise AssertionError(f"continuous {grid}: {res['rung_trace']} vs "
+                                 f"{one['rung_trace']}, {res['engine']} vs {one['engine']}, "
+                                 f"probe {res['probe']}, launches "
+                                 f"{[r['launches'] for r in rs]}")
+        say("serve-mesh", part="continuous", nvidia_smi=smi, grid=grid, **CONT_JOB,
+            cuda_graphs=grid.endswith("x1"), load=res["load"],
+            solo_load=one["load"], wall_s=res["wall_s"], probe=res["probe"],
+            rung_trace_equal_solo=True, requests=res["requests_completed"],
+            launches=[r["launches"] for r in rs])
+
+    for name in SM_PIECES:
+        rs = ranks[f"piece-{name}"]
+        errs = rs[0]["rel_errs"]
+        want = zero | piece_launches(*SM_PIECES[name][:2])
+        if not max(errs.values()) <= SERVE_MESH_REL or any(r["launches"] != want for r in rs):
+            raise AssertionError(f"{name} on 1x2 vs whole: {errs}, launches "
+                                 f"{[r['launches'] for r in rs]}")
+        say("serve-mesh", part="piece", nvidia_smi=smi, piece=name,
+            tokens=list(SM_PIECE_TOKENS), decode_steps=SM_PIECE_STEPS,
+            cache=SM_PIECE_CACHE.get(name, SM_PIECE_CACHE_DEFAULT),
+            cache_seq_sharded=rs[0]["cache_seq_sharded"], rel_errs=errs,
+            limit=SERVE_MESH_REL, seconds=[round(r["seconds"], 3) for r in rs],
+            peak_mem_bytes=[r["peak_mem_bytes"] for r in rs],
+            flash_calls=[list(c[0]) + list(c[1]) for c in rs[0]["calls"]["flash_attention"]],
+            launches=rs[0]["launches"])
+
+    calls = {"flash_attention": [], "rmsnorm": []}
+    for rs in ranks.values():
+        for r in rs:
+            for k, cs in r["calls"].items():
+                calls[k] += [c for c in cs if c not in calls[k]]
+    err = check_path_shapes(calls, dev)
+    launches = {k: sum(r["launches"][k] for rs in ranks.values() for r in rs) for k in KERNELS}
+    return launches, err
+
+
 def check_archs(smi, ops, dev):
     """Phase archs: every registered config at full width, depth cut to
     ARCH_LAYERS (1 layer for the dense Llama family).  Per config: the
@@ -1986,6 +2436,15 @@ RESUME_FSDP_JOB = dict(RESUME_JOB, step_impl="fsdp_norm", mesh_data=2,
                        dist_backend="gloo")
 # resume-fsdp's depth: at the full 12 layers the phase took 168-172 s (PERF.md §6)
 RESUME_FSDP_LAYERS = 4
+# resume-accum's depth: at the full 12 layers it took 95.1 s of a 986 s run
+# (PERF.md §4, §6)
+RESUME_ACCUM_LAYERS = 4
+# the resume-accum child: the train CLI with the config cut to `layers`
+RESUME_CHILD = ("import sys\n"
+                "from repro_torch.launch import train as T\n"
+                "full = T.get_config\n"
+                "T.get_config = lambda arch: full(arch).replace(num_layers={layers})\n"
+                "T.main(sys.argv[1:])\n")
 # the mixed and local-SGD phases: microllama-300m at full width, 2 layers
 SMALL_LAYERS = 2
 LOCAL_H = 2
@@ -2073,9 +2532,10 @@ class CheckpointTimer:
 
 
 def resume_accum(smi, ops, layout):
-    """Phase resume-accum: full-width microllama-300m, ACCUM-NORM, flat
-    stats and params.  An uninterrupted 6-step run (one checkpoint, at
-    the end); the same job in a child process with a checkpoint every 2
+    """Phase resume-accum: full-width microllama-300m (RESUME_ACCUM_LAYERS
+    of its 12 layers), ACCUM-NORM, flat stats and params.  An
+    uninterrupted 6-step run (one checkpoint, at the end); the same job in
+    a child process (the train CLI's `main`) with a checkpoint every 2
     steps, killed by the fault harness (SIGKILL) at the top of step 5;
     `run_training(resume=True)` to step 6.  Losses, batches, var_l1 and the
     eval losses must equal the uninterrupted run's bit for bit, and so
@@ -2086,13 +2546,16 @@ def resume_accum(smi, ops, layout):
     import shutil
     import tempfile
     from repro_torch.checkpoint.store import latest_step
-    from repro_torch.configs import get_config
     from repro_torch.launch.train import TrainJob, run_training
+
+    from repro_torch.launch import train as T
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     free = shutil.disk_usage(tmp).free
     say("resume-accum", part="start", nvidia_smi=smi, tmpdir=tmp, free_bytes=free)
     timer = CheckpointTimer()
+    full = T.get_config
+    T.get_config = lambda arch: full(arch).replace(num_layers=RESUME_ACCUM_LAYERS)
     try:
         t0 = time.time()
         ref = run_training(TrainJob(**RESUME_JOB, checkpoint_dir=f"{tmp}/ref"))
@@ -2105,7 +2568,8 @@ def resume_accum(smi, ops, layout):
                    REPRO_FAULTS=json.dumps([{"site": "train.step", "at": 5,
                                              "action": "die"}]))
         t1 = time.time()
-        child = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+        child = subprocess.run([sys.executable, "-c",
+                                RESUME_CHILD.format(layers=RESUME_ACCUM_LAYERS),
                                 *cli_args(run)], cwd=ROOT, env=env,
                                capture_output=True, text=True, timeout=600)
         child_s = time.time() - t1
@@ -2121,7 +2585,7 @@ def resume_accum(smi, ops, layout):
         launches = ops.launch_counts()
         same_suffix(resumed, ref, 4)
         groups = adamw_groups(layout)
-        layers = get_config(TRAIN_JOB["arch"]).num_layers
+        layers = RESUME_ACCUM_LAYERS
         want = {k: 0 for k in KERNELS} | {"fused_adamw_stats": 2 * groups,
                                           "flash_attention": layers,
                                           "rmsnorm": 2 * layers + 1}
@@ -2137,8 +2601,10 @@ def resume_accum(smi, ops, layout):
             resumed_step_ms=step_ms, checkpoint_bytes=nbytes, bytes_written=written,
             checkpoints=sorted(str(p.relative_to(tmp)) for p in Path(tmp).rglob("*.npz")),
             seconds=timer.secs, child_s=round(child_s, 3),
-            phase_s=round(time.time() - t0, 3), free_bytes_before=free)
+            phase_s=round(time.time() - t0, 3), free_bytes_before=free,
+            layers=RESUME_ACCUM_LAYERS)
     finally:
+        T.get_config = full
         timer.close()
         shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
@@ -2824,6 +3290,9 @@ def main() -> int:
     serve_launches = serve_path(smi, ops, dev)
 
     lap("serve")
+    # serve-mesh: serving on a data x model grid, every layer kind ------------
+    sm_launches, sm_err = serve_mesh_phase(smi, ops, dev)
+    lap("serve-mesh")
     # 8. timing at the main path's shapes --------------------------------------
     sizes = layout.buffer_sizes
     n_total = sum(sizes)
@@ -3042,10 +3511,12 @@ def main() -> int:
     path_launches = {**fsdp_launches, **tree_launches,
                      **{k: serve_launches[k] + arch_launches[k]
                         for k in ("rmsnorm", "flash_attention")}}
-    # and the mesh phase's 2 x 2 grid and mesh-kinds' runs (every rank)
-    path_launches = {k: n + mesh_launches[k] + kinds_launches[k]
+    # and the mesh phase's 2 x 2 grid, mesh-kinds' and serve-mesh's runs
+    # (every rank)
+    path_launches = {k: n + mesh_launches[k] + kinds_launches[k] + sm_launches[k]
                      for k, n in path_launches.items()}
-    err = {k: max(e, mesh_err.get(k, 0.0), kinds_err.get(k, 0.0)) for k, e in err.items()}
+    err = {k: max(e, mesh_err.get(k, 0.0), kinds_err.get(k, 0.0), sm_err.get(k, 0.0))
+           for k, e in err.items()}
     entries = []
     for k, t in timed.items():
         # the operations each kernel does, at their type's rate: flash's
@@ -3070,9 +3541,9 @@ def main() -> int:
 
 
 def phase_alone(phase: str, layers: int | None) -> int:
-    """`python3 chip_smoke.py mesh|mesh-kinds [layers]`: the device, the
-    build and that phase alone (mesh at `layers` layers, mesh-kinds with
-    mamba2 at `layers`), nothing else (no result line)."""
+    """`python3 chip_smoke.py mesh|mesh-kinds|serve-mesh [layers]`: the
+    device, the build and that phase alone (mesh at `layers` layers,
+    mesh-kinds with mamba2 at `layers`), nothing else (no result line)."""
     global MESH_LAYERS
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3087,6 +3558,8 @@ def phase_alone(phase: str, layers: int | None) -> int:
     if phase == "mesh":
         MESH_LAYERS = layers or MESH_LAYERS
         mesh_phase(smi, ops, torch.device("cuda"))
+    elif phase == "serve-mesh":
+        serve_mesh_phase(smi, ops, torch.device("cuda"))
     else:
         KINDS_LAYERS["mamba2-370m"] = layers or KINDS_LAYERS["mamba2-370m"]
         mesh_kinds_phase(smi, ops, torch.device("cuda"))
@@ -3097,6 +3570,6 @@ def phase_alone(phase: str, layers: int | None) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] in (["mesh"], ["mesh-kinds"]):
+    if sys.argv[1:2] in (["mesh"], ["mesh-kinds"], ["serve-mesh"]):
         sys.exit(phase_alone(sys.argv[1], int(sys.argv[2]) if len(sys.argv) > 2 else None))
     sys.exit(main())

@@ -141,12 +141,25 @@ def opt_pspecs(opt_state, param_specs):
     return {"m": param_specs, "v": param_specs, "count": ()}
 
 
+# a cache at least this long whose heads stay whole on `model` (attention
+# kv heads that do not divide the axis, MLA's latents) has its time axis
+# over `model` instead
+SEQ_SHARD_LEN = 8192
+
+
+def seq_sharded(length: int, msize: int) -> bool:
+    """Whether a cache of `length` positions, whose heads are not on the
+    model axis, lies over `model` by its time axis (`cache_pspecs`'s rule
+    after the sanitizer: long enough and divisible)."""
+    return msize > 1 and length >= SEQ_SHARD_LEN and length % msize == 0
+
+
 def cache_pspecs(cache, mesh, batch_divisible: bool):
     """Decode caches (the port's per-layer list): batch over the data axes
     when divisible, kv heads over `model` when divisible (else a long
-    cache's sequence), latent and recurrent widths over `model`.  A layer's
-    cross-attention "cross_k" / "cross_v" take the reference's cross "k" /
-    "v" rule."""
+    cache's sequence, `seq_sharded`), latent and recurrent widths over
+    `model`.  A layer's cross-attention "cross_k" / "cross_v" take the
+    reference's cross "k" / "v" rule."""
     daxes = data_axes(mesh)
     dsize = 1
     for a in daxes:
@@ -161,12 +174,12 @@ def cache_pspecs(cache, mesh, batch_divisible: bool):
         if name in ("k", "v") and ndim == 4:          # (b, s, kv, hd)
             if shape[-2] % msize == 0 and msize > 1:
                 axes = [baxes, None, MODEL, None]
-            elif shape[-3] >= 8192:
+            elif shape[-3] >= SEQ_SHARD_LEN:
                 axes = [baxes, MODEL, None, None]
             else:
                 axes = [baxes, None, None, None]
         elif name in ("c_kv", "k_rope") and ndim == 3:  # (b, s, r)
-            axes = [baxes, MODEL if shape[-2] >= 8192 else None, None]
+            axes = [baxes, MODEL if shape[-2] >= SEQ_SHARD_LEN else None, None]
         elif name == "ssm" and ndim == 4:              # (b, nh, n, p)
             axes = [baxes, MODEL, None, None]
         elif name == "conv" and ndim == 3:             # (b, k, c)
@@ -316,5 +329,6 @@ def model_roles(params, specs):
     return _map_paths(role, params)
 
 
-__all__ = ["param_pspecs", "opt_pspecs", "cache_pspecs", "shard_tree",
+__all__ = ["param_pspecs", "opt_pspecs", "cache_pspecs", "seq_sharded",
+           "SEQ_SHARD_LEN", "shard_tree",
            "gather_tree", "strip_spec", "map_specs", "model_roles", "spec_paths"]

@@ -31,6 +31,25 @@ synchronisations, and a run makes only a handful of builds.  The step's
 neighbours stay pending until a lookup claims them, as in the reference,
 so `compiles`, `warmups` and `transition_hits` count as the reference's
 do.
+
+On a mesh (`mesh=`, one process a rank; `launch/serve.py` starts them)
+every rank runs the same host logic on the same submits.  The engine keeps
+this rank's slices of the params (`param_pspecs(fsdp=False)`) and of the
+pool (`cache_pspecs` over `model`); the pool's slots spread over the data
+ranks in turn (`serve_step.slot_home`: slot s on data rank s mod J as its
+row s div J), so a rung b with J | b touches rows [0, b/J) on every rank
+and no row moves, while a rung with b mod J != 0 leaves the later data
+ranks a row fewer (or none), and compaction broadcasts a row that changes
+rank.  A pool of max_slots that J does not divide is whole on every data
+rank, as the reference replicates it.  A step's one host read is the
+rank's own next tokens, then one all-gather over the data group (of host
+tensors: gloo) gives every rank the rung's tokens in slot order, and the
+ranks agree on the step's seconds (their max) before the controller sees
+them, so every rank takes the same decision.  The rungs are CUDA graphs on
+the card when the model axis is 1 (the all-gather stays outside the
+graph); on a model axis above 1 they run eagerly, decided at
+construction: gloo's host-staged TP all-reduces cannot be captured, and
+NCCL cannot put two ranks on one card.  A capture that fails still raises.
 """
 
 from __future__ import annotations
@@ -42,13 +61,16 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.serve_controller import (
     ServeControllerConfig, init_serve_controller, observe_step_latency,
     serve_controller_update, serve_ladder)
 from repro_torch.distributed.engine import EngineStats, RungCache
 from repro_torch.distributed.serve_step import (
-    GraphedDecode, make_slot_decode_step, move_slot, reset_slot)
+    GraphedDecode, gather_slots, local_cache, make_slot_decode_step, move_slot,
+    param_slices, reset_slot, rung_rows)
+from repro_torch.launch.mesh import host_max, num_workers, worker_index
 from repro_torch.tree import tree_leaves
 
 
@@ -119,8 +141,11 @@ class Request:
 class ServeEngine(RungCache):
     """Ladder-bucketed continuous-batching engine over one resident KV pool.
 
-    model / params : the served model (`decode_step` API); the engine runs
-                     on the device the params lie on.
+    model / params : the served model (`decode_step` API) and its whole
+                     params; the engine runs on the device they lie on.
+    mesh           : None (one process), or the (data, model) mesh of this
+                     process group: the engine keeps this rank's slices
+                     (module docstring).
     max_slots      : top rung — the resident cache's slot-row count.
     cache_len      : per-slot cache length; every request must satisfy
                      prompt_len + max_new_tokens <= cache_len.
@@ -132,8 +157,8 @@ class ServeEngine(RungCache):
                      one ahead of use, so a rung change is a cache hit.
     """
 
-    def __init__(self, model, params, *, max_slots: int, cache_len: int,
-                 ladder: tuple[int, ...] | None = None,
+    def __init__(self, model, params, mesh=None, *, max_slots: int,
+                 cache_len: int, ladder: tuple[int, ...] | None = None,
                  controller: ServeControllerConfig | None = None,
                  aot_warmup: bool = False, ring: bool = False,
                  max_queue: int = 0):
@@ -148,11 +173,28 @@ class ServeEngine(RungCache):
                 f"ladder top {self.ladder[-1]} exceeds max_slots {max_slots}")
         self.max_slots = max_slots
         self.cache_len = cache_len
-        self._params = params
+        self.mesh = mesh
         self.device = tree_leaves(params)[0].device
-        self._wrap = make_slot_decode_step(model, max_slots=max_slots)
-        self._kv = model.init_cache(max_slots, cache_len, device=self.device)
-        if self.device.type == "cuda":
+        # the data ranks the slots spread over, and this rank's index
+        self._J, self._j = 1, 0
+        if mesh is None:
+            self._params = params
+            self._wrap = make_slot_decode_step(model, max_slots=max_slots)
+            self._kv = model.init_cache(max_slots, cache_len, device=self.device)
+        else:
+            self._wrap, p_specs, cache_specs = make_slot_decode_step(
+                model, mesh, max_slots=max_slots)
+            self._params = param_slices(params, p_specs, mesh)
+            if max_slots % num_workers(mesh) == 0:
+                self._J, self._j = num_workers(mesh), worker_index(mesh)
+            self._kv_like = model.init_cache(max_slots, cache_len, device="meta")
+            self._c_specs = cache_specs(self._kv_like)
+            self._kv = local_cache(self._kv_like, self._c_specs, mesh, self.device,
+                                   rows=max_slots // self._J)
+        self._slot_mesh = mesh if self._J > 1 else None
+        self._graphs = self.device.type == "cuda" and (
+            mesh is None or mesh.model_size == 1)
+        if self._graphs:
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._capture_stream = torch.cuda.Stream(self.device)
 
@@ -208,7 +250,7 @@ class ServeEngine(RungCache):
         return req
 
     def _admit(self, req: Request):
-        reset_slot(self._kv, len(self._active))
+        reset_slot(self._kv, len(self._active), self._slot_mesh)
         self.stats.slot_resets += 1
         req.pos = 0
         req.n_consumed = 0
@@ -220,10 +262,11 @@ class ServeEngine(RungCache):
         return ("decode", b, self.cache_len)
 
     def _build(self, b: int):
-        step = self._wrap(b)
-        if self.device.type != "cuda":
+        step = self._wrap(b) if self.mesh is None else self._wrap(b, self._kv_like)
+        rows = rung_rows(b, self._J, self._j)
+        if not self._graphs or rows == 0:
             return step
-        return GraphedDecode(step, self._params, self._kv, b,
+        return GraphedDecode(step, self._params, self._kv, rows,
                              pool=self._graph_pool, stream=self._capture_stream)
 
     def _aot_build(self, b: int):
@@ -282,10 +325,15 @@ class ServeEngine(RungCache):
                          else r.generated[-1])
             pos[s] = r.pos
         t0 = time.time()
-        out_tok, self._kv = fn(self._params, self._kv, torch.from_numpy(tokens),
-                               torch.from_numpy(pos))
-        out = out_tok.cpu().numpy()          # waits for the device step
-        dt = time.time() - t0
+        mine = slice(self._j, b, self._J)    # this rank's slots of the rung
+        tokens, pos = torch.from_numpy(tokens[mine]), torch.from_numpy(pos[mine])
+        if not self._graphs:                 # a graph stages them itself
+            tokens, pos = tokens.to(self.device), pos.to(self.device)
+        out_tok, self._kv = fn(self._params, self._kv, tokens, pos)
+        out = self._rung_tokens(out_tok.cpu(), b)   # waits for the device step
+        # agreed over the mesh (the slowest rank's), so every rank's
+        # controller takes the same decision
+        dt = time.time() - t0 if self.mesh is None else host_max(time.time() - t0)
         self.ctrl = observe_step_latency(self._ctrl_cfg, self.ctrl,
                                          rung_idx, dt)
         if self._aot:
@@ -302,6 +350,25 @@ class ServeEngine(RungCache):
         return {"rung": b, "active": len(self._active),
                 "queued": len(self.queue), "step_s": dt,
                 "completed": completed}
+
+    def _rung_tokens(self, mine: torch.Tensor, b: int) -> np.ndarray:
+        """The rung's next tokens in slot order from this rank's: one
+        all-gather over the data group when the slots spread over it."""
+        if self._J == 1:
+            return mine.numpy()
+        n = -(-b // self._J)
+        padded = torch.zeros(n, dtype=torch.int32)
+        padded[:len(mine)] = mine
+        parts = [torch.empty_like(padded) for _ in range(self._J)]
+        dist.all_gather(parts, padded, group=self.mesh.data_group)
+        return torch.stack(parts, dim=1).reshape(-1)[:b].numpy()
+
+    def gathered_cache(self) -> list:
+        """The resident pool whole, slots in global order, on every rank
+        (every rank of the mesh calls it); no mesh: the pool itself."""
+        if self.mesh is None:
+            return self._kv
+        return gather_slots(self._kv, self._c_specs, self.mesh)
 
     def _advance(self, out: np.ndarray) -> list[Request]:
         """Fold one step's sampled tokens into per-request state; retire
@@ -329,7 +396,7 @@ class ServeEngine(RungCache):
         for s in sorted(done_slots, reverse=True):
             last = len(self._active) - 1
             if s != last:
-                move_slot(self._kv, last, s)
+                move_slot(self._kv, last, s, self._slot_mesh)
                 self._active[s] = self._active[last]
                 self.stats.slot_moves += 1
             self._active.pop()

@@ -193,6 +193,11 @@ def model_axis():
     return mesh.model_group, mesh.model_index
 
 
+def model_size() -> int:
+    """The active model axis's size (1 when `model_axis` is None)."""
+    return 1 if model_axis() is None else _CTX.mesh.model_size
+
+
 def _all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
     y = x.contiguous().clone()
     if group_size(group) > 1:
@@ -385,7 +390,7 @@ __all__ = [
     "entry_axes", "spec_entry", "with_sequence_parallel", "manual_data_rules",
     "flat_buffer_specs",
     "use_sharding_rules", "current_rules", "logical_spec", "maybe_shard",
-    "model_axis", "tp_enter", "tp_reduce", "tp_max", "tp_gather", "TP_STATS",
+    "model_axis", "model_size", "tp_enter", "tp_reduce", "tp_max", "tp_gather", "TP_STATS",
     "checkpoint_tp_boundary",
     "shard_bucket", "shard_flat_buffers", "gather_flat_buffers",
 ]

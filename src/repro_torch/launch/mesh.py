@@ -16,9 +16,10 @@ default process group, in row-major order over (pod, data, model), as
 * `make_host_mesh`, `make_production_mesh`, `data_axes`;
 * `num_workers`, `worker_index` — J and j over the data axes of a mesh;
   with no mesh, the default group's size and this rank (one worker a
-  rank), 1 and 0 outside a process group;
+  rank), 1 and 0 outside a process group; `data_peer` — the global rank
+  of data index j in this rank's data group;
 * `psum`, `pmean` — the reference's reductions, over a group (default:
-  every rank);
+  every rank); `host_max` of a host number;
 * `init_workers` — join the group as one rank (the caller names the
   backend: "nccl" needs a card per rank, "gloo" lets ranks share a card or
   run on the CPU; nothing switches silently);
@@ -189,6 +190,18 @@ def worker_index(mesh=None) -> int:
     return dist.get_rank() if _grouped() else 0
 
 
+def data_peer(mesh, j: int) -> int:
+    """The global rank at data index `j` (over the data axes, first axis
+    major) that shares this rank's other coordinates: rank `j` of this
+    rank's data group."""
+    daxes = data_axes(mesh)
+    coords = dict(mesh.coords)
+    for a, c in zip(daxes, np.unravel_index(j, [mesh.shape[a] for a in daxes])):
+        coords[a] = int(c)
+    return int(np.ravel_multi_index([coords[a] for a in mesh.axis_names],
+                                    [mesh.shape[a] for a in mesh.axis_names]))
+
+
 def group_size(group=None) -> int:
     """Ranks in `group` (None: every rank of the default group)."""
     if group is SELF:
@@ -203,6 +216,16 @@ def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     if group_size(group) > 1:
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
+
+
+def host_max(x: float, group=None) -> float:
+    """The largest of the ranks' host numbers (each rank's `x`): one
+    all-reduce of a host tensor; outside a group `x` itself."""
+    if group_size(group) == 1:
+        return x
+    t = torch.tensor([x], dtype=torch.float64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return float(t)
 
 
 def pmean(x: torch.Tensor, group=None) -> torch.Tensor:

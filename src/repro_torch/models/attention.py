@@ -23,7 +23,20 @@ too, or whole when the kv heads do not divide the axis, and then each
 local q head reads its kv head by its global index (the local heads then
 run as MHA).  The input enters
 through `tp_enter`, `wo`'s product is a partial sum made whole by
-`maybe_shard` at the reference's exit.  Training and prefill only.
+`maybe_shard` at the reference's exit.  Prefill returns its k and v in
+the cache's layout (`distributed/params.py::cache_pspecs`): the rank's kv
+heads, or all of them when they do not divide the axis.  Decode reads the
+cache in that layout, one of three cases:
+
+(a) the kv heads divide the axis: the rank holds its kv heads;
+(b) they do not, and the cache is shorter than `params.SEQ_SHARD_LEN`: the
+    rank holds the whole cache, and each local q head reads its kv head
+    by global index;
+(c) they do not, and the cache is that long: the rank holds its slice of
+    the positions and writes the new k and v only when the position falls
+    in it; every head's partial softmax over the slice (the q heads
+    all-gathered) is combined over the model group (`sharded_softmax`),
+    and the rank keeps its own heads' output.
 """
 
 from __future__ import annotations
@@ -33,7 +46,8 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import maybe_shard, model_axis, tp_enter
+from repro_torch.distributed.sharding import (
+    maybe_shard, model_axis, model_size, tp_enter, tp_gather, tp_max, tp_reduce)
 from repro_torch.kernels import ops
 from repro_torch.models.common import normal_init
 from repro_torch.models.embeddings import apply_rope
@@ -180,6 +194,7 @@ def attend_full(params, x, positions, *, rope_theta, softcap=0.0, window=0,
     if shard is not None:
         x = tp_enter(x)
     q, k, v = _project_qkv(params, x, positions, rope_theta, qk_norm)
+    kv = (k, v)                       # the cache: kv heads as the rank holds them
     if shard is not None:
         k, v = _local_kv(k, v, shard, num_heads, num_kv_heads)
     t = x.shape[1]
@@ -195,7 +210,7 @@ def attend_full(params, x, positions, *, rope_theta, softcap=0.0, window=0,
     out = torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
     if shard is not None:
         out = maybe_shard(out, "batch", "seq", "embed")
-    return (out, k, v) if return_kv else out
+    return (out, *kv) if return_kv else out
 
 
 def cross_attend(params, x, kv_source, *, softcap=0.0, num_heads=None,
@@ -239,8 +254,45 @@ def init_cache(batch: int, cache_len: int, num_kv_heads: int, head_dim: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def sharded_softmax(logits):
+    """Softmax over a last axis whose entries are cut over the model group
+    (case (c)): this rank's part of the probabilities, from the group's
+    max (`tp_max`) and sum (`tp_reduce`).  The caller all-reduces its
+    P·V partial."""
+    top = tp_max(logits.amax(dim=-1, keepdim=True))
+    p = torch.exp(logits - top)
+    return p / tp_reduce(p.sum(dim=-1, keepdim=True))
+
+
+def write_positions(c, new, slot, per_row: bool, start=None):
+    """Write `new` (b, 1, ...) into cache tensor `c` (b, length, ...) IN
+    PLACE at position `slot` (an int, or a (b,) tensor per row).  `start`
+    None: `c` holds every position.  Else it holds positions [start,
+    start + length) (case (c)): a scalar position outside them writes
+    nothing, and a row whose position falls outside them writes back the
+    value it read, so no host read decides anything."""
+    if start is None:
+        if per_row:
+            rows = torch.arange(c.shape[0], device=c.device)
+            c.index_put_((rows, slot), new[:, 0].to(c.dtype))
+        else:
+            c[:, slot:slot + 1].copy_(new)
+        return
+    length = c.shape[1]
+    if per_row:
+        rows = torch.arange(c.shape[0], device=c.device)
+        local = slot - start
+        idx = local.clamp(0, length - 1)
+        keep = c[rows, idx]
+        inside = ((local >= 0) & (local < length)).view(-1, *([1] * (keep.dim() - 1)))
+        c.index_put_((rows, idx), torch.where(inside, new[:, 0].to(c.dtype), keep))
+    elif start <= slot < start + length:
+        c[:, slot - start:slot - start + 1].copy_(new)
+
+
 def attend_decode(params, x, cache, pos, *, rope_theta, softcap=0.0,
-                  ring: bool = False, qk_norm=False):
+                  ring: bool = False, qk_norm=False, num_heads=None,
+                  num_kv_heads=None, seq_sharded: bool = False):
     """Single-token decode.  x: (b,1,d); pos: a scalar global position (an
     int or a 0-d tensor), or a (b,) integer tensor of PER-ROW positions
     (continuous batching: each cache row advances on its own timeline,
@@ -250,10 +302,23 @@ def attend_decode(params, x, cache, pos, *, rope_theta, softcap=0.0,
     The new k and v are written into `cache`'s tensors IN PLACE (a slice
     copy for a scalar position, `index_put_` for per-row positions), where
     the reference returns an updated copy; a cache whose tensors are views
-    of a larger buffer updates that buffer.  Returns (out, cache)."""
+    of a larger buffer updates that buffer.  `num_heads` / `num_kv_heads`
+    are the config's: leaves with fewer heads are this rank's shard, and
+    the cache is in one of the module docstring's three layouts,
+    `seq_sharded` saying it is case (c)'s slice of the positions.
+    Returns (out, cache)."""
+    shard = _tp_heads(params, num_heads)
+    if shard is not None:
+        x = tp_enter(x)
     b = x.shape[0]
     kc, vc = cache["k"], cache["v"]
-    cache_len = kc.shape[1]
+    length = kc.shape[1]
+    start = None
+    if seq_sharded and shard is not None:
+        start = shard[0] * length
+        cache_len = length * model_size()
+    else:
+        cache_len = length
     per_row = torch.is_tensor(pos) and pos.dim() == 1
     if per_row:
         pos = pos.to(device=x.device, dtype=torch.long)
@@ -263,16 +328,12 @@ def attend_decode(params, x, cache, pos, *, rope_theta, softcap=0.0,
         positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
     q, k_new, v_new = _project_qkv(params, x, positions, rope_theta, qk_norm)
     slot = pos % cache_len if ring else pos
-    if per_row:
-        rows = torch.arange(b, device=x.device)
-        kc.index_put_((rows, slot), k_new[:, 0].to(kc.dtype))
-        vc.index_put_((rows, slot), v_new[:, 0].to(vc.dtype))
-    else:
+    if not per_row:
         # the reference's dynamic_update_slice clamps the start in range
         slot = min(max(slot, 0), cache_len - 1)
-        kc[:, slot:slot + 1].copy_(k_new)
-        vc[:, slot:slot + 1].copy_(v_new)
-    kpos = torch.arange(cache_len, device=x.device)
+    write_positions(kc, k_new, slot, per_row, start)
+    write_positions(vc, v_new, slot, per_row, start)
+    kpos = torch.arange(length, device=x.device) + (start or 0)
     # a scalar position stays a Python int: no host-to-device copy a step
     ppos = pos[:, None] if per_row else pos
     if ring:
@@ -283,6 +344,32 @@ def attend_decode(params, x, cache, pos, *, rope_theta, softcap=0.0,
     else:
         valid = kpos <= ppos
     mask = valid[:, None, :] if per_row else valid[None, None, :]
-    out = _sdpa_grouped(q, kc.to(x.dtype), vc.to(x.dtype), mask, softcap)
+    k, v = kc.to(x.dtype), vc.to(x.dtype)
+    if start is not None:
+        out = _decode_seq_sharded(q, k, v, mask, softcap, shard)
+    else:
+        if shard is not None:
+            k, v = _local_kv(k, v, shard, num_heads, num_kv_heads)
+        out = _sdpa_grouped(q, k, v, mask, softcap)
     out = torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
+    if shard is not None:
+        out = maybe_shard(out, "batch", "seq", "embed")
     return out, cache
+
+
+def _decode_seq_sharded(q, k, v, mask, softcap, shard):
+    """Case (c): every q head (gathered over the model group) against this
+    rank's positions of the whole kv heads, the partial softmaxes combined
+    over the group; returns this rank's heads' output (b, 1, h, d)."""
+    m, h = shard
+    q = tp_gather(q, 2)
+    b, t, heads, dk = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, t, kv, heads // kv, dk)
+    logits = torch.einsum("btkgd,bskd->bkgts", qg, k).float() / math.sqrt(dk)
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    probs = sharded_softmax(logits.masked_fill(~mask[:, None, None], NEG_INF))
+    probs = probs.to(v.dtype)
+    out = tp_reduce(torch.einsum("bkgts,bskd->btkgd", probs, v))
+    return out.reshape(b, t, heads, dk)[:, :, m * h:(m + 1) * h]

@@ -4,7 +4,8 @@ ssd), pre/post norms, dense-MLP or MoE feed-forward, residuals
 
 * `block_full(params, x, positions, cfg, kind, moe_layer, causal,
   collect_cache)` -> (x, aux, cache | None)      # training / prefill
-* `block_decode(params, x, cache, pos, cfg, kind, moe_layer, ring)`
+* `block_decode(params, x, cache, pos, cfg, kind, moe_layer, ring,
+  seq_sharded)`
       -> (x, cache)                             # one token a row
 * `init_block`, `init_block_cache`
 
@@ -123,10 +124,14 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
 
 
 def block_decode(params, x, cache, pos, cfg: ModelConfig, kind: str,
-                 moe_layer: bool = False, ring: bool = False):
+                 moe_layer: bool = False, ring: bool = False,
+                 seq_sharded: bool = False):
     """One token a row; the cache is updated in place.  Returns (x, cache).
     An MoE layer dispatches each row's one token at capacity factor
-    max(2, cfg's), as the reference does, so no pair drops."""
+    max(2, cfg's), as the reference does, so no pair drops.  The mixers
+    take the config's head counts, as in `block_full`, so leaves with
+    fewer are this rank's shard; `seq_sharded`: an attention or MLA cache
+    that is this rank's slice of the positions (`attention` case (c))."""
     h = apply_norm(params["pre_norm"], x, cfg.norm_kind)
     if kind == RGLRU:
         mixed, cache = rglru_lib.rglru_decode(params["rec"], h, cache, cfg.rglru)
@@ -134,13 +139,16 @@ def block_decode(params, x, cache, pos, cfg: ModelConfig, kind: str,
         mixed, cache = ssd_lib.ssd_decode(params["ssd"], h, cache, cfg.ssm)
     elif kind == MLA_ATTN:
         mixed, cache = mla_lib.mla_decode(params["attn"], h, cache, pos,
-                                          cfg.mla, ring=ring)
+                                          cfg.mla, ring=ring,
+                                          num_heads=cfg.num_heads,
+                                          seq_sharded=seq_sharded)
     elif kind in (ATTN, LOCAL_ATTN):
         # local-attn caches are rings by construction (length == window)
         mixed, cache = attn_lib.attend_decode(
             params["attn"], h, cache, pos, rope_theta=_rope_theta(cfg),
             softcap=cfg.attn_logit_softcap, ring=ring or kind == LOCAL_ATTN,
-            qk_norm=cfg.qk_norm)
+            qk_norm=cfg.qk_norm, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, seq_sharded=seq_sharded)
     else:
         raise ValueError(kind)
     capacity = max(2.0, cfg.moe.capacity_factor) if moe_layer else None

@@ -18,8 +18,13 @@ and the RoPE key, so their gradients come out whole ("replicated").  A
 whole `w_q` (no query LoRA) gives this rank's heads from x entering
 through `tp_enter`, so its gradient is a partial sum ("partial").  `w_o`'s
 product is the exit (`maybe_shard`).  The chunked path runs on the local
-heads.  Training and prefill only: the absorbed decode takes no model
-axis.
+heads.  The absorbed decode runs the same split: the rank's heads of the
+absorbed query and of `w_uv` / `w_o`, against the latent cache that every
+rank holds whole (the latents come from replicated leaves), or, from
+`params.SEQ_SHARD_LEN` positions, its slice of the positions: then every
+head's partial softmax over the slice (the absorbed queries all-gathered)
+is combined over the group (`attention.sharded_softmax`), as attention's
+case (c).
 """
 
 from __future__ import annotations
@@ -28,8 +33,10 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import maybe_shard, model_axis, tp_enter
-from repro_torch.models.attention import NEG_INF, causal_mask
+from repro_torch.distributed.sharding import (
+    maybe_shard, model_axis, model_size, tp_enter, tp_gather, tp_reduce)
+from repro_torch.models.attention import (
+    NEG_INF, causal_mask, sharded_softmax, write_positions)
 from repro_torch.models.common import normal_init
 from repro_torch.models.config import MLAConfig
 from repro_torch.models.embeddings import apply_rope
@@ -151,15 +158,24 @@ def init_mla_cache(batch: int, cache_len: int, m: MLAConfig, dtype, device):
                                   dtype=dtype, device=device)}
 
 
-def mla_decode(params, x, cache, pos, m: MLAConfig, ring: bool = False):
+def mla_decode(params, x, cache, pos, m: MLAConfig, ring: bool = False,
+               num_heads: int | None = None, seq_sharded: bool = False):
     """Absorbed-form single-token decode against the latent cache.  `pos`
     is a scalar position (an int or a 0-d tensor) or a (b,) integer tensor
     of per-row positions (continuous batching: each row writes and masks
     its own timeline).  The new latents are written into `cache`'s tensors
-    IN PLACE, as in `attention.attend_decode`.  Returns (out, cache)."""
+    IN PLACE, as in `attention.attend_decode`.  `num_heads` is the
+    config's: leaves with fewer heads are this rank's shard, and
+    `seq_sharded` says the cache is its slice of the positions (module
+    docstring).  Returns (out, cache)."""
     b = x.shape[0]
+    tp = model_axis()
+    h = params["w_uk"].shape[1]
+    shard = (tp[1], h) if tp is not None and num_heads not in (None, h) else None
     c_cache, r_cache = cache["c_kv"], cache["k_rope"]
-    cache_len = c_cache.shape[1]
+    length = c_cache.shape[1]
+    start = shard[0] * length if seq_sharded and shard is not None else None
+    cache_len = length * model_size() if start is not None else length
     per_row = torch.is_tensor(pos) and pos.dim() == 1
     if per_row:
         pos = pos.to(device=x.device, dtype=torch.long)
@@ -167,32 +183,38 @@ def mla_decode(params, x, cache, pos, m: MLAConfig, ring: bool = False):
     else:
         pos = int(pos)
         positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
-    q_nope, q_rope = _queries(params, x, positions, m)            # (b,1,h,*)
+    q_nope, q_rope = _queries(params, x, positions, m, shard)     # (b,1,h,*)
     c_new, kr_new = _latents(params, x, positions, m)             # (b,1,r)
     slot = pos % cache_len if ring else pos
-    if per_row:
-        rows = torch.arange(b, device=x.device)
-        c_cache.index_put_((rows, slot), c_new[:, 0].to(c_cache.dtype))
-        r_cache.index_put_((rows, slot), kr_new[:, 0].to(r_cache.dtype))
-    else:
+    if not per_row:
         # the reference's dynamic_update_slice clamps the start in range
         slot = min(max(slot, 0), cache_len - 1)
-        c_cache[:, slot:slot + 1].copy_(c_new)
-        r_cache[:, slot:slot + 1].copy_(kr_new)
+    write_positions(c_cache, c_new, slot, per_row, start)
+    write_positions(r_cache, kr_new, slot, per_row, start)
     # absorb W_uk into the query: attend in latent space
     q_lat = torch.einsum("bthn,rhn->bthr", q_nope, params["w_uk"].to(x.dtype))
+    if start is not None:
+        q_lat, q_rope = tp_gather(q_lat, 2), tp_gather(q_rope, 2)
     c_kv, k_rope = c_cache.to(x.dtype), r_cache.to(x.dtype)
     logits = torch.einsum("bthr,bsr->bhts", q_lat, c_kv)
     logits = logits + torch.einsum("bthr,bsr->bhts", q_rope, k_rope)
     logits = logits.float() * _scale(m)
-    kpos = torch.arange(cache_len, device=x.device)
+    kpos = torch.arange(length, device=x.device) + (start or 0)
     ppos = pos[:, None] if per_row else pos
     valid = kpos <= ppos
     if ring:
         valid = valid | (ppos >= cache_len)
     mask = valid[:, None, None, :] if per_row else valid[None, None, None, :]
-    probs = torch.softmax(logits.masked_fill(~mask, NEG_INF), dim=-1).to(x.dtype)
-    out_lat = torch.einsum("bhts,bsr->bthr", probs, c_kv)
+    logits = logits.masked_fill(~mask, NEG_INF)
+    if start is None:
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        out_lat = torch.einsum("bhts,bsr->bthr", probs, c_kv)
+    else:
+        probs = sharded_softmax(logits).to(x.dtype)
+        out_lat = tp_reduce(torch.einsum("bhts,bsr->bthr", probs, c_kv))
+        out_lat = out_lat[:, :, shard[0] * h:(shard[0] + 1) * h]
     out = torch.einsum("bthr,rhv->bthv", out_lat, params["w_uv"].to(x.dtype))
     out = torch.einsum("bthv,hvd->btd", out, params["w_o"].to(x.dtype))
+    if shard is not None:
+        out = maybe_shard(out, "batch", "seq", "embed")
     return out, cache

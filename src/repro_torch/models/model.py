@@ -35,8 +35,10 @@ class Model:
         return tfm.init_decode_cache(self.cfg, batch, cache_len, ring=ring,
                                      device=device)
 
-    def decode_step(self, params, cache, tokens, pos, ring: bool = False):
-        return tfm.decode_step(params, cache, tokens, pos, self.cfg, ring=ring)
+    def decode_step(self, params, cache, tokens, pos, ring: bool = False,
+                    seq_shards=None):
+        return tfm.decode_step(params, cache, tokens, pos, self.cfg, ring=ring,
+                               seq_shards=seq_shards)
 
     def num_params(self, params=None) -> int:
         if params is not None:

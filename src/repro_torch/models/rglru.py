@@ -27,7 +27,8 @@ group, then the rank's slice).  `w_out`'s partial sum is made whole at the
 exit (`maybe_shard`).  `conv_b`, `b_rg`, `b_ig` and `lam` are whole (w,)
 vectors that the rank applies to its own columns only, so each rank's
 gradient of them is zero off its columns: "partial", summed over the model
-group by the step (`params.model_roles`).
+group by the step (`params.model_roles`).  Decode runs the same split on
+one token, its `h` and `conv` state the rank's columns (`cache_pspecs`).
 """
 
 from __future__ import annotations
@@ -129,16 +130,26 @@ def init_rglru_state(batch: int, d_model: int, r: RGLRUConfig, dtype, device):
 
 def rglru_decode(params, x, state, r: RGLRUConfig):
     """Single-token step.  x: (b, 1, d).  `state`'s tensors are updated in
-    place.  Returns (out, state)."""
+    place; with leaves of fewer columns than the lru width they are the
+    rank's columns (module docstring).  Returns (out, state)."""
+    tp = model_axis()
+    w = params["w_branch_b"].shape[1]
+    tp = tp if tp is not None and w != (r.lru_width or x.shape[-1]) else None
+    cols = slice(None) if tp is None else slice(tp[1] * w, (tp[1] + 1) * w)
+    if tp is not None:
+        x = tp_enter(x)
     branch_a = _gelu(torch.einsum("btd,dw->btw", x, params["w_branch_a"].to(x.dtype)))
     u = torch.einsum("btd,dw->btw", x, params["w_branch_b"].to(x.dtype))
     conv_in = torch.cat([state["conv"].to(x.dtype), u], dim=1)           # (b, k, w)
     u_conv = (torch.einsum("bkw,kw->bw", conv_in, params["conv_w"].to(x.dtype))
-              + params["conv_b"].to(x.dtype))[:, None, :]
-    a, bx = _gates(params, u_conv, r.c_constant)
+              + params["conv_b"][cols].to(x.dtype))[:, None, :]
+    a, bx = _gates(params, u_conv, r.c_constant,
+                   x_in=None if tp is None else tp_gather(u_conv, -1), cols=cols)
     h = a[:, 0] * state["h"] + bx[:, 0]
     y = branch_a[:, 0] * h.to(x.dtype)
     out = torch.einsum("bw,wd->bd", y, params["w_out"].to(x.dtype))[:, None, :]
+    if tp is not None:
+        out = maybe_shard(out, "batch", "seq", "embed")
     state["h"].copy_(h)
     state["conv"].copy_(conv_in[:, 1:, :])
     return out, state

@@ -28,6 +28,15 @@ the work instead (the projection's columns gathered, y's rows through
 `w_out` summed at the exit) rounds the projection in another order, and
 the scan's decay gradients, sums with much cancellation over a sequence,
 then missed 1e-5 of the whole layer's on the card at full width.
+
+Decode, forward only, keeps the state in `cache_pspecs`'s layout (`ssm`
+over heads, `conv` over channels) and computes on the rank's part: the
+projection's columns all-gathered whole (a few thousand numbers a row),
+the depthwise convolution on the rank's channels and the recurrence on its
+heads, each all-gathered for the gated norm, which needs every head; the
+rank's rows of `w_out` then give a partial sum made whole at the exit
+(`maybe_shard`).  Gathering the cut leaves and the state instead, as the
+block does, would move megabytes a layer and a step through the group.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import model_axis, tp_gather
+from repro_torch.distributed.sharding import maybe_shard, model_axis, tp_gather
 from repro_torch.models.common import normal_init, ones_init, zeros_init
 from repro_torch.models.config import SSMConfig
 
@@ -81,12 +90,16 @@ def _causal_conv(x, w, b):
     return F.silu(out + b[None, None, :])
 
 
-def _gated_out(params, y, z, x_dtype):
+def _gated_norm(params, y, z, x_dtype):
     y = y * F.silu(z.float())
     var = torch.mean(torch.square(y), dim=-1, keepdim=True)
-    y = y / torch.sqrt(var + 1e-6) * params["norm_scale"].float()
+    return (y / torch.sqrt(var + 1e-6) * params["norm_scale"].float()).to(x_dtype)
+
+
+def _gated_out(params, y, z, x_dtype):
+    y = _gated_norm(params, y, z, x_dtype)
     w_out = _whole(params["w_out"], 0, y.shape[-1])
-    return torch.einsum("btf,fd->btd", y.to(x_dtype), w_out.to(x_dtype))
+    return torch.einsum("btf,fd->btd", y, w_out.to(x_dtype))
 
 
 def ssd_block(params, x, s: SSMConfig):
@@ -163,26 +176,51 @@ def init_ssd_state(batch: int, d_model: int, s: SSMConfig, dtype, device):
     }
 
 
+def _rank_part(n_local: int, n: int):
+    """The slice of [0, n) this rank holds when it holds `n_local` of them
+    (all of them when n_local == n)."""
+    tp = model_axis()
+    if n_local == n or tp is None:
+        return slice(None)
+    return slice(tp[1] * n_local, (tp[1] + 1) * n_local)
+
+
 def ssd_decode(params, x, state, s: SSMConfig):
     """Exact single-step recurrence.  x: (b, 1, d).  `state`'s tensors are
-    updated in place.  Returns (out, state)."""
+    updated in place; on a model axis they are this rank's heads and
+    channels (module docstring).  Returns (out, state)."""
     b, _, d_model = x.shape
-    z, xbc, dt_raw, di, nh = _split_proj(params, x, s, d_model)
-    conv_in = torch.cat([state["conv"].to(x.dtype), xbc], dim=1)
-    wconv = params["conv_w"].to(x.dtype)
-    xbc_t = F.silu(torch.einsum("bkc,kc->bc", conv_in, wconv)
-                   + params["conv_b"].to(x.dtype))
+    di = s.d_inner(d_model)
+    nh = s.num_heads(d_model)
+    conv_ch = di + 2 * s.state_dim
+    proj = torch.einsum("btd,dp->btp", x, params["w_in"].to(x.dtype))
+    if proj.shape[-1] != 2 * di + 2 * s.state_dim + nh:
+        proj = tp_gather(proj, -1)
+    z, xbc, dt_raw = torch.split(proj, [di, conv_ch, nh], dim=-1)
+    ch = _rank_part(state["conv"].shape[-1], conv_ch)
+    conv_in = torch.cat([state["conv"].to(x.dtype), xbc[..., ch]], dim=1)
+    xbc_t = F.silu(torch.einsum("bkc,kc->bc", conv_in, params["conv_w"].to(x.dtype))
+                   + params["conv_b"][ch].to(x.dtype))
+    if ch != slice(None):
+        xbc_t = tp_gather(xbc_t, -1)
     xs, B, C = torch.split(xbc_t, [di, s.state_dim, s.state_dim], dim=-1)
     p = s.head_dim
     xs = xs.reshape(b, nh, p).float()
     dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"][None, :])   # (b,nh)
     a = -torch.exp(params["a_log"])
     decay = torch.exp(dt * a[None, :])                                   # (b,nh)
-    new_state = state["ssm"] * decay[:, :, None, None] + torch.einsum(
-        "bh,bn,bhp->bhnp", dt, B.float(), xs)
+    hs = _rank_part(state["ssm"].shape[1], nh)
+    new_state = state["ssm"] * decay[:, hs, None, None] + torch.einsum(
+        "bh,bn,bhp->bhnp", dt[:, hs], B.float(), xs[:, hs])
     y = torch.einsum("bn,bhnp->bhp", C.float(), new_state)
-    y = y + params["d_skip"][None, :, None] * xs
-    out = _gated_out(params, y.reshape(b, 1, di), z, x.dtype)
+    y = y + params["d_skip"][hs][None, :, None] * xs[:, hs]
+    if hs != slice(None):
+        y = tp_gather(y, 1)
+    y = _gated_norm(params, y.reshape(b, 1, di), z, x.dtype)
+    rows = _rank_part(params["w_out"].shape[0], di)
+    out = torch.einsum("btf,fd->btd", y[..., rows], params["w_out"].to(x.dtype))
+    if rows != slice(None):
+        out = maybe_shard(out, "batch", "seq", "embed")
     state["ssm"].copy_(new_state)
     state["conv"].copy_(conv_in[:, 1:, :])
     return out, state

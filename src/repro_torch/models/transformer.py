@@ -25,7 +25,12 @@ the table on the axis the lookup and the cross-entropy are vocab-parallel
 — the max, Σexp and the target logit are reduced over the model group, so
 no rank holds the whole logits.  `remat="tp_boundary"` recomputes each
 layer in the backward pass but keeps its row-parallel outputs, so the
-forward's all-reduces never run twice.
+forward's all-reduces never run twice.  Serving on a model axis: prefill
+and decode return whole logits on every rank (the rank's vocab columns
+all-gathered, `tp_gather`), so the greedy pick is the reference's, and
+prefill's caches come out in `cache_pspecs`'s layout (attention's kv heads
+as the rank holds them, a long cache's positions and MLA's long latents
+the rank's slice of them).
 """
 
 from __future__ import annotations
@@ -33,8 +38,9 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.params import seq_sharded
 from repro_torch.distributed.sharding import (
-    checkpoint_tp_boundary, tp_max, tp_reduce)
+    checkpoint_tp_boundary, model_axis, model_size, tp_gather, tp_max, tp_reduce)
 from repro_torch.models import blocks as blk
 from repro_torch.models.attention import (
     cross_attend, init_attention, precompute_cross_kv)
@@ -292,8 +298,41 @@ def prefill(params, batch, cfg: ModelConfig):
     x, positions, _, enc = _assemble_inputs(params, batch, cfg)
     hidden, _, caches = run_stack(params, x, positions, cfg, enc=enc,
                                   collect_cache=True)
-    logits = _logits(params, hidden[:, -1:, :], cfg)
-    return logits[:, 0], caches
+    logits = _whole_logits(params, _logits(params, hidden[:, -1:, :], cfg), cfg)
+    return logits[:, 0], _cache_layout(caches, cfg)
+
+
+def _whole_logits(params, logits, cfg: ModelConfig):
+    """Logits over the whole vocab: under a vocab-sharded table, the
+    ranks' columns all-gathered in model order."""
+    if vocab_shard(_unembed_table(params, cfg), cfg.vocab_size) is None:
+        return logits
+    return tp_gather(logits, -1)
+
+
+def _cache_layout(caches: list, cfg: ModelConfig) -> list:
+    """Prefill's caches in `cache_pspecs`'s layout on a model axis: a
+    self-attention cache whose kv heads stay whole (they do not divide the
+    axis), or MLA's latents, cut to the rank's slice of the positions when
+    `params.seq_sharded` says so."""
+    tp = model_axis()
+    if tp is None:
+        return caches
+    msize = model_size()
+
+    def cut(x):
+        n = x.shape[1] // msize
+        return x.narrow(1, tp[1] * n, n)
+
+    out = []
+    for cache in caches:
+        if cache is not None:
+            keys = (("c_kv", "k_rope") if "c_kv" in cache else
+                    ("k", "v") if cfg.num_kv_heads % msize else ())
+            if keys and seq_sharded(cache[keys[0]].shape[1], msize):
+                cache = dict(cache, **{k: cut(cache[k]) for k in keys})
+        out.append(cache)
+    return out
 
 
 # ------------------------------------------------------------- decoding ----
@@ -333,10 +372,13 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
-                ring: bool = False):
+                ring: bool = False, seq_shards=None):
     """One decode step.  tokens: (b,) integers; pos: a scalar global
     position or a (b,) tensor of per-row positions (continuous batching).
-    The cache is updated IN PLACE.  Returns (logits (b, vocab), cache)."""
+    The cache is updated IN PLACE.  `seq_shards`: per layer, whether its
+    cache is this rank's slice of the positions (`serve_step`'s
+    `layer_seq_shards`; None: no layer's is).  Returns (logits (b, vocab),
+    cache), the logits whole on every rank of a model axis."""
     x = _embed(params, tokens[:, None], cfg)
     if cfg.pos_embed == "sinusoidal":
         emb = sinusoidal_at(pos, cfg.d_model, x.dtype, x.device)
@@ -344,9 +386,10 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
     for i, (p, (kind, moe_layer)) in enumerate(zip(params["layers"],
                                                    layer_plan(cfg))):
         x, cache[i] = blk.block_decode(p, x, cache[i], pos, cfg, kind,
-                                       moe_layer, ring=ring)
+                                       moe_layer, ring=ring,
+                                       seq_sharded=bool(seq_shards and seq_shards[i]))
         if "cross_k" in cache[i]:
             x = _apply_cross(p, x, {"k": cache[i]["cross_k"],
                                     "v": cache[i]["cross_v"]}, cfg)
     x = apply_norm(params["final_norm"], x, cfg.norm_kind)
-    return _logits(params, x, cfg)[:, 0], cache
+    return _whole_logits(params, _logits(params, x, cfg)[:, 0], cfg), cache

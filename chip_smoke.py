@@ -161,6 +161,23 @@ exit (nothing is caught):
               builds), the steady-state probe a hit with no new build; the
               continuous run's figures for its load window alone beside
               the reference's keys, which also count the probe.
+   dryrun   — the dry-run (`python -m repro_torch.launch.dryrun`: one rank's
+              step traced on fake CUDA tensors, the kernels as custom ops
+              with fake implementations), held against this run: (a) one
+              ACCUM-NORM flat/flat step of full-width microllama-300m at
+              phase train's last batch, run twice on the card, the trace's
+              peak within DRYRUN_MEM_RTOL of the second run's
+              max_memory_allocated and its kernel calls equal to the
+              launches; (b) every config's prefill at ARCH_LAYERS and
+              ARCH_PREFILL, its flash_attention and rmsnorm calls equal to
+              `forward_kernel_launches`, and llama3.2-1b's 16-layer 4 x 2048
+              prefill's FLOPs equal to `prefill_gemm_flops` plus its 16
+              flash calls', exactly; (c) llama3.2-1b decode_32k and
+              microllama-300m train_4k (FSDP-Norm flat) on a fake 16 x 16
+              group of 256 ranks: memory, FLOPs, collective bytes by kind,
+              the roofline terms and the bottleneck, the rank's parameter
+              bytes equal to its specs' slices.  `python3 chip_smoke.py
+              dryrun` runs the device, build and this phase alone.
    serve-mesh — serving on a data x model grid of gloo ranks sharing the
               card, full-width llama3.2-1b (16 layers, f32, seed-0
               weights): a 4 x 2048 `make_prefill` on 1 x 2 (16 flash
@@ -386,6 +403,13 @@ SM_PIECE_STEPS = 8
 SM_PIECE_CACHE = {"deepseek-v2-mla-moe": 8192}
 SM_PIECE_CACHE_DEFAULT = 2048
 SM_TIMEOUT_S = 400        # a group of ranks that has not ended by then is stopped
+# phase dryrun: the trace's peak against the card's max_memory_allocated for
+# one ACCUM-NORM step, and two production combinations on a fake 16 x 16
+DRYRUN_MEM_RTOL = 0.10
+# (global batch, accumulation steps) of phase train's last step, for the
+# phase run alone
+DRYRUN_PLAN = (32, 4)
+DRYRUN_COMBOS = (("llama3.2-1b", "decode_32k"), ("microllama-300m", "train_4k"))
 
 
 def say(phase: str, **kv):
@@ -867,8 +891,9 @@ def forward_kernel_launches(cfg) -> dict:
 @contextlib.contextmanager
 def recorded_kernel_calls(ops):
     """Within the block, the distinct shapes and options of the model's
-    `ops.flash_attention` and `ops.rmsnorm` calls, each once, in order.
-    The calls go through unchanged, so the wrappers count as ever."""
+    `ops.flash_attention` and `ops.rmsnorm` calls, each once, in order (the
+    caller's `plain` code, run off the card only, is no option).  The calls
+    go through unchanged, so the wrappers count as ever."""
     calls = {"flash_attention": [], "rmsnorm": []}
     real_flash, real_norm = ops.flash_attention, ops.rmsnorm
 
@@ -876,14 +901,14 @@ def recorded_kernel_calls(ops):
         if key not in calls[kernel]:
             calls[kernel].append(key)
 
-    def flash(q, k, v, **kw):
+    def flash(q, k, v, plain=None, **kw):
         note("flash_attention", (tuple(q.shape), tuple(k.shape), q.dtype,
                                  tuple(sorted(kw.items()))))
-        return real_flash(q, k, v, **kw)
+        return real_flash(q, k, v, plain=plain, **kw)
 
-    def norm(x, scale, eps=1e-6):
+    def norm(x, scale, eps=1e-6, plain=None):
         note("rmsnorm", (tuple(x.shape), x.dtype, scale.dtype, eps))
-        return real_norm(x, scale, eps)
+        return real_norm(x, scale, eps, plain=plain)
 
     ops.flash_attention, ops.rmsnorm = flash, norm
     try:
@@ -2358,6 +2383,161 @@ def serve_path(smi, ops, dev):
     return total
 
 
+def prefill_like(cfg, b: int, t: int) -> dict:
+    """A prefill batch of b x t text tokens as meta tensors, with a vision
+    config's patch embeddings or an audio config's frames."""
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
+    batch = {"tokens": meta((b, t), torch.int32)}
+    if cfg.frontend.kind == "vision_stub":
+        batch["patch_embeds"] = meta((b, cfg.frontend.num_prefix_tokens, cfg.d_model),
+                                     cfg.act_dtype)
+    elif cfg.frontend.kind == "audio_stub":
+        batch["frames"] = meta((b, cfg.encoder.num_frames, cfg.d_model), cfg.act_dtype)
+    return batch
+
+
+def dryrun_phase(smi, ops, dev, plan) -> dict:
+    """Phase dryrun: the dry-run (`repro_torch.launch.dryrun`) traces on fake
+    CUDA tensors here and is held against what this run measures.
+    (a) One ACCUM-NORM flat/flat step of full-width microllama-300m at
+    `plan` (phase train's last (global batch, accumulation steps)) runs
+    twice on the card, the peak statistics reset between the two; the
+    trace's `peak_bytes` must be within DRYRUN_MEM_RTOL of the second
+    run's `max_memory_allocated` (above what was allocated before the
+    step was built), and its kernel calls must equal the second run's
+    launches.  (b) Every registered config's prefill at ARCH_LAYERS and
+    ARCH_PREFILL (the Llama family 1 layer at 4 x 2048): its traced
+    `flash_attention` and `rmsnorm` calls equal `forward_kernel_launches`;
+    llama3.2-1b's whole 16 layers at 4 x 2048: the traced FLOPs equal
+    `prefill_gemm_flops` plus its 16 flash calls' (4·d a pair the causal
+    mask admits), exactly.  (c) DRYRUN_COMBOS on a fake 256-rank group
+    (16 x 16): memory, FLOPs, collective bytes by kind, the three terms
+    and the bottleneck printed; the rank's parameter bytes must equal its
+    specs' slices.  Returns the phase's real launches."""
+    from repro_torch.configs import ALL_ARCHS, get_config
+    from repro_torch.distributed.train_step import make_accum_norm_step
+    from repro_torch.kernels.flash_attention import attended_pairs
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig, init_adamw_flat
+
+    t_phase = time.time()
+    # (a) one ACCUM-NORM step: the trace's peak against the card's
+    global_batch, accum = plan
+    micro, seq = global_batch // accum, TRAIN_JOB["seq_len"]
+    cfg = get_config(TRAIN_JOB["arch"])
+    model = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = model.init(0, dev)
+    wrap = make_accum_norm_step(model, AdamWConfig(), stats_impl="flat",
+                                params_impl="flat", params_like=params, device=dev)
+    layout = wrap.flat_layout
+    opt = init_adamw_flat(params, layout=layout, device=dev)
+    pb = tuple(layout.flatten(params))
+    del params
+    gen = torch.Generator(device=dev).manual_seed(7)
+    batch = {k: torch.randint(0, cfg.vocab_size, (accum, micro, seq), device=dev,
+                              generator=gen).to(torch.int32) for k in ("tokens", "labels")}
+    step = wrap(batch)
+    pb, opt, met = step(pb, opt, batch, 1e-4)
+    del met
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    pb, opt, met = step(pb, opt, batch, 1e-4)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    real_peak = torch.cuda.max_memory_allocated() - base
+    launched = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    loss = float(met["loss"])
+    del pb, opt, met, batch, step, wrap
+    gc.collect()
+    torch.cuda.empty_cache()
+    like = {k: torch.empty((accum, micro, seq), dtype=torch.int32, device="meta")
+            for k in ("tokens", "labels")}
+    tr, _ = dryrun.trace_train(cfg, like, None, dev, step_impl="accum_norm")
+    gap = (tr.memory["peak_bytes"] - real_peak) / real_peak
+    traced = {k: tr.kernel_calls[k] for k in KERNELS}
+    say("dryrun", check="memory", arch=TRAIN_JOB["arch"], step_impl="accum_norm",
+        global_batch=global_batch, accum=accum, seq_len=seq, loss=loss,
+        step_s=round(step_s, 4), max_memory_allocated=real_peak,
+        traced_peak_bytes=tr.memory["peak_bytes"], traced_memory=tr.memory,
+        rel_gap=gap, limit=DRYRUN_MEM_RTOL, trace_s=round(tr.seconds, 3),
+        traced_calls=traced, launches=launched, flops=tr.cost["flops"],
+        flops_by_class=tr.cost["flops_by_class"])
+    if abs(gap) > DRYRUN_MEM_RTOL:
+        raise AssertionError(f"dry-run peak {tr.memory['peak_bytes']} vs the card's "
+                             f"{real_peak}: {gap:+.3%}, limit {DRYRUN_MEM_RTOL:.0%}")
+    if traced != launched:
+        raise AssertionError(f"traced kernel calls {traced}, the step launched {launched}")
+
+    # (b) every config's prefill: its kernel calls; llama3.2-1b's FLOPs
+    for arch in ALL_ARCHS:
+        cfg = get_config(arch).replace(num_layers=ARCH_LAYERS.get(arch, 1))
+        b, t = ARCH_PREFILL.get(arch, (PREFILL_BATCH, PREFILL_LEN))
+        tr, _ = dryrun.trace_prefill(cfg, prefill_like(cfg, b, t), None, dev)
+        want = forward_kernel_launches(cfg)
+        got = {k: tr.kernel_calls[k] for k in want}
+        rl = roofline.roofline_terms(tr.cost)
+        say("dryrun", check="forward", arch=arch, layers=cfg.num_layers, batch=b,
+            tokens=t, calls=got, flops=tr.cost["flops"],
+            gemm_flops=prefill_gemm_flops(cfg, b, t),
+            flops_by_class=tr.cost["flops_by_class"],
+            bytes_accessed=tr.cost["bytes accessed"], compute_ms=1e3 * rl.compute_s,
+            memory_ms=1e3 * rl.memory_s, peak_bytes=tr.memory["peak_bytes"],
+            trace_s=round(tr.seconds, 3))
+        if got != want:
+            raise AssertionError(f"{arch}: traced kernel calls {got}, expected {want}")
+    cfg = get_config(SERVE_ARCH)
+    b, t = PREFILL_BATCH, PREFILL_LEN
+    tr, _ = dryrun.trace_prefill(cfg, prefill_like(cfg, b, t), None, dev)
+    flash = 4 * cfg.head_dim * b * cfg.num_heads * attended_pairs(t, t, True, 0)
+    want = prefill_gemm_flops(cfg, b, t) + cfg.num_layers * flash
+    say("dryrun", check="prefill-flops", arch=SERVE_ARCH, batch=b, tokens=t,
+        traced=tr.cost["flops"], gemm=prefill_gemm_flops(cfg, b, t),
+        flash=cfg.num_layers * flash, flops_by_class=tr.cost["flops_by_class"],
+        calls={k: tr.kernel_calls[k] for k in ("flash_attention", "rmsnorm")})
+    if tr.cost["flops"] != want:
+        raise AssertionError(f"traced prefill FLOPs {tr.cost['flops']}, expected {want}")
+    # run_serving's decode step (batch 8, its last position), one process:
+    # the bytes it moves against the card's memory rate
+    n, cache_len = SERVE_JOB["batch"], SERVE_JOB["prompt_len"] + SERVE_JOB["gen_len"]
+    specs = {"tokens": torch.empty(n, dtype=torch.int32, device="meta"), "ring": False,
+             "cache": build_model(cfg).init_cache(n, cache_len, device="meta")}
+    tr, _ = dryrun.trace_decode(cfg, specs, None, dev, cache_len - 1)
+    rl = roofline.roofline_terms(tr.cost)
+    say("dryrun", check="decode-bytes", arch=SERVE_ARCH, batch=n, cache_len=cache_len,
+        bytes_accessed=tr.cost["bytes accessed"], memory_ms=1e3 * rl.memory_s,
+        compute_ms=1e3 * rl.compute_s, flops_by_class=tr.cost["flops_by_class"],
+        peak_bytes=tr.memory["peak_bytes"], calls={k: tr.kernel_calls[k] for k in
+                                                  ("flash_attention", "rmsnorm")})
+
+    # (c) production combinations on a fake 256-rank group
+    for arch, shape in DRYRUN_COMBOS:
+        _, rec = dryrun.lower_combo(arch, shape, multi_pod=False)
+        mem, rl = rec["memory"], rec["roofline"]
+        say("dryrun", check="combo", arch=arch, shape=shape, mesh=rec["mesh"],
+            step_impl=rec["step_impl"], nvidia_smi=smi, trace_s=rec["trace_s"],
+            memory=mem, flops=rec["cost"]["flops"],
+            flops_by_class=rec["cost"]["flops_by_class"],
+            bytes_accessed=rec["cost"]["bytes accessed"],
+            wire_bytes={k: v["result_bytes"] for k, v in rec["collectives"].items()},
+            collectives={k: (v["count"], v["group_sizes"])
+                         for k, v in rec["collectives"].items()},
+            kernel_calls=rec["kernel_calls"], compute_s=rl["compute_s"],
+            memory_s=rl["memory_s"], collective_s=rl["collective_s"],
+            bottleneck=rl["bottleneck"])
+        if mem["params_bytes"] != mem["param_spec_bytes"]:
+            raise AssertionError(f"{arch} {shape}: the rank's parameters take "
+                                 f"{mem['params_bytes']} B, its specs' slices "
+                                 f"{mem['param_spec_bytes']}")
+    say("dryrun", seconds=round(time.time() - t_phase, 3))
+    return launched
+
+
 def time_serving_kernels(dev, bw):
     """Phase 8's serving part: rmsnorm and flash_attention at prefill's
     shapes, their plain versions and library calls, CUDA events."""
@@ -2434,11 +2614,13 @@ def time_serving_kernels(dev, bw):
 RESUME_JOB = dict(TRAIN_JOB, total_samples=6 * 32, eval_every=3, eval_batches=1)
 RESUME_FSDP_JOB = dict(RESUME_JOB, step_impl="fsdp_norm", mesh_data=2,
                        dist_backend="gloo")
-# resume-fsdp's depth: at the full 12 layers the phase took 168-172 s (PERF.md §6)
-RESUME_FSDP_LAYERS = 4
+# resume-fsdp's depth: at the full 12 layers the phase took 168-172 s (PERF.md §6);
+# 2 since the dryrun phase joined and a slow host took 1073.2 s for the run
+# with 4 (PERF.md §4)
+RESUME_FSDP_LAYERS = 2
 # resume-accum's depth: at the full 12 layers it took 95.1 s of a 986 s run
-# (PERF.md §4, §6)
-RESUME_ACCUM_LAYERS = 4
+# (PERF.md §4, §6); 2 since the dryrun phase joined, as resume-fsdp's
+RESUME_ACCUM_LAYERS = 2
 # the resume-accum child: the train CLI with the config cut to `layers`
 RESUME_CHILD = ("import sys\n"
                 "from repro_torch.launch import train as T\n"
@@ -3241,6 +3423,8 @@ def main() -> int:
     say("train", nvidia_smi=smi, params=sum(layout.buffer_sizes),
         buckets=layout.num_buffers, launches=launches, peak_mem_bytes=peak,
         **check_train(TRAIN_JOB, hist))
+    hist_plan = {"global_batch": hist["global_batch"][-1],
+                 "accum": hist["accum_steps"][-1]}
     del hist
     gc.collect()
     torch.cuda.empty_cache()       # the ranks below need the card's memory
@@ -3290,6 +3474,9 @@ def main() -> int:
     serve_launches = serve_path(smi, ops, dev)
 
     lap("serve")
+    # dryrun: the trace of one rank's step held against this run -------------
+    dryrun_phase(smi, ops, dev, (hist_plan["global_batch"], hist_plan["accum"]))
+    lap("dryrun")
     # serve-mesh: serving on a data x model grid, every layer kind ------------
     sm_launches, sm_err = serve_mesh_phase(smi, ops, dev)
     lap("serve-mesh")
@@ -3541,9 +3728,10 @@ def main() -> int:
 
 
 def phase_alone(phase: str, layers: int | None) -> int:
-    """`python3 chip_smoke.py mesh|mesh-kinds|serve-mesh [layers]`: the
-    device, the build and that phase alone (mesh at `layers` layers,
-    mesh-kinds with mamba2 at `layers`), nothing else (no result line)."""
+    """`python3 chip_smoke.py mesh|mesh-kinds|serve-mesh|dryrun [layers]`:
+    the device, the build and that phase alone (mesh at `layers` layers,
+    mesh-kinds with mamba2 at `layers`; dryrun at DRYRUN_PLAN), nothing
+    else (no result line)."""
     global MESH_LAYERS
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3555,7 +3743,9 @@ def phase_alone(phase: str, layers: int | None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     kernels.build_all(sorted(p.stem for p in kernels.CSRC.glob("*.cu")))
-    if phase == "mesh":
+    if phase == "dryrun":
+        dryrun_phase(smi, ops, torch.device("cuda"), DRYRUN_PLAN)
+    elif phase == "mesh":
         MESH_LAYERS = layers or MESH_LAYERS
         mesh_phase(smi, ops, torch.device("cuda"))
     elif phase == "serve-mesh":
@@ -3570,6 +3760,6 @@ def phase_alone(phase: str, layers: int | None) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] in (["mesh"], ["mesh-kinds"], ["serve-mesh"]):
+    if sys.argv[1:2] in (["mesh"], ["mesh-kinds"], ["serve-mesh"], ["dryrun"]):
         sys.exit(phase_alone(sys.argv[1], int(sys.argv[2]) if len(sys.argv) > 2 else None))
     sys.exit(main())

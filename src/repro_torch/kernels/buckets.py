@@ -13,7 +13,9 @@ buffers are persistent, so every step after the first finds its table
 there and a launch needs no host-to-device copy and no synchronisation.
 A miss stages the table in pinned memory and copies it without blocking
 the host; the tree routes hit whenever the allocator hands back the same
-leaf addresses.
+leaf addresses.  The table is built inside the kernels' custom ops, so a
+fake call (`FakeTensorMode`) never reads an address; `launches` counts
+the launches of a call from its operands' dtypes and sizes alone.
 """
 
 from __future__ import annotations
@@ -145,6 +147,22 @@ def table_for(kernel: str, cache: TableCache, buckets, names, allowed):
         key.append(n)
         entries.append((n, described))
     return cache.get(tuple(key), entries, device)
+
+
+def launches(buckets) -> int:
+    """Launches a call over `buckets` (one tuple of tensors a bucket) makes:
+    one per dtype group that holds an element, as `plan` groups them.
+    Reads dtypes and sizes only, so it counts a fake call like a real one."""
+    return len({tuple(t.dtype for t in operands) for operands in buckets
+                if operands[0].numel()})
+
+
+def check_on_card(kernel: str, name: str, t):
+    """Raise unless `t` lies on a CUDA device (before an op that has no
+    other implementation is called)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel}: {name} must lie on a CUDA device, got "
+                         f"{t.device}")
 
 
 # the device tables of every multi-bucket launch in this process (a table

@@ -16,6 +16,12 @@ and s, tails masked in the kernel.  The wrapper takes CUDA tensors only
 mode on a tensor that requires grad) and raises on anything the kernel
 does not take (head dims above 256 among them).  Each
 launch adds one to `flash_attention.launches`.
+
+The launch is the CUDA implementation of the PyTorch custom op
+`repro_torch::flash_attention`, whose fake implementation (for
+`FakeTensorMode`: the dry-run) only makes the output, and whose
+operations `torch.utils.flop_counter` counts as 4·d for each (query, key)
+pair the causal and window masks admit (`attended_pairs`).
 """
 
 from __future__ import annotations
@@ -23,7 +29,9 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import check_launch, check_no_grad, load
 
@@ -68,13 +76,11 @@ def _check(q, k, v):
                          f"{tuple(k.shape)} is outside the kernel's grid")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0):
-    """q: (b, t, h, d); k, v: (b, s, kvh, d), h % kvh == 0, 1 <= d <= 256;
-    all float32 or all bfloat16.  Softmax scale 1/sqrt(d).  Returns a
-    new contiguous (b, t, h, d) tensor of q's dtype."""
-    check_no_grad("flash_attention", q, k, v)
-    _check(q, k, v)
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: int, softcap: float) -> torch.Tensor:
+    """The launch: a new contiguous (b, t, h, d) tensor of q's dtype."""
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
@@ -87,6 +93,41 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         1.0 / math.sqrt(d), float(softcap), int(bool(causal)), int(window),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(lib, err, "flash_attention")
+    return out
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window, softcap):
+    return q.new_empty(q.shape)
+
+
+def attended_pairs(t: int, s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks admit in one head, as
+    `ref.attention_ref` masks them: key j for query i when j <= i (causal,
+    top-left aligned) and j > i - window (window > 0)."""
+    i = np.arange(t, dtype=np.int64)
+    hi = np.minimum(i, s - 1) if causal else np.full(t, s - 1, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(t, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, softcap, *args,
+                 **kwargs) -> int:
+    """4·d operations a (query, key) pair the masks admit, in every head
+    of every row: q·k and p·v, a multiply and an add each."""
+    b, t, h, d = q_shape
+    return 4 * d * b * h * attended_pairs(t, k_shape[1], causal, window)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """q: (b, t, h, d); k, v: (b, s, kvh, d), h % kvh == 0, 1 <= d <= 256;
+    all float32 or all bfloat16.  Softmax scale 1/sqrt(d).  Returns a
+    new contiguous (b, t, h, d) tensor of q's dtype."""
+    check_no_grad("flash_attention", q, k, v)
+    _check(q, k, v)
+    out = flash_attention_op(q, k, v, bool(causal), int(window), float(softcap))
     flash_attention.launches += 1
     return out
 

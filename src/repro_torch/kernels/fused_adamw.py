@@ -13,12 +13,18 @@
   `fused_adamw` is the same call over one tensor.
 
 All run the kernel of `csrc/fused_adamw.cu` over a bucket table
-(`kernels.buckets`); the sources give the design and the bound.  The
-wrappers take CUDA tensors only (`kernels.ops` dispatches by device) and
-raise on anything the kernel does not take.  p, m and v are updated IN
-PLACE — the port's form of the reference step donating its buffers.  Each
-launch of a variant adds one to `fused_adamw_stats.launches` or
-`fused_adamw.launches`.
+(`kernels.buckets`); the sources give the design and the bound.  Each
+launch is the CUDA implementation of a PyTorch custom op,
+`repro_torch::fused_adamw_stats_buckets` or
+`repro_torch::fused_adamw_buckets`, whose in-place operands are declared
+mutated and whose fake implementation only makes the output: under
+`FakeTensorMode` (the dry-run) no table is built, no scalar uploaded and
+nothing launched.  The wrappers take CUDA tensors only (`kernels.ops`
+dispatches by device) and raise on anything the kernel does not take.
+p, m and v are updated IN PLACE — the port's form of the reference step
+donating its buffers.  Each launch of a variant adds one to
+`fused_adamw_stats.launches` or `fused_adamw.launches` (a fake call
+counts the launches it stands for).
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import check_launch, check_operands, load
-from repro_torch.kernels.buckets import ROW, TABLES, table_for
+from repro_torch.kernels.buckets import (
+    ROW, TABLES, check_on_card, launches, table_for)
 
 SOURCE = "fused_adamw"
 _FLOAT = (torch.float32, torch.bfloat16)
@@ -68,24 +75,28 @@ def adamw_scalars(lr, c1, c2, clip_scale, device) -> torch.Tensor:
 
 
 def _launch(kernel, pb, gb, mb, vb, scalars, stats: bool, hyper):
-    """Launch the kernel once per dtype group of the buckets; with `stats`
-    return Σg²_raw over all of them as a 0-d f32 tensor."""
+    """Launch the kernel once per dtype group of the buckets; return (with
+    `stats`, Σg²_raw over all of them as a 0-d f32 tensor, else None; the
+    number of launches).  The CUDA
+    implementation of the ops below: the bucket table, and the scalars'
+    pinned upload when they come as (lr, c1, c2, clip), are made here,
+    never for a fake call."""
     if not len(pb) == len(gb) == len(mb) == len(vb):
         raise ValueError(f"{kernel}: {len(pb)} p, {len(gb)} g, {len(mb)} m and "
                          f"{len(vb)} v buffers")
     groups, count, table = table_for(kernel, TABLES, list(zip(pb, gb, mb, vb)),
                                      ("p", "g", "m", "v"), (_FLOAT, _FLOAT, _F32, _F32))
     device = table.device
+    scalars = (scalars[0] if len(scalars) == 1
+               else adamw_scalars(*scalars, device))
     check_operands(kernel, device, {}, {"scalars": scalars})
     if scalars.numel() != 4:
         raise ValueError(f"{kernel}: scalars must hold (lr, c1, c2, clip)")
     lib = _lib()
     stream = torch.cuda.current_stream(device).cuda_stream
     partials = torch.empty(count if stats else 0, dtype=torch.float32, device=device)
-    counter = fused_adamw_stats if stats else fused_adamw
-    for grp in groups:
-        if not grp.tiles:
-            continue
+    launched = [grp for grp in groups if grp.tiles]
+    for grp in launched:
         err = lib.repro_fused_adamw(
             table.data_ptr() + 8 * ROW * grp.first_row, len(grp.rows), grp.tiles,
             grp.grid, int(grp.dtypes[0] == "bfloat16"), int(grp.dtypes[1] == "bfloat16"),
@@ -94,12 +105,62 @@ def _launch(kernel, pb, gb, mb, vb, scalars, stats: bool, hyper):
             hyper["beta1"], 1.0 - hyper["beta1"], hyper["beta2"], 1.0 - hyper["beta2"],
             hyper["eps"], hyper["weight_decay"], stream)
         check_launch(lib, err, kernel)
-        counter.launches += 1
     if not stats:
-        return None
+        return None, len(launched)
     gsq = torch.empty((), dtype=torch.float32, device=device)
     check_launch(lib, lib.repro_sum_partials(partials.data_ptr(), count, 1,
                                              gsq.data_ptr(), stream), kernel)
+    return gsq, len(launched)
+
+
+@torch.library.custom_op("repro_torch::fused_adamw_stats_buckets",
+                         mutates_args=("pb", "mb", "vb"), device_types="cuda")
+def fused_adamw_stats_op(pb: list[torch.Tensor], gb: list[torch.Tensor],
+                         mb: list[torch.Tensor], vb: list[torch.Tensor],
+                         scalars: list[torch.Tensor], beta1: float, beta2: float,
+                         eps: float, weight_decay: float) -> tuple[torch.Tensor, int]:
+    """AdamW in place on every bucket; Σg²_raw as a 0-d f32 tensor, and the
+    launches."""
+    return _launch("fused_adamw_stats", pb, gb, mb, vb, scalars, True,
+                   dict(beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay))
+
+
+@fused_adamw_stats_op.register_fake
+def _(pb, gb, mb, vb, scalars, beta1, beta2, eps, weight_decay):
+    return (pb[0].new_empty((), dtype=torch.float32),
+            launches(list(zip(pb, gb, mb, vb))))
+
+
+@torch.library.custom_op("repro_torch::fused_adamw_buckets",
+                         mutates_args=("pb", "mb", "vb"), device_types="cuda")
+def fused_adamw_op(pb: list[torch.Tensor], gb: list[torch.Tensor],
+                   mb: list[torch.Tensor], vb: list[torch.Tensor],
+                   scalars: list[torch.Tensor], beta1: float, beta2: float,
+                   eps: float, weight_decay: float) -> int:
+    """AdamW in place on every tensor, no clip; the launches."""
+    return _launch("fused_adamw", pb, gb, mb, vb, scalars, False,
+                   dict(beta1=beta1, beta2=beta2, eps=eps,
+                        weight_decay=weight_decay))[1]
+
+
+@fused_adamw_op.register_fake
+def _(pb, gb, mb, vb, scalars, beta1, beta2, eps, weight_decay):
+    return launches(list(zip(pb, gb, mb, vb)))
+
+
+def _call(kernel, counter, op, pb, gb, mb, vb, scalars, hyper):
+    """`op` over the buckets, adding its launches (one per dtype group of
+    (p, g)) to `counter.launches`; returns its Σg² (None without).
+    `scalars` is `adamw_scalars(...)` or the tuple (lr, c1, c2, clip),
+    which the op takes to the card."""
+    if not pb:
+        raise ValueError(f"{kernel}: no buckets")
+    check_on_card(kernel, "p", pb[0])
+    scalars = ([scalars] if torch.is_tensor(scalars) else
+               [torch.as_tensor(x, dtype=torch.float32) for x in scalars])
+    out = op(list(pb), list(gb), list(mb), list(vb), scalars, **hyper)
+    gsq, n = out if isinstance(out, tuple) else (None, out)
+    counter.launches += n
     return gsq
 
 
@@ -108,10 +169,13 @@ def fused_adamw_stats_buckets(pb, gb, mb, vb, scalars, *, beta1: float,
                               weight_decay: float) -> torch.Tensor:
     """In-place AdamW over every bucket (p_i, g_i, m_i, v_i) of the lists;
     returns Σg² of the RAW gradient over all of them as a 0-d f32 tensor on
-    the device.  `scalars` is `adamw_scalars(...)`.  One launch per dtype
-    group of (p, g), plus one that adds the per-block partials."""
-    return _launch("fused_adamw_stats", pb, gb, mb, vb, scalars, True,
-                   dict(beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay))
+    the device.  `scalars` is `adamw_scalars(...)` or the tuple (lr, c1,
+    c2, clip_scale), floats or tensors, taken to the card inside the op.
+    One launch per dtype group of (p, g), plus one that adds the per-block
+    partials."""
+    return _call("fused_adamw_stats", fused_adamw_stats, fused_adamw_stats_op,
+                 pb, gb, mb, vb, scalars,
+                 dict(beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay))
 
 
 def fused_adamw_stats(p, g, m, v, scalars, *, beta1: float, beta2: float,
@@ -126,8 +190,8 @@ def fused_adamw_buckets(pb, gb, mb, vb, scalars, *, beta1: float,
     """In-place AdamW (no clip: `scalars[3]` is not read) over every tensor
     (p_i, g_i, m_i, v_i) of the lists, each of any shape: one launch per
     dtype group of (p, g)."""
-    _launch("fused_adamw", pb, gb, mb, vb, scalars, False,
-            dict(beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay))
+    _call("fused_adamw", fused_adamw, fused_adamw_op, pb, gb, mb, vb, scalars,
+          dict(beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay))
 
 
 def fused_adamw(p, g, m, v, scalars, *, beta1: float, beta2: float,

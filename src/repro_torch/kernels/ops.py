@@ -12,7 +12,15 @@ training step's calls over every bucket at once (`stats_flat_buckets`,
 `adamw_flat_buckets`: one launch per dtype group on the card, the plain
 version bucket by bucket on the CPU) and the serving path's forward-only
 `rmsnorm` and `flash_attention`, whose kernels raise under grad mode on a
-tensor that requires grad.
+tensor that requires grad.  The model calls those two wherever the card
+launches them, on every device, and hands them its own plain code for the
+CPU (`plain=`).
+
+Each kernel is a PyTorch custom op (`repro_torch::<name>`) with a fake
+implementation, so under `FakeTensorMode` a fake CUDA tensor takes the
+card's route and makes only the outputs (the dry-run, `launch/dryrun.py`).
+`launch_counts` are the wrappers' launches; `call_counts` add the calls
+that ran a plain version, counted as the launches the card would make.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 from repro_torch.kernels import fused_adamw as _fa
 from repro_torch.kernels import fused_stats as _fs
 from repro_torch.kernels import ref
+from repro_torch.kernels.buckets import launches
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 from repro_torch.kernels.sqdiff_norm import sqdiff_norm as _sqdiff_norm
@@ -44,6 +53,7 @@ def sqdiff_norm(x, y):
     """Σ(x−y)² in f32 as a 0-d tensor on x's device."""
     if _on_card("sqdiff_norm", x):
         return _sqdiff_norm(x, y)
+    _note("sqdiff_norm", [(x, y)])
     return ref.sqdiff_norm_ref(x, y)
 
 
@@ -58,6 +68,7 @@ def sqdiff_norm_tree(tree_a, tree_b):
                          f"{len(leaves_b)} leaves")
     if leaves_a and _on_card("sqdiff_norm_tree", leaves_a[0]):
         return _sqdiff_norm_buckets(leaves_a, leaves_b)
+    _note("sqdiff_norm", list(zip(leaves_a, leaves_b)))
     total = torch.zeros((), dtype=torch.float32,
                         device=leaves_a[0].device if leaves_a else "cpu")
     for a, b in zip(leaves_a, leaves_b):
@@ -69,6 +80,7 @@ def fused_stats(x, y):
     """(Σ(x−y)², Σy²) in one read of each operand, as two 0-d f32 tensors."""
     if _on_card("fused_stats", x):
         return _fs.fused_stats(x, y)
+    _note("fused_stats", [(x, y)])
     return ref.fused_stats_ref(x, y)
 
 
@@ -84,6 +96,7 @@ def stats_flat_buckets(xs, ys):
     order."""
     if xs and _on_card("stats_flat_buckets", xs[0]):
         return _fs.fused_stats_buckets(xs, ys)
+    _note("fused_stats", list(zip(xs, ys)))
     device = xs[0].device if xs else "cpu"
     dsq = torch.zeros((), dtype=torch.float32, device=device)
     ysq = torch.zeros((), dtype=torch.float32, device=device)
@@ -98,9 +111,14 @@ def fused_adamw(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, c1, c2):
     """AdamW on one tensor, IN PLACE on p, m and v (the reference step
     donates them); no clip.  Returns (p, m, v)."""
     if _on_card("fused_adamw", p):
-        return _fa.fused_adamw(
-            p, g, m, v, _fa.adamw_scalars(lr, c1, c2, 1.0, p.device),
-            beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay)
+        return _fa.fused_adamw(p, g, m, v, (lr, c1, c2, 1.0), beta1=beta1,
+                               beta2=beta2, eps=eps, weight_decay=weight_decay)
+    _note("fused_adamw", [(p, g, m, v)])
+    return _adamw_plain(p, g, m, v, lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+                        weight_decay=weight_decay, c1=c1, c2=c2)
+
+
+def _adamw_plain(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, c1, c2):
     p2, m2, v2 = ref.adamw_ref(p, g, m, v, lr=lr, beta1=beta1, beta2=beta2,
                                eps=eps, weight_decay=weight_decay, c1=c1, c2=c2)
     p.copy_(p2)
@@ -117,14 +135,14 @@ def fused_adamw_tree(params, grads, m, v, *, lr, beta1, beta2, eps,
     (p, g) takes every leaf; on the CPU the plain version leaf by leaf."""
     leaves = [tree_leaves(t) for t in (params, grads, m, v)]
     if leaves[0] and _on_card("fused_adamw_tree", leaves[0][0]):
-        _fa.fused_adamw_buckets(
-            *leaves, _fa.adamw_scalars(lr, c1, c2, 1.0, leaves[0][0].device),
-            beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay)
+        _fa.fused_adamw_buckets(*leaves, (lr, c1, c2, 1.0), beta1=beta1,
+                                beta2=beta2, eps=eps, weight_decay=weight_decay)
         return params, m, v
+    _note("fused_adamw", list(zip(*leaves)))
     kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
               weight_decay=weight_decay, c1=c1, c2=c2)
     for xs in zip(*leaves, strict=True):
-        fused_adamw(*xs, **kw)
+        _adamw_plain(*xs, **kw)
     return params, m, v
 
 
@@ -135,9 +153,17 @@ def adamw_flat(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, c1, c2,
     with Σg² a 0-d f32 tensor on p's device."""
     if _on_card("adamw_flat", p):
         gsq = _fa.fused_adamw_stats(
-            p, g, m, v, _fa.adamw_scalars(lr, c1, c2, clip_scale, p.device),
-            beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay)
+            p, g, m, v, (lr, c1, c2, clip_scale), beta1=beta1, beta2=beta2,
+            eps=eps, weight_decay=weight_decay)
         return p, m, v, gsq
+    _note("fused_adamw_stats", [(p, g, m, v)])
+    return _adamw_flat_plain(p, g, m, v, lr=lr, beta1=beta1, beta2=beta2,
+                             eps=eps, weight_decay=weight_decay, c1=c1, c2=c2,
+                             clip_scale=clip_scale)
+
+
+def _adamw_flat_plain(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, c1,
+                      c2, clip_scale):
     p2, m2, v2, gsq = ref.adamw_stats_ref(
         p, g, m, v, lr=lr, beta1=beta1, beta2=beta2, eps=eps,
         weight_decay=weight_decay, c1=c1, c2=c2, clip_scale=clip_scale)
@@ -155,31 +181,40 @@ def adamw_flat_buckets(pb, gb, mb, vb, *, lr, beta1, beta2, eps, weight_decay,
     CPU the plain version bucket by bucket, summed in bucket order."""
     kw = dict(beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay)
     if pb and _on_card("adamw_flat_buckets", pb[0]):
-        return _fa.fused_adamw_stats_buckets(
-            pb, gb, mb, vb, _fa.adamw_scalars(lr, c1, c2, clip_scale, pb[0].device),
-            **kw)
+        return _fa.fused_adamw_stats_buckets(pb, gb, mb, vb,
+                                             (lr, c1, c2, clip_scale), **kw)
+    _note("fused_adamw_stats", list(zip(pb, gb, mb, vb)))
     gsq = torch.zeros((), dtype=torch.float32,
                       device=pb[0].device if pb else "cpu")
     for p, g, m, v in zip(pb, gb, mb, vb):
-        gsq = gsq + adamw_flat(p, g, m, v, lr=lr, c1=c1, c2=c2,
-                               clip_scale=clip_scale, **kw)[3]
+        gsq = gsq + _adamw_flat_plain(p, g, m, v, lr=lr, c1=c1, c2=c2,
+                                      clip_scale=clip_scale, **kw)[3]
     return gsq
 
 
-def rmsnorm(x, scale, eps: float = 1e-6):
-    """Row-wise RMSNorm over the last axis; the result has x's dtype."""
+def rmsnorm(x, scale, eps: float = 1e-6, *, plain=None):
+    """Row-wise RMSNorm over the last axis; the result has x's dtype.  On
+    the CPU, `plain()` where the caller gives its own plain code (the
+    model's, so that a forward routed through here computes on the CPU
+    what it always did), else `ref.rmsnorm_ref`."""
     if _on_card("rmsnorm", x):
         return _rmsnorm(x, scale, eps)
-    return ref.rmsnorm_ref(x, scale, eps)
+    _note("rmsnorm", [(x,)])
+    return plain() if plain is not None else ref.rmsnorm_ref(x, scale, eps)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0):
+                    softcap: float = 0.0, plain=None):
     """Attention of q (b, t, h, d) over k, v (b, s, kvh, d) with GQA, the
-    causal mask top-left aligned; the result has q's dtype."""
+    causal mask top-left aligned; the result has q's dtype.  On the CPU,
+    `plain()` where the caller gives it (as for `rmsnorm`), else
+    `ref.flash_attention_ref`."""
     if _on_card("flash_attention", q):
         return _flash_attention(q, k, v, causal=causal, window=window,
                                 softcap=softcap)
+    _note("flash_attention", [(q,)])
+    if plain is not None:
+        return plain()
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
 
@@ -194,11 +229,31 @@ def flat_dispatch_info(device) -> dict:
             "flat_tail": route("fused_adamw_stats")}
 
 
+# the calls above that ran a plain version (off the card), each counted as
+# the launches the card would make for it (one per dtype group of a list
+# call)
+_PLAIN_CALLS = {}
+
+
+def _note(kernel: str, buckets):
+    _PLAIN_CALLS[kernel] += launches(buckets)
+
+
+def call_counts() -> dict:
+    """Each kernel's calls in this process, as launches on the card,
+    whatever device the tensors lay on: the wrappers' launches (a fake
+    call's included) and the plain versions' calls (a graph replay is no
+    call).  What a trace reads (`launch/dryrun.py`), as a difference."""
+    return {name: fn.launches + _PLAIN_CALLS[name] for name, fn in _COUNTED.items()}
+
+
 _COUNTED = {"fused_adamw_stats": _fa.fused_adamw_stats,
             "fused_adamw": _fa.fused_adamw, "fused_stats": _fs.fused_stats,
             "sqdiff_norm": _sqdiff_norm, "rmsnorm": _rmsnorm,
             "flash_attention": _flash_attention}
 
+
+_PLAIN_CALLS.update({name: 0 for name in _COUNTED})
 
 # launches made by replaying captured CUDA graphs (`CountedGraph`): a
 # replay runs the kernels its capture recorded without calling a wrapper

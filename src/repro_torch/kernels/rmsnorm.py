@@ -6,10 +6,12 @@ the final one (`models/norms.py::apply_norm` under inference mode).  The
 source, with its design and bound, is `csrc/rmsnorm.cu`; the plain version
 is `ref.rmsnorm_ref`.
 
-The wrapper takes CUDA tensors only (`kernels.ops` dispatches by device),
-has no backward (it raises under grad mode on a tensor that requires grad)
-and raises on anything the kernel does not take.  Each launch adds one to
-`rmsnorm.launches`.
+The launch is the CUDA implementation of the PyTorch custom op
+`repro_torch::rmsnorm`, whose fake implementation (for `FakeTensorMode`:
+the dry-run) only makes the output.  The wrapper takes CUDA tensors only
+(`kernels.ops` dispatches by device), has no backward (it raises under
+grad mode on a tensor that requires grad) and raises on anything the
+kernel does not take.  Each launch adds one to `rmsnorm.launches`.
 """
 
 from __future__ import annotations
@@ -33,6 +35,26 @@ def _lib():
     return lib
 
 
+@torch.library.custom_op("repro_torch::rmsnorm", mutates_args=(),
+                         device_types="cuda")
+def rmsnorm_op(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """The launch: a new tensor of x's shape and dtype."""
+    out = torch.empty_like(x)
+    d = x.shape[-1]
+    lib = _lib()
+    err = lib.repro_rmsnorm(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
+        int(scale.dtype == torch.bfloat16), out.data_ptr(), x.numel() // d, d, eps,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch(lib, err, "rmsnorm")
+    return out
+
+
+@rmsnorm_op.register_fake
+def _(x, scale, eps):
+    return torch.empty_like(x)
+
+
 def rmsnorm(x, scale, eps: float = 1e-6):
     """x: (..., d), float32 or bfloat16, contiguous; scale: (d,), float32 or
     bfloat16.  Returns a new tensor of x's shape and dtype."""
@@ -42,18 +64,12 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     if d < 1 or tuple(scale.shape) != (d,):
         raise ValueError(f"rmsnorm: scale must be ({d},) for x of shape "
                          f"{tuple(x.shape)}, got {tuple(scale.shape)}")
-    out = torch.empty_like(x)
     rows = x.numel() // d
     if rows == 0:
-        return out
+        return torch.empty_like(x)
     if rows >= 2 ** 31:
         raise ValueError(f"rmsnorm: {rows} rows exceed the grid")
-    lib = _lib()
-    err = lib.repro_rmsnorm(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
-        int(scale.dtype == torch.bfloat16), out.data_ptr(), rows, d, eps,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    check_launch(lib, err, "rmsnorm")
+    out = rmsnorm_op(x, scale, eps)
     rmsnorm.launches += 1
     return out
 

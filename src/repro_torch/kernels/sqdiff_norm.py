@@ -6,7 +6,9 @@ It is the second variant of `csrc/fused_stats.cu` (the same streaming
 loop without Σy²), launched over a bucket table: `sqdiff_norm` over a
 table of one row, `sqdiff_norm_buckets` (the tree route,
 `ops.sqdiff_norm_tree`) over one row a leaf pair, one launch per dtype
-group.  The plain version is `ref.sqdiff_norm_ref`.
+group, as the custom op `repro_torch::sqdiff_norm_buckets` (its fake
+implementation, for `FakeTensorMode`, in `fused_stats.py`).  The plain
+version is `ref.sqdiff_norm_ref`.
 
 The wrappers take CUDA tensors only (`kernels.ops` dispatches by device)
 and raise on anything the kernel does not take.  Each launch adds one to
@@ -15,14 +17,14 @@ and raise on anything the kernel does not take.  Each launch adds one to
 
 from __future__ import annotations
 
-from repro_torch.kernels.fused_stats import check_same_shape, launch_stats
+from repro_torch.kernels.fused_stats import call_stats, check_same_shape, sqdiff_norm_op
 
 
 def sqdiff_norm(x, y):
     """Σ(x−y)² as a 0-d f32 tensor on the device; x and y are float32 or
     bfloat16 (each its own) and of the same shape."""
     check_same_shape("sqdiff_norm", x, y)
-    return launch_stats("sqdiff_norm", sqdiff_norm, [x], [y], 1)[0]
+    return call_stats("sqdiff_norm", sqdiff_norm, sqdiff_norm_op, [x], [y])[0]
 
 
 def sqdiff_norm_buckets(xs, ys):
@@ -33,7 +35,7 @@ def sqdiff_norm_buckets(xs, ys):
         raise ValueError(f"sqdiff_norm: {len(xs)} x and {len(ys)} y tensors")
     for x, y in zip(xs, ys):
         check_same_shape("sqdiff_norm", x, y)
-    return launch_stats("sqdiff_norm", sqdiff_norm, xs, ys, 1)[0]
+    return call_stats("sqdiff_norm", sqdiff_norm, sqdiff_norm_op, xs, ys)[0]
 
 
 sqdiff_norm.launches = 0

@@ -22,7 +22,8 @@ default process group, in row-major order over (pod, data, model), as
   every rank); `host_max` of a host number;
 * `init_workers` — join the group as one rank (the caller names the
   backend: "nccl" needs a card per rank, "gloo" lets ranks share a card or
-  run on the CPU; nothing switches silently);
+  run on the CPU; nothing switches silently); `init_fake_workers` — join
+  a fake group of any size in one process (the dry-run);
 * `spawn_workers` — run a function on n new local processes, one rank
   each, and return rank 0's result.
 """
@@ -162,10 +163,14 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0) -> Mesh:
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's production layouts, (16, 16) or (2, 16, 16), as a
-    description: no ranks, no groups."""
+    """The reference's production layouts, (16, 16) or (2, 16, 16): inside
+    a process group of 256 or 512 ranks (the dry-run's fake group,
+    `init_fake_workers`) this rank's coordinates and line groups, else a
+    description with no ranks and no groups."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if _grouped() and dist.get_world_size() == math.prod(shape):
+        return _make_mesh(shape, axes)
     return Mesh(shape, axes)
 
 
@@ -262,6 +267,36 @@ def init_workers(backend: str, rank: int, world: int, init_method: str):
     elif backend != "gloo":
         raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
     dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world)
+
+
+def _register_fake_backend():
+    """Make the "fake" backend known to `init_process_group` (once): a
+    group that hands every collective its own output and moves nothing,
+    torch's `FakeProcessGroup`."""
+    if "FAKE" in dist.Backend._plugins:
+        return
+    from torch._C._distributed_c10d import FakeProcessGroup
+
+    def create(common_opts, backend_opts):
+        if hasattr(FakeProcessGroup, "_create_internal"):
+            return FakeProcessGroup._create_internal(
+                common_opts.group_rank, common_opts.group_size, backend_opts)
+        return FakeProcessGroup(common_opts.group_rank, common_opts.group_size)
+
+    dist.Backend.register_backend(dist.Backend.FAKE, create, extended_api=True,
+                                  devices=["cpu", "cuda"])
+
+
+def init_fake_workers(world: int, rank: int = 0):
+    """Join a fake process group of `world` ranks as `rank`, in this one
+    process (the dry-run's: one rank's step traced on the production
+    meshes).  Its collectives move nothing, so a step run under
+    `FakeTensorMode` goes through them as a real rank's would; groups and
+    the meshes built on it are real.  `dist.destroy_process_group()`
+    leaves it."""
+    _register_fake_backend()
+    dist.init_process_group("fake", store=dist.HashStore(), rank=rank,
                             world_size=world)
 
 

@@ -13,8 +13,10 @@ path.  Every forward on the card with grad mode off — prefill, and the
 training loop's eval loss under `torch.no_grad` — runs the flash-attention
 kernel (`kernels.ops.flash_attention`, any head dim up to 256), the
 reference's TPU drop-in for the same math; so does cross-attention there,
-non-causal over the encoder's frames (decode steps included).  Decode's
-self-attention runs the plain `_sdpa_grouped`, as the reference does.
+non-causal over the encoder's frames (decode steps included).  Off the
+card such a forward calls the same entry point, which runs the plain code
+passed to it.  Decode's self-attention runs the plain `_sdpa_grouped`, as
+the reference does.
 
 Tensor parallelism (`distributed/sharding.py`): when `wq` holds fewer
 heads than the config's `num_heads`, it is this rank's shard over the
@@ -182,6 +184,16 @@ def _local_kv(k, v, shard, num_heads, num_kv_heads):
     return k[:, :, idx], v[:, :, idx]
 
 
+def _attend_plain(q, k, v, causal, window, softcap):
+    """Full-sequence attention in plain PyTorch (long sequences by query
+    chunks)."""
+    t = q.shape[1]
+    if t >= CHUNK_THRESHOLD and t % Q_CHUNK == 0:
+        return _sdpa_chunked(q, k, v, softcap, causal, window)
+    mask = causal_mask(t, t, 0, window, device=q.device) if causal else None
+    return _sdpa(q, k, v, mask, softcap)
+
+
 def attend_full(params, x, positions, *, rope_theta, softcap=0.0, window=0,
                 causal=True, qk_norm=False, return_kv=False, num_heads=None,
                 num_kv_heads=None):
@@ -197,16 +209,15 @@ def attend_full(params, x, positions, *, rope_theta, softcap=0.0, window=0,
     kv = (k, v)                       # the cache: kv heads as the rank holds them
     if shard is not None:
         k, v = _local_kv(k, v, shard, num_heads, num_kv_heads)
-    t = x.shape[1]
-    if q.is_cuda and not torch.is_grad_enabled():
+    plain = lambda: _attend_plain(q, k, v, causal, window, softcap)
+    if torch.is_grad_enabled():
+        out = plain()
+    else:
+        # the kernel's entry point on every device: the card launches
+        # flash, another device runs `plain`
         out = ops.flash_attention(q, k, v, causal=causal,
                                   window=window if causal else 0,
-                                  softcap=softcap)
-    elif t >= CHUNK_THRESHOLD and t % Q_CHUNK == 0:
-        out = _sdpa_chunked(q, k, v, softcap, causal, window)
-    else:
-        mask = causal_mask(t, t, 0, window, device=x.device) if causal else None
-        out = _sdpa(q, k, v, mask, softcap)
+                                  softcap=softcap, plain=plain)
     out = torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
     if shard is not None:
         out = maybe_shard(out, "batch", "seq", "embed")
@@ -231,10 +242,11 @@ def cross_attend(params, x, kv_source, *, softcap=0.0, num_heads=None,
                                    else tp_enter(src)).values()
     if shard is not None:
         k, v = _local_kv(k, v, shard, num_heads, num_kv_heads)
-    if q.is_cuda and not torch.is_grad_enabled():
-        out = ops.flash_attention(q, k, v, causal=False, softcap=softcap)
-    else:
+    if torch.is_grad_enabled():
         out = _sdpa(q, k, v, None, softcap)
+    else:
+        out = ops.flash_attention(q, k, v, causal=False, softcap=softcap,
+                                  plain=lambda: _sdpa(q, k, v, None, softcap))
     out = torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
     return out if shard is None else maybe_shard(out, "batch", "seq", "embed")
 

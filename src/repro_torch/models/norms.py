@@ -1,13 +1,13 @@
 """RMSNorm / LayerNorm on plain parameter dicts (counterpart of
 `repro/models/norms.py`): statistics in f32, result cast back to x's dtype.
 
-RMSNorm of a tensor on the card with grad mode off (serving, under
-`torch.inference_mode()`, and the training loop's eval loss under
-`torch.no_grad`) runs the CUDA kernel `kernels.ops.rmsnorm`, which
-divides by sqrt(var + eps) as the TPU kernel does; everywhere else (the
-CPU, and training, which needs a backward) it runs the plain code below,
-which multiplies by 1 / sqrt(var + eps) as the reference model does.  The
-two differ by an ulp or so.
+RMSNorm with grad mode off (serving, under `torch.inference_mode()`, and
+the training loop's eval loss under `torch.no_grad`) goes through the
+kernel's entry point `kernels.ops.rmsnorm`: on the card it runs the CUDA
+kernel, which divides by sqrt(var + eps) as the TPU kernel does, and on
+the CPU the plain code below, which multiplies by 1 / sqrt(var + eps) as
+the reference model does (the two differ by an ulp or so).  Training,
+which needs a backward, runs the plain code on every device.
 """
 
 from __future__ import annotations
@@ -28,8 +28,15 @@ def init_norm(d: int, kind: str, dtype, device):
 
 
 def apply_norm(params, x, kind: str, eps: float = 1e-6):
-    if kind == "rmsnorm" and x.is_cuda and not torch.is_grad_enabled():
-        return ops.rmsnorm(x.contiguous(), params["scale"], eps)
+    if kind == "rmsnorm" and not torch.is_grad_enabled():
+        # the kernel's entry point on every device: the card launches
+        # rmsnorm, another device runs the plain code below
+        return ops.rmsnorm(x.contiguous(), params["scale"], eps,
+                           plain=lambda: _plain_norm(params, x, kind, eps))
+    return _plain_norm(params, x, kind, eps)
+
+
+def _plain_norm(params, x, kind: str, eps: float):
     dtype = x.dtype
     x = x.float()
     if kind == "rmsnorm":

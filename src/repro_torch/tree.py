@@ -19,43 +19,48 @@ class TreeDef:
     node: tuple
 
 
+# The walks below are module-level functions, not closures that call
+# themselves: such a closure is a reference cycle, which would keep the
+# leaves it collected (GBs of activations and gradients) alive until the
+# cyclic garbage collector ran, instead of until their last use.
+
+def _flatten(x, is_leaf, leaves):
+    if is_leaf is not None and is_leaf(x):
+        leaves.append(x)
+        return ("leaf",)
+    if isinstance(x, dict):
+        keys = tuple(sorted(x))
+        return ("dict", keys, tuple(_flatten(x[k], is_leaf, leaves) for k in keys))
+    if isinstance(x, (list, tuple)):
+        return (type(x).__name__, tuple(_flatten(v, is_leaf, leaves) for v in x))
+    if x is None:
+        return ("none",)
+    leaves.append(x)
+    return ("leaf",)
+
+
 def tree_flatten(tree, is_leaf=None):
     """(leaves, treedef) in the reference's leaf order; `is_leaf(x)` true
     stops the walk at x (a spec tuple, say)."""
     leaves = []
+    return leaves, TreeDef(_flatten(tree, is_leaf, leaves))
 
-    def rec(x):
-        if is_leaf is not None and is_leaf(x):
-            leaves.append(x)
-            return ("leaf",)
-        if isinstance(x, dict):
-            keys = tuple(sorted(x))
-            return ("dict", keys, tuple(rec(x[k]) for k in keys))
-        if isinstance(x, (list, tuple)):
-            return (type(x).__name__, tuple(rec(v) for v in x))
-        if x is None:
-            return ("none",)
-        leaves.append(x)
-        return ("leaf",)
 
-    return leaves, TreeDef(rec(tree))
+def _unflatten(node, it):
+    kind = node[0]
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return {k: _unflatten(c, it) for k, c in zip(node[1], node[2])}
+    children = [_unflatten(c, it) for c in node[1]]
+    return children if kind == "list" else tuple(children)
 
 
 def tree_unflatten(treedef: TreeDef, leaves):
     it = iter(leaves)
-
-    def rec(node):
-        kind = node[0]
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        if kind == "dict":
-            return {k: rec(c) for k, c in zip(node[1], node[2])}
-        children = [rec(c) for c in node[1]]
-        return children if kind == "list" else tuple(children)
-
-    out = rec(treedef.node)
+    out = _unflatten(treedef.node, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree structure holds")
     return out
@@ -70,19 +75,19 @@ def tree_paths(tree):
     or tuple indices from the root — the checkpoint key the reference
     builds from `jax.tree_util.tree_flatten_with_path`."""
     out = []
-
-    def rec(x, path):
-        if isinstance(x, dict):
-            for k in sorted(x):
-                rec(x[k], path + (str(k),))
-        elif isinstance(x, (list, tuple)):
-            for i, v in enumerate(x):
-                rec(v, path + (str(i),))
-        elif x is not None:
-            out.append(("/".join(path), x))
-
-    rec(tree, ())
+    _paths(tree, (), out)
     return out
+
+
+def _paths(x, path, out):
+    if isinstance(x, dict):
+        for k in sorted(x):
+            _paths(x[k], path + (str(k),), out)
+    elif isinstance(x, (list, tuple)):
+        for i, v in enumerate(x):
+            _paths(v, path + (str(i),), out)
+    elif x is not None:
+        out.append(("/".join(path), x))
 
 
 def tree_map(fn, tree, *rest):

@@ -127,14 +127,17 @@ exit (nothing is caught):
               phase gave it.  `python3 chip_smoke.py
               mesh [layers]` runs the device, build and this phase alone.
    mesh-kinds — the MoE, MLA, SSD and RG-LRU layers on the model axis,
-              gloo ranks sharing the card: (a) dbrx's MoE layer (d 6144, 16
-              experts of 10752, top-4), deepseek-v2's MLA (128 heads,
-              kv_lora 512) and MoE (160 experts of 1536 and 2 shared) layers,
-              one mamba2-370m SSD layer and one recurrentgemma-9b RG-LRU
-              block, full width, 2 x 512 tokens from a seed, at a capacity
-              where no pair drops, on 2 ranks against the same layer whole
-              (each rank runs it in turn first): output, dx and every
-              leaf's gradient within KINDS_RTOL; (b) `run_training` at full
+              gloo ranks sharing the card: (a) one full-width block of each
+              (KINDS_BLOCKS: dbrx's attention and MoE, d 6144, 16 experts of
+              10752, top-4; deepseek-v2's MLA, 128 heads at kv_lora 512, and
+              MoE, 160 experts of 1536 and 2 shared; mamba2-370m's SSD;
+              recurrentgemma-9b's RG-LRU at 511 tokens, which the axis does
+              not divide; one whisper-base encoder layer over its 1500
+              frames), tokens from a seed, MoE at a capacity where no pair
+              drops, on 2 ranks against the same block whole (each rank
+              runs it in turn first), tensor-parallel and under sequence
+              parallelism (each rank's rows of the sequence): output, dx and
+              every leaf's gradient within KINDS_RTOL; (b) `run_training` at full
               width, depth cut (KINDS_LAYERS): mamba2-370m FSDP-Norm
               flat/flat and stats flat with params tree on 2 x 2 against
               2 x 1, recurrentgemma-9b FSDP-Norm tree/tree on 1 x 2 against
@@ -146,6 +149,23 @@ exit (nothing is caught):
               (`mesh_kinds_phase` gives the memory).  `python3 chip_smoke.py
               mesh-kinds [layers]` runs the device, build and this phase
               alone.
+   seqpar   — sequence parallelism in the FSDP-Norm step, gloo ranks
+              sharing the card: full-width microllama-300m (SEQPAR_LAYERS
+              of its 12 layers, seq 512, 8 sequences a step, 3 steps),
+              `make_fsdp_norm_step` flat/flat on 1 x 2 and 2 x 2 with
+              `sequence_parallel` off and on from the same seed-0
+              parameters (run by phase mesh's rank groups after their own
+              runs, the ranks warm): loss, var_l1 and grad_sqnorm within
+              MESH_RTOL, the final params by the per-entry share; peak
+              memory, step ms, TP calls and host seconds (the
+              reduce-scatters and all-gathers of the stream among them) of
+              every rank, gloo's `reduce_scatter_tensor` on CUDA tensors,
+              each rank's `fused_stats` and `fused_adamw_stats` launches
+              (one a step per dtype group), both held against their plain
+              versions at the phase's shapes.  The layer kinds' blocks under
+              sequence parallelism are phase mesh-kinds' (a), the dry-run's
+              `--seqpar` phase dryrun's (c).  `python3 chip_smoke.py seqpar
+              [layers]` runs the device, build and this phase alone.
    serve    — serving's main path, full-width llama3.2-1b (16 layers):
               `make_prefill` at 4 x 2048 tokens (launch counts 0 just
               before, exactly 16 flash_attention and 33 rmsnorm just after;
@@ -173,15 +193,18 @@ exit (nothing is caught):
               `forward_kernel_launches`, and llama3.2-1b's 16-layer 4 x 2048
               prefill's FLOPs equal to `prefill_gemm_flops` plus its 16
               flash calls', exactly; (c) llama3.2-1b decode_32k and
-              microllama-300m train_4k (FSDP-Norm flat) on a fake 16 x 16
-              group of 256 ranks: memory, FLOPs, collective bytes by kind,
-              the roofline terms and the bottleneck, the rank's parameter
-              bytes equal to its specs' slices.  `python3 chip_smoke.py
+              microllama-300m train_4k (FSDP-Norm flat, with and without
+              `--seqpar`) on a fake 16 x 16 group of 256 ranks: memory,
+              FLOPs, collective bytes by kind, the roofline terms and the
+              bottleneck, the rank's parameter bytes equal to its specs'
+              slices; with `--seqpar` reduce-scatters on the model groups
+              of 16 and a lower peak than without.  `python3 chip_smoke.py
               dryrun` runs the device, build and this phase alone.
    serve-mesh — serving on a data x model grid of gloo ranks sharing the
-              card, full-width llama3.2-1b (16 layers, f32, seed-0
-              weights): a 4 x 2048 `make_prefill` on 1 x 2 (16 flash
-              launches a rank on 16 of the 32 heads, 33 rmsnorm), its
+              card, full-width llama3.2-1b (SM_LAYERS of its 16 layers,
+              f32, seed-0 weights): a 4 x 2048 `make_prefill` on 1 x 2 (a
+              flash launch a layer a rank on 16 of the 32 heads, 2 rmsnorm
+              a layer and the final one), its
               logits and gathered caches within SERVE_REL (max abs error
               over the largest magnitude) of the one-process prefill; `run_serving` (batch 8, prompt 128, gen
               64) on 2 x 1 (each rank's rows a CUDA graph), 1 x 2 and 2 x 2
@@ -274,6 +297,7 @@ result.
 """
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -369,23 +393,32 @@ MESH_JOB = dict(arch="microllama-300m", smoke=False, schedule="constant",
 MESH_RTOL = 1e-5          # loss, var_l1, grad_sqnorm across grids
 MESH_SHARE = 2.5e-2       # params after step 3: entries past rtol 1e-5 / atol 1e-7
 # phase mesh-kinds: the MoE, MLA, SSD and RG-LRU layers on the model axis.
-# (a) each layer at full width, 2 x 512 tokens, on 2 ranks against whole
-KINDS_TOKENS = (2, 512)
+# (a) one block of each at full width on 2 ranks against whole, tensor-
+# parallel and sequence-parallel: name: (arch, kind, MoE feed-forward,
+# (batch, tokens)); recurrentgemma's 511 tokens do not divide the axis
+# (zero-padded to 512 under sequence parallelism, trimmed at every gather)
 KINDS_RTOL = 1e-5         # max abs error over the largest magnitude, f32
-KINDS_PIECES = {"dbrx-moe": ("dbrx-132b", "moe"),
-                "deepseek-v2-mla": ("deepseek-v2-236b", "mla"),
-                "deepseek-v2-moe": ("deepseek-v2-236b", "moe"),
-                "mamba2-ssd": ("mamba2-370m", "ssd"),
-                "recurrentgemma-rglru": ("recurrentgemma-9b", "rglru")}
+KINDS_BLOCKS = {
+    "dbrx-attn-moe": ("dbrx-132b", "attn", True, (2, 512)),
+    "deepseek-v2-mla-moe": ("deepseek-v2-236b", "mla", True, (2, 512)),
+    "mamba2-ssd": ("mamba2-370m", "ssd", False, (2, 512)),
+    "recurrentgemma-rglru": ("recurrentgemma-9b", "rglru", False, (2, 511)),
+    "whisper-encoder": ("whisper-base", "attn", False, (2, 1500))}
 # (b) training on the grid at full width, depth cut: mamba2-370m 2 of its 48
 # SSD layers (4 until the whole run reached 986 s, PERF.md §4); recurrentgemma-9b
 # its 2 RG-LRU prefix layers and one (rglru, rglru, local) repeat
 KINDS_LAYERS = {"mamba2-370m": 2, "recurrentgemma-9b": 5}
 KINDS_JOB = dict(MESH_JOB, arch="mamba2-370m")
+# phase seqpar: sequence parallelism in the FSDP-Norm step, full-width
+# microllama-300m, depth cut as phase mesh's, on 1 x 2 and 2 x 2
+SEQPAR_LAYERS = 2         # of 12
+SEQPAR_STEPS = 3
+SEQPAR_SEQ = 512
+SEQPAR_GRIDS = ((1, 2), (2, 2))
 # phase serve-mesh: serving on a data x model grid of gloo ranks sharing the
-# card, full-width llama3.2-1b (16 layers, f32, seed-0 weights), and one
+# card, full-width llama3.2-1b (SM_LAYERS of 16, f32, seed-0 weights), and one
 # block of every other layer kind at full width on 1 x 2
-# a grid against one process on the card: the whole 16-layer model's
+# a grid against one process on the card: the whole model's
 # logits and caches at SERVE_REL (the serving phases' whole-model
 # tolerance, max abs error over the largest magnitude); one block of a
 # layer kind (the pieces) at 1e-5 of its largest magnitude
@@ -403,13 +436,18 @@ SM_PIECE_STEPS = 8
 SM_PIECE_CACHE = {"deepseek-v2-mla-moe": 8192}
 SM_PIECE_CACHE_DEFAULT = 2048
 SM_TIMEOUT_S = 400        # a group of ranks that has not ended by then is stopped
+# llama3.2-1b's depth on the grid: 4 of 16 layers since the whole run took
+# 1148.2 s on a slow host at 16 (PERF.md §6)
+SM_LAYERS = 4
 # phase dryrun: the trace's peak against the card's max_memory_allocated for
 # one ACCUM-NORM step, and two production combinations on a fake 16 x 16
 DRYRUN_MEM_RTOL = 0.10
 # (global batch, accumulation steps) of phase train's last step, for the
 # phase run alone
 DRYRUN_PLAN = (32, 4)
-DRYRUN_COMBOS = (("llama3.2-1b", "decode_32k"), ("microllama-300m", "train_4k"))
+# (arch, shape, seqpar)
+DRYRUN_COMBOS = (("llama3.2-1b", "decode_32k", False), ("microllama-300m", "train_4k", False),
+                 ("microllama-300m", "train_4k", True))
 
 
 def say(phase: str, **kv):
@@ -1264,6 +1302,15 @@ def mesh_rank(runs, layers, root):
     return out
 
 
+def mesh_group_rank(jobs, layers, root):
+    """A rank of one of phase mesh's groups: its runs (`mesh_rank`), then
+    phase seqpar's runs on the grid of the group's size (1 x 2 on 2 ranks,
+    2 x 2 on 4), the ranks already warm."""
+    import torch.distributed as dist
+    grid = (1, 2) if dist.get_world_size() == 2 else (2, 2)
+    return mesh_rank(jobs, layers, root), seqpar_train_rank(grid, SEQPAR_LAYERS)
+
+
 def mesh_agree(runs, a, b, what, dev, var_scale=1.0) -> dict:
     """Runs a and b agree: metrics at MESH_RTOL (b's var_l1 times
     var_scale) and the final parameters by the per-entry share; returns the
@@ -1290,7 +1337,8 @@ def mesh_phase(smi, ops, dev) -> tuple:
     runs on one group of 4 ranks, the 2 x 1 runs on one of 2, J = 1 in this
     process.  Returns (each kernel's launches on the grid's main run,
     summed over its ranks; each kernel's max abs error at the shapes the
-    phase gave it)."""
+    phase gave it; phase seqpar's runs, {grid: `seqpar_train_rank`'s
+    result}, which the groups of 2 and 4 ranks run after the phase's own)."""
     import shutil
     import tempfile
     from repro_torch.launch.mesh import spawn_workers
@@ -1310,12 +1358,16 @@ def mesh_phase(smi, ops, dev) -> tuple:
                 ("accum-flat-J2", dict(**accum, **line))],
             1: [("accum-flat-J1", dict(mesh_data=1, base_micro_batch=4,
                                        max_micro_batch=4, **accum))]}
-    runs = {}
+    runs, seqpar = {}, {}
     try:
         for world, group in plan.items():
             jobs = [(name, dict(MESH_JOB, **kw)) for name, kw in group]
-            out = (spawn_workers(mesh_rank, world, jobs, L, root, backend="gloo")
-                   if world > 1 else mesh_rank(jobs, L, root))
+            if world > 1:
+                out, sp = spawn_workers(mesh_group_rank, world, jobs, L, root,
+                                        backend="gloo")
+                seqpar[(1, 2) if world == 2 else (2, 2)] = sp
+            else:
+                out = mesh_rank(jobs, L, root)
             for name, job in jobs:
                 r = runs[name] = out[name]
                 steps = [b - a for a, b in zip([0.0] + r["time"][:-1], r["time"])]
@@ -1379,114 +1431,112 @@ def mesh_phase(smi, ops, dev) -> tuple:
         rmsnorm_calls=[list(c[0]) for c in main["calls"]["rmsnorm"]],
         flat_buckets={k: [len(c[0]) for c in v] for k, v in flat.items()},
         launches=launches, max_abs_err=err)
-    return launches, err
+    return launches, err, seqpar
 
 
-def kinds_piece(name: str, dev):
-    """(build(gen) -> the piece's leaves, fn(leaves, x, positions) -> out,
-    d_model) of one layer piece of phase mesh-kinds at its config's full
-    width; MoE at a capacity factor of E, where every slot count is the
-    row's n and no pair drops."""
-    import dataclasses
-    from repro_torch.configs import get_config
-    from repro_torch.models import mla, moe, rglru, ssd
-    arch, kind = KINDS_PIECES[name]
-    cfg = get_config(arch)
-    f32, d = torch.float32, cfg.d_model
-    if kind == "moe":
-        m = dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.num_experts))
-        return (lambda gen: moe.init_moe(gen, d, m, f32, dev),
-                lambda p, x, pos: sum(moe.moe_apply(p, x, m)), d)
-    if kind == "mla":
-        return (lambda gen: mla.init_mla(gen, d, cfg.num_heads, cfg.mla, f32, dev),
-                lambda p, x, pos: mla.mla_full(p, x, pos, cfg.mla, num_heads=cfg.num_heads), d)
-    if kind == "ssd":
-        return (lambda gen: ssd.init_ssd(gen, d, cfg.ssm, f32, dev),
-                lambda p, x, pos: ssd.ssd_block(p, x, cfg.ssm), d)
-    return (lambda gen: rglru.init_rglru(gen, d, cfg.rglru, f32, dev),
-            lambda p, x, pos: rglru.rglru_block(p, x, cfg.rglru), d)
-
-
-def kinds_piece_rank(names):
-    """One rank of phase mesh-kinds (a) on a (1, 2) mesh.  Per piece the
-    ranks first run the whole layer one after another (one whole layer on
-    the card at a time), each keeping its slices of the output, dx and the
-    leaves' gradients on the host; then the piece runs tensor-parallel.
-    Returns every rank's {piece: largest relative error (a "partial"
+def kinds_block_rank(names):
+    """One rank of phase mesh-kinds (a) on a (1, 2) mesh.  Per block the
+    ranks first run it whole one after another (one whole block on the
+    card at a time), each keeping on the host its slices of the leaves'
+    gradients and of the output and dx: whole for the tensor-parallel run,
+    its rows of the sequence for the sequence-parallel one.  Then the block
+    runs tensor-parallel and under sequence parallelism.  Returns every
+    rank's {block: {"tp" | "sp": largest relative error (a "partial"
     leaf's gradient summed over the model group first), roles, seconds of
-    the TP forward and backward, TP collective seconds, peak bytes}."""
+    the forward and backward, TP counters, peak bytes}}."""
     import torch.distributed as dist
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
     from repro_torch.distributed import params as P
     from repro_torch.distributed.sharding import (
-        DEFAULT_RULES, TP_STATS, use_sharding_rules)
+        DEFAULT_RULES, TP_STATS, reset_tp_stats, use_sharding_rules,
+        with_sequence_parallel)
     from repro_torch.launch import mesh as M
+    from repro_torch.models import blocks as blk
     from repro_torch.tree import (
         tree_flatten, tree_leaves, tree_map, tree_paths, tree_unflatten)
 
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = M.make_host_mesh(data=1, model=2)
-    rank = dist.get_rank()
-    b, t = KINDS_TOKENS
+    rank, size = dist.get_rank(), 2
+    modes = {"tp": DEFAULT_RULES, "sp": with_sequence_parallel(DEFAULT_RULES)}
     out = {}
     for i, name in enumerate(names):
-        build, fn, d = kinds_piece(name, dev)
-        make = lambda: {"layers": [{"p": build(torch.Generator(device=dev).manual_seed(i))}]}
+        arch, kind, moe_layer, (b, t) = KINDS_BLOCKS[name]
+        cfg = get_config(arch)
+        if moe_layer:   # a capacity where no pair drops
+            cfg = cfg.replace(moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+        causal = cfg.encoder is None            # whisper: an encoder layer
+        make = lambda: {"layers": [blk.init_block(
+            torch.Generator(device=dev).manual_seed(i), cfg, kind, moe_layer, dev)]}
         gen = torch.Generator(device=dev).manual_seed(100 + i)
-        x0 = torch.randn((b, t, d), device=dev, generator=gen)
+        x0 = torch.randn((b, t, cfg.d_model), device=dev, generator=gen)
+        up0 = torch.randn((b, t, cfg.d_model), device=dev, generator=gen)
         pos = torch.arange(t, device=dev).expand(b, t)
+        c = -(-t // size)
+        n = min(c, t - rank * c)                 # real rows of this rank's slice
 
-        def run(tree, tp):
+        def mine(x):                             # this rank's slice, zero-padded
+            return F.pad(x, (0, 0, 0, size * c - t))[:, rank * c:(rank + 1) * c]
+
+        def run(tree, mode):
             leaves, treedef = tree_flatten(tree)
-            xs = [p.detach().requires_grad_(True) for p in leaves]
-            x = x0.clone().requires_grad_(True)
-            with use_sharding_rules(DEFAULT_RULES if tp else None, mesh):
-                y = fn(tree_unflatten(treedef, xs)["layers"][0]["p"], x, pos)
-                up = torch.randn(y.shape, device=dev,
-                                 generator=torch.Generator(device=dev).manual_seed(200 + i))
-                grads = torch.autograd.grad((y * up).sum(), xs + [x])
+            ps = [p.detach().requires_grad_(True) for p in leaves]
+            sp = mode == "sp"
+            x = (mine(x0) if sp else x0).clone().requires_grad_(True)
+            with use_sharding_rules(modes.get(mode), mesh):
+                y, aux, _ = blk.block_full(tree_unflatten(treedef, ps)["layers"][0], x,
+                                           pos, cfg, kind, moe_layer, causal=causal)
+                up = mine(up0) if sp else up0
+                grads = torch.autograd.grad((y * up).sum() + 100 * aux, ps + [x])
             return y.detach(), grads[-1], grads[:-1]
 
-        for r in range(2):
+        for r in range(size):
             if r == rank:
                 tree = make()
                 specs = P.param_pspecs(tree, mesh)
-                y, dx, g = run(tree, False)
-                g = P.shard_tree(tree_unflatten(tree_flatten(tree)[1], list(g)), specs, mesh)
-                want = [y.cpu(), dx.cpu()] + [x.cpu() for x in tree_leaves(g)]
+                y, dx, g = run(tree, "whole")
+                g = [x.cpu() for x in tree_leaves(P.shard_tree(
+                    tree_unflatten(tree_flatten(tree)[1], list(g)), specs, mesh))]
+                want = {"tp": [y.cpu(), dx.cpu()] + g,
+                        "sp": [mine(y)[:, :n].cpu(), mine(dx)[:, :n].cpu()] + g}
                 del tree, y, dx, g
                 gc.collect()
                 torch.cuda.empty_cache()
             dist.barrier()
         tree = make()
-        roles = tree_flatten(P.model_roles(tree, specs))[0]
         local = tree_map(lambda x: x.contiguous(), P.shard_tree(tree, specs, mesh))
         del tree
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        TP_STATS.update(calls=0, seconds=0.0)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        y, dx, g = run(local, True)
-        torch.cuda.synchronize()
-        seconds = time.time() - t0
-        got = [y, dx] + [M.psum(x.clone(), mesh.model_group) if role == "partial" else x
-                         for x, role in zip(g, roles)]
-        errs = {k: float((a - w.to(dev)).abs().max() / w.abs().max().to(dev))
-                for k, a, w in zip(["out", "dx"] + [k for k, _ in tree_paths(local)],
-                                   got, want)}
-        worst = max(errs, key=errs.get)
-        out[name] = {"max_rel_err": errs[worst], "worst": worst,
-                     "sharded": roles.count("sharded"),
-                     "partial": roles.count("partial"),
-                     "replicated": roles.count("replicated"),
-                     "tp_fwd_bwd_s": round(seconds, 3),
-                     "tp_collective_s": round(TP_STATS["seconds"], 3),
-                     "tp_collectives": TP_STATS["calls"],
-                     "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
-        del local, y, dx, g, got, want
+        keys = ["out", "dx"] + [k for k, _ in tree_paths(local)]
+        out[name] = {}
+        for mode in modes:
+            roles = tree_flatten(P.model_roles(local, specs,
+                                               sequence_parallel=mode == "sp"))[0]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_tp_stats()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            y, dx, g = run(local, mode)
+            torch.cuda.synchronize()
+            seconds = time.time() - t0
+            got = [y[:, :n], dx[:, :n]] if mode == "sp" else [y, dx]
+            got += [M.psum(x.clone(), mesh.model_group) if role == "partial" else x
+                    for x, role in zip(g, roles)]
+            errs = {k: float((a - w.to(dev)).abs().max() / w.abs().max().to(dev))
+                    for k, a, w in zip(keys, got, want[mode])}
+            worst = max(errs, key=errs.get)
+            out[name][mode] = {
+                "max_rel_err": errs[worst], "worst": worst, "tokens": [b, t],
+                "sharded": roles.count("sharded"), "partial": roles.count("partial"),
+                "replicated": roles.count("replicated"), "fwd_bwd_s": round(seconds, 3),
+                "tp": dict(TP_STATS), "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+            del y, dx, g, got
+        del local, want
         gc.collect()
         torch.cuda.empty_cache()
-    every = [None] * 2
+    every = [None] * size
     dist.all_gather_object(every, out)
     return every
 
@@ -1495,12 +1545,10 @@ def mesh_kinds_phase(smi, ops, dev) -> tuple:
     """Phase mesh-kinds: the MoE, MLA, SSD and RG-LRU layers on the model
     axis, on gloo ranks that share the card.
 
-    (a) Each layer at full width (dbrx's MoE, 16 experts of 10752 at d 6144,
-    top-4; deepseek-v2's MLA, 128 heads at kv_lora 512, and its MoE, 160
-    experts of 1536 and 2 shared; one mamba2-370m SSD layer; one
-    recurrentgemma-9b RG-LRU block), 2 x 512 tokens from a seed, on 2 ranks
-    against the same layer whole: output, dx and every leaf's gradient
-    within KINDS_RTOL.
+    (a) One block of each kind at full width (KINDS_BLOCKS), tokens from a
+    seed, on 2 ranks against the same block whole, tensor-parallel and
+    under sequence parallelism: output, dx and every leaf's gradient within
+    KINDS_RTOL.
     (b) `run_training` at full width, depth cut (KINDS_LAYERS): mamba2-370m
     FSDP-Norm flat/flat and the mixed residency (stats flat, params tree)
     on 2 x 2 against 2 x 1; recurrentgemma-9b FSDP-Norm tree/tree (the tree
@@ -1526,13 +1574,17 @@ def mesh_kinds_phase(smi, ops, dev) -> tuple:
     # run here peaks near 70 GB
     gc.collect()
     torch.cuda.empty_cache()
-    pieces = spawn_workers(kinds_piece_rank, 2, list(KINDS_PIECES), backend="gloo")
-    for name in KINDS_PIECES:
-        worst = max(r[name]["max_rel_err"] for r in pieces)
-        say("mesh-kinds", nvidia_smi=smi, piece=name, tokens=list(KINDS_TOKENS),
-            max_rel_err=worst, limit=KINDS_RTOL, ranks=[r[name] for r in pieces])
-        if not worst <= KINDS_RTOL:
-            raise AssertionError(f"{name}: TP vs whole {worst} > {KINDS_RTOL}")
+    blocks = spawn_workers(kinds_block_rank, 2, list(KINDS_BLOCKS), backend="gloo")
+    for name in KINDS_BLOCKS:
+        for mode, what in (("tp", "tensor"), ("sp", "sequence")):
+            worst = max(r[name][mode]["max_rel_err"] for r in blocks)
+            say("mesh-kinds", nvidia_smi=smi, block=name, parallelism=what,
+                max_rel_err=worst, limit=KINDS_RTOL, ranks=[r[name][mode] for r in blocks])
+            if not worst <= KINDS_RTOL:
+                raise AssertionError(f"{name}: {what}-parallel vs whole {worst} > "
+                                     f"{KINDS_RTOL}")
+        if not all(r[name]["sp"]["tp"]["seq_all_gather"] > 0 for r in blocks):
+            raise AssertionError(f"{name}: the sequence-parallel stream was never gathered")
 
     grid, line = dict(mesh_data=2, mesh_model=2), dict(mesh_data=2)
     mixed = dict(stats_impl="flat", params_impl="tree")
@@ -1600,6 +1652,133 @@ def mesh_kinds_phase(smi, ops, dev) -> tuple:
                                  for n, r in runs.items()},
         flash_calls=[list(c[0]) + list(c[1]) for c in rg["calls"]["flash_attention"]],
         rmsnorm_calls=[list(c[0]) for c in calls["rmsnorm"]],
+        launches=launches, max_abs_err=err)
+    return launches, err
+
+
+def seqpar_train_rank(grid, layers):
+    """This rank of phase seqpar (a): FSDP-Norm flat/flat of full-width
+    microllama-300m cut to `layers` layers on the `grid` (data, model),
+    sequence parallelism off and then on, each from the seed-0 parameters
+    over the same batches.  Returns, per setting, every rank's metrics,
+    step seconds, peak bytes, TP counters and launches, rank 0's whole
+    final parameters on the host, and the tail's call shapes."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedule import BatchPlan
+    from repro_torch.data.pipeline import MarkovTokens, make_batch
+    from repro_torch.distributed.sharding import (
+        TP_STATS, gather_flat_buffers, reset_tp_stats, shard_flat_buffers)
+    from repro_torch.distributed.train_step import batch_to_device, make_fsdp_norm_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as M
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig, init_adamw_flat
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    d, m = grid
+    mesh = M.make_host_mesh(data=d, model=m)
+    model = build_model(get_config(MESH_JOB["arch"]).replace(num_layers=layers))
+    plan = BatchPlan(global_batch=8, micro_batch=2, accum_steps=4 // d, workers=d)
+    src = MarkovTokens(vocab_size=model.cfg.vocab_size, seed=0)
+    batches = [make_batch(src, t, plan, SEQPAR_SEQ) for t in range(SEQPAR_STEPS)]
+    out = {}
+    for sp in (False, True):
+        params = model.init(0, device=dev)
+        wrap = make_fsdp_norm_step(model, AdamWConfig(), stats_impl="flat",
+                                   params_impl="flat", sequence_parallel=sp,
+                                   params_like=params, mesh=mesh)
+        layout = wrap.flat_layout
+        opt = init_adamw_flat(params, shard_divisor=d, layout=layout)
+        pb = tuple(shard_flat_buffers(layout.flatten(params), mesh))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_tp_stats()
+        ops.reset_launch_counts()
+        mine = {"loss": [], "var_l1": [], "grad_sqnorm": [], "step_s": []}
+        with recorded_flat_calls(ops) as flat:
+            for b in batches:
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pb, opt, mt = wrap(b)(pb, opt, batch_to_device(b, dev), 3e-4)
+                for k in ("loss", "var_l1", "grad_sqnorm"):
+                    mine[k].append(float(mt[k]))
+                mine["step_s"].append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        mine.update(peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+                    launches=ops.launch_counts(), tp=dict(TP_STATS))
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        whole = layout.unflatten(gather_flat_buffers(pb, mesh=mesh))
+        out[sp] = {"ranks": every, "flat_calls": flat,
+                   "final_params": [x.detach().cpu() for x in tree_leaves(whole)]}
+        del pb, opt, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def seqpar_phase(smi, ops, dev, trained=None) -> tuple:
+    """Phase seqpar (module docstring) from `trained`, {grid:
+    `seqpar_train_rank`'s result} that phase mesh's rank groups ran, or, as
+    the phase run alone, from groups of 2 and 4 ranks of its own.  Returns
+    (each kernel's launches on the phase's sequence-parallel runs, summed
+    over their ranks; each kernel's max abs error at the phase's
+    shapes)."""
+    from repro_torch.launch.mesh import spawn_workers
+
+    t_phase = time.time()
+    if trained is None:
+        trained = {grid: spawn_workers(seqpar_train_rank, grid[0] * grid[1], grid,
+                                       SEQPAR_LAYERS, backend="gloo")
+                   for grid in SEQPAR_GRIDS}
+    zero = {k: 0 for k in KERNELS}
+    launches, flat_calls, err = dict(zero), None, {}
+    for grid in SEQPAR_GRIDS:
+        out = trained[grid]
+        runs = {("sp" if sp else "whole"): {
+            "loss": r["ranks"][0]["loss"], "var_l1": r["ranks"][0]["var_l1"],
+            "grad_sqnorm": r["ranks"][0]["grad_sqnorm"],
+            "final_params": r["final_params"]} for sp, r in out.items()}
+        what = f"seqpar {grid[0]}x{grid[1]} on vs off"
+        pair = mesh_agree(runs, "sp", "whole", what, dev)
+        groups = len({dt for _, dts in out[True]["flat_calls"]["fused_adamw_stats"]
+                      for dt in dts})
+        want = zero | {"fused_stats": SEQPAR_STEPS,
+                       "fused_adamw_stats": SEQPAR_STEPS * groups}
+        for sp, r in out.items():
+            for rank, x in enumerate(r["ranks"]):
+                if x["launches"] != want:
+                    raise AssertionError(f"{what}: sp={sp} rank {rank} launched "
+                                         f"{x['launches']}, expected {want}")
+            say("seqpar", nvidia_smi=smi, grid=f"{grid[0]}x{grid[1]}", layers=SEQPAR_LAYERS,
+                sequence_parallel=sp, loss=r["ranks"][0]["loss"],
+                var_l1=r["ranks"][0]["var_l1"], grad_sqnorm=r["ranks"][0]["grad_sqnorm"],
+                step_ms=[[round(1e3 * s, 3) for s in x["step_s"]] for x in r["ranks"]],
+                peak_mem_bytes=[x["peak_mem_bytes"] for x in r["ranks"]],
+                tp_calls=[x["tp"]["calls"] for x in r["ranks"]],
+                tp_seconds=[round(x["tp"]["seconds"], 4) for x in r["ranks"]],
+                seq_reduce_scatters=[x["tp"]["seq_reduce_scatter"] for x in r["ranks"]],
+                seq_all_gathers=[x["tp"]["seq_all_gather"] for x in r["ranks"]],
+                gloo_reduce_scatter="dist.reduce_scatter_tensor on CUDA tensors"
+                if sp else None)
+            if sp and not all(x["tp"]["seq_reduce_scatter"] > 0 for x in r["ranks"]):
+                raise AssertionError(f"{what}: a rank ran no sequence reduce-scatter")
+        say("seqpar", nvidia_smi=smi, grid=f"{grid[0]}x{grid[1]}", on_vs_off=pair,
+            limit_rtol=MESH_RTOL, share_limit=MESH_SHARE)
+        for k in KERNELS:
+            launches[k] += sum(x["launches"][k] for x in out[True]["ranks"])
+        flat_calls = out[True]["flat_calls"] if flat_calls is None else {
+            k: flat_calls[k] + out[True]["flat_calls"][k] for k in flat_calls}
+        del out, runs
+    trained.clear()
+    err.update(check_flat_shapes(flat_calls, dev))
+
+    say("seqpar", nvidia_smi=smi, seconds=round(time.time() - t_phase, 3),
         launches=launches, max_abs_err=err)
     return launches, err
 
@@ -1849,7 +2028,7 @@ def serve_mesh_rank(world: int):
     faulthandler.dump_traceback_later(SM_TIMEOUT_S - 30)
     rank, t0 = dist.get_rank(), time.time()
     dev = torch.device("cuda", torch.cuda.current_device())
-    model = build_model(get_config(SERVE_ARCH))
+    model = build_model(get_config(SERVE_ARCH).replace(num_layers=SM_LAYERS))
     whole = model.init(0, dev)
     out = {}
 
@@ -1892,7 +2071,7 @@ def serve_mesh_phase(smi, ops, dev) -> tuple:
     t_phase = time.time()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(SERVE_ARCH).replace(num_layers=SM_LAYERS)
     params = build_model(cfg).init(0, dev)
     solo = {"serving": run_serving(SERVE_ARCH, smoke=False, params=params, **SERVE_JOB),
             "continuous": run_continuous_serving(SERVE_ARCH, smoke=False, params=params,
@@ -2413,7 +2592,9 @@ def dryrun_phase(smi, ops, dev, plan) -> dict:
     mask admits), exactly.  (c) DRYRUN_COMBOS on a fake 256-rank group
     (16 x 16): memory, FLOPs, collective bytes by kind, the three terms
     and the bottleneck printed; the rank's parameter bytes must equal its
-    specs' slices.  Returns the phase's real launches."""
+    specs' slices; with `--seqpar`, reduce-scatters on the model groups of
+    16 and a lower peak than the same combination without.  Returns the
+    phase's real launches."""
     from repro_torch.configs import ALL_ARCHS, get_config
     from repro_torch.distributed.train_step import make_accum_norm_step
     from repro_torch.kernels.flash_attention import attended_pairs
@@ -2516,11 +2697,14 @@ def dryrun_phase(smi, ops, dev, plan) -> dict:
                                                   ("flash_attention", "rmsnorm")})
 
     # (c) production combinations on a fake 256-rank group
-    for arch, shape in DRYRUN_COMBOS:
-        _, rec = dryrun.lower_combo(arch, shape, multi_pod=False)
+    recs = {}
+    for arch, shape, seqpar in DRYRUN_COMBOS:
+        _, rec = dryrun.lower_combo(arch, shape, multi_pod=False, seqpar=seqpar)
+        recs[arch, shape, seqpar] = rec
         mem, rl = rec["memory"], rec["roofline"]
         say("dryrun", check="combo", arch=arch, shape=shape, mesh=rec["mesh"],
-            step_impl=rec["step_impl"], nvidia_smi=smi, trace_s=rec["trace_s"],
+            step_impl=rec["step_impl"], seqpar=rec["seqpar"], nvidia_smi=smi,
+            trace_s=rec["trace_s"],
             memory=mem, flops=rec["cost"]["flops"],
             flops_by_class=rec["cost"]["flops_by_class"],
             bytes_accessed=rec["cost"]["bytes accessed"],
@@ -2534,6 +2718,15 @@ def dryrun_phase(smi, ops, dev, plan) -> dict:
             raise AssertionError(f"{arch} {shape}: the rank's parameters take "
                                  f"{mem['params_bytes']} B, its specs' slices "
                                  f"{mem['param_spec_bytes']}")
+    for (arch, shape, seqpar), rec in recs.items():
+        if not seqpar:
+            continue
+        rs = rec["collectives"]["reduce-scatter"]
+        whole = recs[arch, shape, False]["memory"]["peak_bytes"]
+        if (not rec["seqpar"] or not rs["count"] or set(rs["group_sizes"]) != {16}
+                or rec["memory"]["peak_bytes"] >= whole):
+            raise AssertionError(f"{arch} {shape} --seqpar: reduce-scatters {rs}, peak "
+                                 f"{rec['memory']['peak_bytes']} against {whole}")
     say("dryrun", seconds=round(time.time() - t_phase, 3))
     return launched
 
@@ -3464,12 +3657,15 @@ def main() -> int:
 
     lap("fsdp")
     # mesh: the model axis, a data x model grid of gloo ranks ------------------
-    mesh_launches, mesh_err = mesh_phase(smi, ops, dev)
+    mesh_launches, mesh_err, seqpar_runs = mesh_phase(smi, ops, dev)
     lap("mesh")
     # mesh-kinds: the MoE, MLA, SSD and RG-LRU layers on the model axis ---------
     kinds_launches, kinds_err = mesh_kinds_phase(smi, ops, dev)
 
     lap("mesh-kinds")
+    # seqpar: sequence parallelism in the FSDP-Norm step (mesh's ranks ran it)
+    sp_launches, sp_err = seqpar_phase(smi, ops, dev, seqpar_runs)
+    lap("seqpar")
     # serve: serving's main path, full-width llama3.2-1b -----------------------
     serve_launches = serve_path(smi, ops, dev)
 
@@ -3698,11 +3894,12 @@ def main() -> int:
     path_launches = {**fsdp_launches, **tree_launches,
                      **{k: serve_launches[k] + arch_launches[k]
                         for k in ("rmsnorm", "flash_attention")}}
-    # and the mesh phase's 2 x 2 grid, mesh-kinds' and serve-mesh's runs
-    # (every rank)
-    path_launches = {k: n + mesh_launches[k] + kinds_launches[k] + sm_launches[k]
-                     for k, n in path_launches.items()}
-    err = {k: max(e, mesh_err.get(k, 0.0), kinds_err.get(k, 0.0), sm_err.get(k, 0.0))
+    # and the mesh phase's 2 x 2 grid, mesh-kinds', seqpar's and serve-mesh's
+    # runs (every rank)
+    path_launches = {k: n + mesh_launches[k] + kinds_launches[k] + sp_launches[k]
+                     + sm_launches[k] for k, n in path_launches.items()}
+    err = {k: max(e, mesh_err.get(k, 0.0), kinds_err.get(k, 0.0), sp_err.get(k, 0.0),
+                  sm_err.get(k, 0.0))
            for k, e in err.items()}
     entries = []
     for k, t in timed.items():
@@ -3728,11 +3925,11 @@ def main() -> int:
 
 
 def phase_alone(phase: str, layers: int | None) -> int:
-    """`python3 chip_smoke.py mesh|mesh-kinds|serve-mesh|dryrun [layers]`:
-    the device, the build and that phase alone (mesh at `layers` layers,
-    mesh-kinds with mamba2 at `layers`; dryrun at DRYRUN_PLAN), nothing
-    else (no result line)."""
-    global MESH_LAYERS
+    """`python3 chip_smoke.py mesh|mesh-kinds|seqpar|serve-mesh|dryrun
+    [layers]`: the device, the build and that phase alone (mesh and seqpar
+    at `layers` layers, mesh-kinds with mamba2 at `layers`; dryrun at
+    DRYRUN_PLAN), nothing else (no result line)."""
+    global MESH_LAYERS, SEQPAR_LAYERS
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -3748,6 +3945,9 @@ def phase_alone(phase: str, layers: int | None) -> int:
     elif phase == "mesh":
         MESH_LAYERS = layers or MESH_LAYERS
         mesh_phase(smi, ops, torch.device("cuda"))
+    elif phase == "seqpar":
+        SEQPAR_LAYERS = layers or SEQPAR_LAYERS
+        seqpar_phase(smi, ops, torch.device("cuda"))
     elif phase == "serve-mesh":
         serve_mesh_phase(smi, ops, torch.device("cuda"))
     else:
@@ -3760,6 +3960,6 @@ def phase_alone(phase: str, layers: int | None) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] in (["mesh"], ["mesh-kinds"], ["serve-mesh"], ["dryrun"]):
+    if sys.argv[1:2] in (["mesh"], ["mesh-kinds"], ["seqpar"], ["serve-mesh"], ["dryrun"]):
         sys.exit(phase_alone(sys.argv[1], int(sys.argv[2]) if len(sys.argv) > 2 else None))
     sys.exit(main())

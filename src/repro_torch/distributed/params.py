@@ -295,8 +295,13 @@ _PARTIAL = {
     "lam": "w_branch_b",
 }
 
+# the norms applied to the residual stream, which under sequence
+# parallelism run on this rank's slice of the sequence
+STREAM_NORMS = frozenset({"pre_norm", "post_norm", "mlp_norm", "post_mlp_norm",
+                          "cross_norm", "final_norm"})
 
-def model_roles(params, specs):
+
+def model_roles(params, specs, sequence_parallel: bool = False):
     """Each leaf's part under the model axis, from its spec and its
     siblings':
 
@@ -306,7 +311,11 @@ def model_roles(params, specs):
       part only, so each rank's gradient is a share that the step sums
       over the model group: attention's `wk` / `wv` whose kv heads do not
       divide the axis, MLA's `w_q` (no query LoRA), and RG-LRU's
-      `conv_b`, `b_rg`, `b_ig` and `lam`;
+      `conv_b`, `b_rg`, `b_ig` and `lam`; with `sequence_parallel`, also
+      the leaves of the norms on the residual stream (`STREAM_NORMS`:
+      every block's, the cross-attention's, the final norms of the
+      decoder and the encoder), which run on this rank's slice of the
+      sequence;
     * "replicated" — whole, with a gradient every rank computes whole and
       the same, counted once: the norms, the MoE router (its gates'
       gradient is summed over the group inside the layer), MLA's latent
@@ -320,6 +329,8 @@ def model_roles(params, specs):
     def role(key, _):
         if on_model(spec_of[key]):
             return "sharded"
+        if sequence_parallel and STREAM_NORMS.intersection(key.split("/")):
+            return "partial"
         parent, name = key.rsplit("/", 1)[0], key.split("/")[-1]
         sibling = _PARTIAL.get(name)
         if sibling and on_model(spec_of.get(f"{parent}/{sibling}", ())):
@@ -330,5 +341,6 @@ def model_roles(params, specs):
 
 
 __all__ = ["param_pspecs", "opt_pspecs", "cache_pspecs", "seq_sharded",
+           "STREAM_NORMS",
            "SEQ_SHARD_LEN", "shard_tree",
            "gather_tree", "strip_spec", "map_specs", "model_roles", "spec_paths"]

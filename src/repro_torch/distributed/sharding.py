@@ -28,6 +28,31 @@ functions over the active mesh's model group:
 Outside `use_sharding_rules(rules, mesh)`, or with a model axis of size
 1, both are the identity and the model computes what it always did.
 
+Sequence parallelism (`with_sequence_parallel` rules, `seq_parallel()`):
+the residual stream between TP regions holds only this rank's slice of
+the sequence (dim 1: the stream zero-padded to a multiple of M, rank m
+holding rows [m·c, (m+1)·c), c = ceil(t / M)), so the norms, post-norms
+and residual adds run on 1/M of it.  This is what GSPMD makes of the
+reference's `act_seq` constraint at the two TP boundaries of a block:
+
+* `stream_enter` — the column-parallel entry from the stream: the slices
+  all-gathered (trimmed to t) forward; the whole input's gradient, a
+  partial sum over the model group, reduce-scattered backward;
+* `maybe_shard`'s exits and `stream_exit` — a partial sum reduce-scattered
+  into this rank's slice forward; the slices' gradients all-gathered
+  backward;
+* `stream_gather` / `stream_scatter` — the stream made whole for a region
+  that runs whole on every rank (MoE's router, MLA's latents, SSD, the
+  encoder's output, the cross-entropy), and a whole tensor cut to this
+  rank's slice; backward, the slice of a gradient every rank holds the
+  same, and the slices' gradients all-gathered.
+
+A gather trims to the stream's true length, which the layer running it
+declares (`stream_length`, from its whole `positions`).  The
+reduce-scatter is `reduce_scatter_tensor` on every backend: gloo runs it
+on CPU and on CUDA tensors (torch 2.11 on the H100), nccl and the
+dry-run's fake group natively.
+
 Flat buffers.  Bucket buffers are padded to a J-divisible size
 (`FlatLayout.from_tree(..., shard_divisor=J)`), so worker j's shard of a
 bucket of n·J elements is the contiguous slice [j·n, (j+1)·n) — the order
@@ -143,12 +168,14 @@ def flat_buffer_specs(num_buffers: int, axes) -> tuple:
 # ------------------------------------------------------------ context ----
 
 class _Ctx:
-    """The active rules and mesh.  Process-wide, not thread-local (as the
+    """The active rules and mesh, and the residual stream's true length
+    under sequence parallelism.  Process-wide, not thread-local (as the
     reference's is): on the card autograd runs the backward, and with it a
     checkpointed block's recomputed forward, on its own device thread,
     which must see the hooks the forward saw."""
     rules = None
     mesh = None
+    seq_len = None
 
 
 _CTX = _Ctx()
@@ -178,8 +205,14 @@ def logical_spec(*logical_axes) -> tuple:
 # ----------------------------------------------------- tensor parallelism ----
 
 # host seconds inside the TP collectives (each gloo call blocks until it is
-# done), and their count; reset by the caller
-TP_STATS = {"calls": 0, "seconds": 0.0}
+# done), and their count; of those, the sequence-parallel reduce-scatters
+# and all-gathers of the stream; reset by the caller (`reset_tp_stats`)
+TP_STATS = {"calls": 0, "seconds": 0.0, "seq_reduce_scatter": 0,
+            "seq_all_gather": 0}
+
+
+def reset_tp_stats():
+    TP_STATS.update(calls=0, seconds=0.0, seq_reduce_scatter=0, seq_all_gather=0)
 
 
 def model_axis():
@@ -196,6 +229,31 @@ def model_axis():
 def model_size() -> int:
     """The active model axis's size (1 when `model_axis` is None)."""
     return 1 if model_axis() is None else _CTX.mesh.model_size
+
+
+def seq_parallel() -> bool:
+    """Whether the active rules put the residual stream's sequence
+    (`act_seq`) on a model axis of more than one rank."""
+    return (model_axis() is not None
+            and MODEL in entry_axes(_CTX.rules.rules.get("act_seq")))
+
+
+@contextlib.contextmanager
+def stream_length(t: int):
+    """Declare the residual stream's true length `t` (its positions') for
+    the gathers of the layer run inside."""
+    prev, _CTX.seq_len = _CTX.seq_len, t
+    try:
+        yield
+    finally:
+        _CTX.seq_len = prev
+
+
+def _stream_len() -> int:
+    if _CTX.seq_len is None:
+        raise RuntimeError("a sequence-parallel gather outside `stream_length`: "
+                           "the stream's true length is not declared")
+    return _CTX.seq_len
 
 
 def _all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
@@ -216,6 +274,132 @@ def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     TP_STATS["calls"] += 1
     TP_STATS["seconds"] += time.perf_counter() - t0
     return torch.cat(parts, dim=dim)
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x zero-padded along dim 1 to n rows."""
+    return x if x.shape[1] == n else torch.nn.functional.pad(
+        x, (0, 0) * (x.dim() - 2) + (0, n - x.shape[1]))
+
+
+def _reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over `group` of x (b, c·M, ...), this rank's rows [m·c,
+    (m+1)·c) of it (m its index in the group)."""
+    rows = x.movedim(1, 0).contiguous()
+    y = rows.new_empty((rows.shape[0] // group_size(group),) + rows.shape[1:])
+    t0 = time.perf_counter()
+    dist.reduce_scatter_tensor(y, rows, group=group)
+    y = y.movedim(0, 1).contiguous()
+    TP_STATS["calls"] += 1
+    TP_STATS["seq_reduce_scatter"] += 1
+    TP_STATS["seconds"] += time.perf_counter() - t0
+    return y
+
+
+def _gather_rows(x: torch.Tensor, group, t: int) -> torch.Tensor:
+    """The ranks' slices all-gathered along dim 1, trimmed to t rows."""
+    TP_STATS["seq_all_gather"] += 1
+    return _all_gather(x, group, 1).narrow(1, 0, t).contiguous()
+
+
+def _slice_rows(x: torch.Tensor, m: int, index: int) -> torch.Tensor:
+    """This rank's slice of the stream x (b, t, ...) zero-padded to M·c."""
+    c = -(-x.shape[1] // m)
+    return _pad_rows(x, m * c).narrow(1, index * c, c).contiguous()
+
+
+class _SeqExit(torch.autograd.Function):
+    """Reduce-scatter along the sequence forward; all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        m = group_size(group)
+        ctx.group, ctx.t = group, x.shape[1]
+        return _reduce_scatter(_pad_rows(x, m * -(-x.shape[1] // m)), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_rows(grad, ctx.group, ctx.t), None
+
+
+class _SeqEnter(torch.autograd.Function):
+    """All-gather along the sequence forward; reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, t):
+        ctx.group, ctx.rows = group, x.shape[1]
+        return _gather_rows(x, group, t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        m = group_size(ctx.group)
+        return _reduce_scatter(_pad_rows(grad, m * ctx.rows), ctx.group), None, None
+
+
+class _SeqGather(torch.autograd.Function):
+    """All-gather along the sequence forward; backward, this rank's slice
+    of a gradient every rank holds the same."""
+
+    @staticmethod
+    def forward(ctx, x, group, index, t):
+        ctx.m, ctx.index = group_size(group), index
+        return _gather_rows(x, group, t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _slice_rows(grad, ctx.m, ctx.index), None, None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """This rank's slice of a tensor every rank holds the same forward;
+    the slices' gradients all-gathered backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, index):
+        ctx.group, ctx.t = group, x.shape[1]
+        return _slice_rows(x, group_size(group), index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_rows(grad, ctx.group, ctx.t), None, None
+
+
+def stream_enter(x: torch.Tensor) -> torch.Tensor:
+    """The column-parallel entry from the residual stream: under sequence
+    parallelism the slices all-gathered whole (gradient reduce-scattered);
+    else `tp_enter`."""
+    if not seq_parallel():
+        return tp_enter(x)
+    return _SeqEnter.apply(x, model_axis()[0], _stream_len())
+
+
+def stream_exit(x: torch.Tensor) -> torch.Tensor:
+    """A partial sum over the model group made whole into the stream:
+    under sequence parallelism reduce-scattered into this rank's slice
+    (gradient all-gathered); else `tp_reduce`."""
+    if not seq_parallel():
+        return tp_reduce(x)
+    return _SeqExit.apply(x, model_axis()[0])
+
+
+def stream_gather(x: torch.Tensor) -> torch.Tensor:
+    """The stream whole on every rank for a region that runs whole (its
+    gradient the same on every rank): under sequence parallelism the
+    slices all-gathered and trimmed to the declared `stream_length`; else
+    x."""
+    if not seq_parallel():
+        return x
+    group, index = model_axis()
+    return _SeqGather.apply(x, group, index, _stream_len())
+
+
+def stream_scatter(x: torch.Tensor) -> torch.Tensor:
+    """A tensor every rank holds the same, cut to this rank's slice of the
+    stream under sequence parallelism; else x."""
+    if not seq_parallel():
+        return x
+    group, index = model_axis()
+    return _SeqScatter.apply(x, group, index)
 
 
 class _Enter(torch.autograd.Function):
@@ -285,36 +469,45 @@ def tp_max(x: torch.Tensor) -> torch.Tensor:
 def maybe_shard(x: torch.Tensor, *logical_axes) -> torch.Tensor:
     """At the reference's row-parallel exits: a tensor whose spec leaves
     every dim off `model` is this rank's partial sum of a product over its
-    heads or ffn columns, all-reduced here (`tp_reduce`).  A spec with a
-    dim on `model` names a tensor that already is this rank's shard: the
-    identity.  Outside a model axis: the identity.  Inside
-    `checkpoint_tp_boundary` the all-reduced result is kept, and the
-    backward pass's recompute takes it instead of reducing again."""
+    heads or ffn columns, all-reduced here (`tp_reduce`), or under
+    sequence parallelism reduce-scattered into this rank's slice of the
+    stream (`stream_exit`).  A spec with a dim on `model` names a tensor
+    that already is this rank's shard: the identity.  Outside a model
+    axis: the identity.  Inside `checkpoint_tp_boundary` the reduced
+    result is kept, and the backward pass's recompute takes it instead of
+    reducing again."""
     tp = model_axis()
     if tp is None or any(MODEL in entry_axes(a)
                          for a in logical_spec(*logical_axes)):
         return x
+    exit_ = stream_exit if seq_parallel() else (lambda v: _Exit.apply(v, tp[0]))
     b = _BOUNDARY[0]
     if b is None:
-        return _Exit.apply(x, tp[0])
+        return exit_(x)
     if b.replay:
         b.i += 1
-        return _Replay.apply(x, b.saved[b.i - 1])
-    y = _Exit.apply(x, tp[0])
+        return _Replay.apply(x, b.saved[b.i - 1],
+                             tp[0] if seq_parallel() else None)
+    y = exit_(x)
     b.saved.append(y.detach())
     return y
 
 
 class _Replay(torch.autograd.Function):
-    """A row-parallel exit's kept result in place of its all-reduce."""
+    """A row-parallel exit's kept result in place of its all-reduce (or
+    reduce-scatter: `group` given, and the backward all-gathers, as the
+    exit's does)."""
 
     @staticmethod
-    def forward(ctx, x, kept):
+    def forward(ctx, x, kept, group):
+        ctx.group, ctx.t = group, x.shape[1]
         return kept.clone()
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        if ctx.group is not None:
+            grad = _gather_rows(grad, ctx.group, ctx.t)
+        return grad, None, None
 
 
 class _Boundary:
@@ -329,8 +522,9 @@ def checkpoint_tp_boundary(fn, *args):
     """`fn(*args)` (a layer) under activation checkpointing that keeps only
     the outputs of its row-parallel exits (the reference's
     remat="tp_boundary", which saves its "tp_out" names): the backward pass
-    recomputes the layer from its inputs, each exit taking its kept result,
-    so no forward all-reduce runs twice.  Without a model axis there is no
+    recomputes the layer from its inputs, each exit taking its kept result
+    (under sequence parallelism the reduce-scattered slice), so no forward
+    all-reduce or reduce-scatter runs twice.  Without a model axis there is no
     exit and this is full recomputation."""
     b = _Boundary()
 
@@ -391,6 +585,8 @@ __all__ = [
     "flat_buffer_specs",
     "use_sharding_rules", "current_rules", "logical_spec", "maybe_shard",
     "model_axis", "model_size", "tp_enter", "tp_reduce", "tp_max", "tp_gather", "TP_STATS",
+    "reset_tp_stats", "seq_parallel", "stream_length",
+    "stream_enter", "stream_exit", "stream_gather", "stream_scatter",
     "checkpoint_tp_boundary",
     "shard_bucket", "shard_flat_buffers", "gather_flat_buffers",
 ]

@@ -82,7 +82,8 @@ from repro_torch.distributed.params import (
     gather_tree, map_specs, model_roles, param_pspecs, shard_tree, strip_spec)
 from repro_torch.distributed.sharding import (
     DEFAULT_RULES, MULTIPOD_RULES, flat_buffer_specs, gather_flat_buffers,
-    manual_data_rules, shard_bucket, shard_flat_buffers, use_sharding_rules)
+    manual_data_rules, shard_bucket, shard_flat_buffers, use_sharding_rules,
+    with_sequence_parallel)
 from repro_torch.launch.mesh import (
     MODEL, data_axes, num_workers, psum, worker_index)
 from repro_torch.optim.adamw import (
@@ -146,18 +147,25 @@ class _Grid:
     """A step's view of its mesh: J, j and the data group; M, m and the
     model group; the rules the model runs under; the specs that cut whole
     leaves into this rank's tensor-parallel slices, and each leaf's part
-    under the model axis (`params.model_roles`)."""
+    under the model axis (`params.model_roles`).  `sequence_parallel`: the
+    rules put the residual stream's sequence on the model axis (the
+    reference's `with_sequence_parallel`), and the stream's norms are
+    "partial"."""
 
-    def __init__(self, mesh, params_like, model_specs, manual: bool):
+    def __init__(self, mesh, params_like, model_specs, manual: bool,
+                 sequence_parallel: bool = False):
         self.mesh = mesh
         self.J, self.idx = num_workers(mesh), worker_index(mesh)
         self.m = mesh.model_index
         self.dg, self.mg = mesh.data_group, mesh.model_group
         self.daxes = data_axes(mesh)
         base = MULTIPOD_RULES if "pod" in mesh.axis_names else DEFAULT_RULES
+        if sequence_parallel:
+            base = with_sequence_parallel(base)
         self.rules = manual_data_rules(base, self.daxes) if manual else base
         self.model_specs = model_specs
-        roles = tree_flatten(model_roles(params_like, model_specs))[0]
+        roles = tree_flatten(model_roles(params_like, model_specs,
+                                         sequence_parallel))[0]
         self.partial = [r == "partial" for r in roles]
         self.once_mask = [r == "sharded" or self.m == 0 for r in roles]
         self.copies = [r == "replicated" and self.m != 0 for r in roles]
@@ -204,7 +212,8 @@ class _Grid:
                     slot.offset:slot.offset + slot.size].zero_()
 
 
-def _tp_grid(mesh, params_like, *, fsdp: bool, manual: bool):
+def _tp_grid(mesh, params_like, *, fsdp: bool, manual: bool,
+             sequence_parallel: bool = False):
     """(the step's `_Grid`, the specs its tree params rest in), or None
     where the mesh adds nothing to the single-axis step (no mesh; FSDP-Norm
     with no model axis; ACCUM-NORM on one rank)."""
@@ -217,7 +226,8 @@ def _tp_grid(mesh, params_like, *, fsdp: bool, manual: bool):
         return None
     specs = param_pspecs(params_like, mesh, fsdp=fsdp)
     model_specs = map_specs(lambda sp: strip_spec(sp, data_axes(mesh)), specs)
-    return _Grid(mesh, params_like, model_specs, manual), specs
+    return _Grid(mesh, params_like, model_specs, manual,
+                 sequence_parallel), specs
 
 
 def _contiguous_copy(tree):
@@ -278,7 +288,8 @@ def _sharded_buffer_update(pb_local, gb, opt_state, opt_cfg, lr,
 def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
                         variance_impl: str = "scalar",
                         stats_impl: str = "tree", params_impl: str = "tree",
-                        params_like=None, device=None, mesh=None):
+                        sequence_parallel: bool = False, params_like=None,
+                        device=None, mesh=None):
     """Build the FSDP-Norm step of this rank (every rank builds and calls
     it in lockstep).  Workers: the `mesh`'s data coordinates (J =
     `num_workers(mesh)`, j = `worker_index(mesh)`); no mesh: the process
@@ -304,7 +315,14 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
     takes its own slice.  Metrics are 0-d f32 tensors, equal on every
     rank.  `params_like` is the whole tree; without it the step is built
     from `model.init(0, device)`: on the CUDA card unless `device` names
-    another, and it raises without one."""
+    another, and it raises without one.
+
+    sequence_parallel: the residual stream between TP regions holds this
+    rank's slice of the sequence (the reference's `with_sequence_parallel`
+    rules; `distributed/sharding.py`): each TP exit reduce-scatters and
+    each entry all-gathers, and the stream's norms run on the slice, their
+    gradients summed over the model group.  Nothing changes without a
+    model axis."""
     _check_impls(stats_impl, params_impl)
     if variance_impl not in ("scalar", "paper"):
         raise ValueError(f"variance_impl must be 'scalar' or 'paper', got "
@@ -321,7 +339,8 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
     if device is None:
         device = tree_flatten(params_like)[0][0].device
     device = torch.device(device)
-    grid = _tp_grid(mesh, params_like, fsdp=False, manual=True)
+    grid = _tp_grid(mesh, params_like, fsdp=False, manual=True,
+                    sequence_parallel=sequence_parallel)
     J, idx = num_workers(mesh), worker_index(mesh)
     dg = None if mesh is None else mesh.data_group
     if grid is not None:

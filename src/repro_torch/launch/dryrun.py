@@ -5,13 +5,16 @@ traced with no allocation, and what it costs (counterpart of
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b \\
         --shape train_4k [--multi-pod] [--out experiments/dryrun_torch]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes \\
-        [--jobs 8]
+        [--jobs 8] [--seqpar]
 
 `lower_combo` joins a fake process group of 256 (16 × 16) or 512
 (2 × 16 × 16) ranks as rank 0 (`launch/mesh.py::init_fake_workers`),
 builds the mesh, the model and the step as a real rank does — the
-FSDP-Norm or ACCUM-NORM step with the flat residencies, the prefill, or
-the decode step — makes the rank's parameters, optimizer state and
+FSDP-Norm or ACCUM-NORM step with the flat residencies (`--seqpar`: the
+FSDP-Norm step with sequence parallelism, as in the reference; the other
+steps and shapes ignore it, and the record's `seqpar` says whether it
+applied), the prefill, or the decode step — makes the rank's parameters,
+optimizer state and
 inputs under `FakeTensorMode`, and runs the step once.  Fake tensors
 carry shapes, dtypes and devices and no storage, so nothing is
 allocated; the fake group's collectives move nothing.  The kernels are
@@ -286,18 +289,20 @@ def spec_bytes(like, specs, mesh) -> int:
 
 
 def trace_train(cfg, batch_like, mesh, device, *, step_impl="fsdp_norm",
-                variance_impl="scalar"):
+                variance_impl="scalar", seqpar=False):
     """Trace one training step of this rank, flat stats and params, on
     the GLOBAL batch `batch_like` (meta tensors, (M, B, ...) leaves);
     returns (trace, the bytes of its parameter shards from the specs).
-    `mesh` None: one rank."""
+    `mesh` None: one rank.  `seqpar`: FSDP-Norm with sequence
+    parallelism."""
     model = build_model(cfg)
     like = model.init(device="meta")
     opt_cfg = AdamWConfig()
     if step_impl == "fsdp_norm":
         wrap = make_fsdp_norm_step(model, opt_cfg, variance_impl=variance_impl,
                                    stats_impl="flat", params_impl="flat",
-                                   params_like=like, device=device, mesh=mesh)
+                                   sequence_parallel=seqpar, params_like=like,
+                                   device=device, mesh=mesh)
     elif step_impl == "accum_norm":
         wrap = make_accum_norm_step(model, opt_cfg, stats_impl="flat",
                                     params_impl="flat", params_like=like,
@@ -405,13 +410,13 @@ def resolve_trace_device(device: str) -> torch.device:
 
 
 def trace_combo(cfg, shape, mesh, device, *, step_impl="fsdp_norm", accum=1,
-                variance_impl="scalar"):
+                variance_impl="scalar", seqpar=False):
     """Trace one (config, input shape) on `mesh`: (trace, parameter bytes
     from the specs)."""
     specs = input_specs(cfg, shape.name, accum=accum)
     if shape.kind == "train":
         return trace_train(cfg, specs, mesh, device, step_impl=step_impl,
-                           variance_impl=variance_impl)
+                           variance_impl=variance_impl, seqpar=seqpar)
     if shape.kind == "prefill":
         return trace_prefill(cfg, specs, mesh, device)
     return trace_decode(cfg, specs, mesh, device, shape.seq_len - 1)
@@ -423,19 +428,18 @@ def lower_combo(arch: str, shape_name: str, multi_pod: bool,
                 seqpar: bool = False, bucket_ladder: str = "",
                 device: str = "cuda"):
     """Trace one combination as rank 0 of a fake 256- or 512-rank group;
-    returns (trace, record)."""
-    if seqpar:
-        raise NotImplementedError(
-            "--seqpar: sequence parallelism in the port's FSDP-Norm step is "
-            "not ported (ROADMAP §1 item 9)")
+    returns (trace, record).  `seqpar` applies to FSDP-Norm train shapes
+    only, as in the reference; the record says whether it applied."""
     device = resolve_trace_device(device)
     cfg = dryrun_config(arch, remat=remat)
     shape = INPUT_SHAPES[shape_name]
+    seqpar = seqpar and shape.kind == "train" and step_impl == "fsdp_norm"
     init_fake_workers(512 if multi_pod else 256)
     try:
         mesh = make_production_mesh(multi_pod=multi_pod)
         n_dev = mesh.size
-        kw = dict(step_impl=step_impl, variance_impl=variance_impl)
+        kw = dict(step_impl=step_impl, variance_impl=variance_impl,
+                  seqpar=seqpar)
         tr, expected = trace_combo(cfg, shape, mesh, device, accum=accum, **kw)
         ladder_rec = {}
         if bucket_ladder and shape.kind == "train":
@@ -458,6 +462,7 @@ def lower_combo(arch: str, shape_name: str, multi_pod: bool,
         "shape": shape_name,
         "mesh": "2x16x16" if multi_pod else "16x16",
         "step_impl": step_impl if shape.kind == "train" else shape.kind,
+        "seqpar": seqpar,
         "devices": n_dev,
         "workers_J": workers,
         "device": str(device),
@@ -488,6 +493,8 @@ def _tag(arch: str, shape_name: str, multi_pod: bool, args) -> str:
     tag = f"{arch}__{shape_name}__{'2x16x16' if multi_pod else '16x16'}"
     if args.step_impl != "fsdp_norm":
         tag += f"__{args.step_impl}"
+    if args.seqpar:
+        tag += "__seqpar"
     if args.tag:
         tag += f"__{args.tag}"
     return tag
@@ -521,8 +528,10 @@ def summarize(out_dir: str) -> str:
     step) and a column per input shape; a cell holds each mesh's peak GB
     a rank (✗ past the card's memory), the bottleneck and the trace
     seconds, then, on 16 × 16, TFLOP · GB accessed · wire GB a rank
-    (all-reduce + all-gather, + the other kinds where there are any).
-    The `.fail` files are listed."""
+    (all-reduce + all-gather, + the other kinds where there are any).  A
+    row's step carries "seqpar" where sequence parallelism applied (train
+    shapes; the other shapes' records are the same without it).  The
+    `.fail` files are listed."""
     recs = {}
     names = sorted(os.listdir(out_dir))
     for name in names:
@@ -531,6 +540,8 @@ def summarize(out_dir: str) -> str:
                 rec = json.load(f)
             row = rec["arch"] + (f" ({rec['step_impl']})"
                                  if rec["step_impl"] == "accum_norm" else "")
+            if rec["shape"].startswith("train") and rec.get("seqpar"):
+                row += " (seqpar)"
             recs.setdefault(row, {})[(rec["shape"], rec["mesh"])] = rec
 
     def cell(by, sh):

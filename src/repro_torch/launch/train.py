@@ -80,7 +80,7 @@ from repro_torch.distributed.engine import BucketedEngine
 from repro_torch.distributed.flatbuf import FlatLayout
 from repro_torch.distributed.params import gather_tree, shard_tree
 from repro_torch.distributed.sharding import (
-    TP_STATS, gather_flat_buffers, shard_flat_buffers)
+    TP_STATS, gather_flat_buffers, reset_tp_stats, shard_flat_buffers)
 from repro_torch.distributed.train_step import (
     batch_to_device, make_accum_norm_step, make_fsdp_norm_step)
 from repro_torch.kernels.ops import launch_counts
@@ -341,7 +341,7 @@ def _train(job: TrainJob) -> dict:
     cfg = get_smoke_config(job.arch) if job.smoke else get_config(job.arch)
     model = build_model(cfg)
     params = model.init(job.seed, device)
-    TP_STATS.update(calls=0, seconds=0.0)
+    reset_tp_stats()
 
     opt_cfg = AdamWConfig(lr=job.peak_lr, weight_decay=job.weight_decay,
                           grad_clip=job.grad_clip)

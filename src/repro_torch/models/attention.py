@@ -39,6 +39,12 @@ cache in that layout, one of three cases:
     in it; every head's partial softmax over the slice (the q heads
     all-gathered) is combined over the model group (`sharded_softmax`),
     and the rank keeps its own heads' output.
+
+Under sequence parallelism (training) x is this rank's slice of the
+stream: it enters through `stream_enter` (the slices all-gathered, so q,
+k and v see every position) and leaves through the exit's reduce-scatter;
+cross-attention's source is the encoder's whole output.  Whole leaves run
+on the gathered rows and the rank keeps its slice of the result.
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import (
-    maybe_shard, model_axis, model_size, tp_enter, tp_gather, tp_max, tp_reduce)
+    maybe_shard, model_axis, model_size, stream_enter, stream_gather,
+    stream_scatter, tp_enter, tp_gather, tp_max, tp_reduce)
 from repro_torch.kernels import ops
 from repro_torch.models.common import normal_init
 from repro_torch.models.embeddings import apply_rope
@@ -203,8 +210,7 @@ def attend_full(params, x, positions, *, rope_theta, softcap=0.0, window=0,
     cache.  `num_heads` / `num_kv_heads` are the config's: leaves with
     fewer heads are this rank's shard (module docstring)."""
     shard = _tp_heads(params, num_heads)
-    if shard is not None:
-        x = tp_enter(x)
+    x = stream_gather(x) if shard is None else stream_enter(x)
     q, k, v = _project_qkv(params, x, positions, rope_theta, qk_norm)
     kv = (k, v)                       # the cache: kv heads as the rank holds them
     if shard is not None:
@@ -219,8 +225,8 @@ def attend_full(params, x, positions, *, rope_theta, softcap=0.0, window=0,
                                   window=window if causal else 0,
                                   softcap=softcap, plain=plain)
     out = torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
-    if shard is not None:
-        out = maybe_shard(out, "batch", "seq", "embed")
+    out = (stream_scatter(out) if shard is None
+           else maybe_shard(out, "batch", "seq", "embed"))
     return (out, *kv) if return_kv else out
 
 
@@ -229,10 +235,10 @@ def cross_attend(params, x, kv_source, *, softcap=0.0, num_heads=None,
     """Encoder-decoder cross-attention, non-causal; kv_source is either
     encoder hidden states (b, s, d) or a precomputed {"k", "v"}.  On the
     card with grad mode off it runs the flash-attention kernel.  Sharded
-    leaves as in `attend_full` (the encoder states enter like x)."""
+    leaves as in `attend_full` (the encoder states, whole, enter through
+    `tp_enter`)."""
     shard = _tp_heads(params, num_heads)
-    if shard is not None:
-        x = tp_enter(x)
+    x = stream_gather(x) if shard is None else stream_enter(x)
     q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(x.dtype))
     if isinstance(kv_source, dict):
         k, v = kv_source["k"].to(x.dtype), kv_source["v"].to(x.dtype)
@@ -248,7 +254,8 @@ def cross_attend(params, x, kv_source, *, softcap=0.0, num_heads=None,
         out = ops.flash_attention(q, k, v, causal=False, softcap=softcap,
                                   plain=lambda: _sdpa(q, k, v, None, softcap))
     out = torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
-    return out if shard is None else maybe_shard(out, "batch", "seq", "embed")
+    return (stream_scatter(out) if shard is None
+            else maybe_shard(out, "batch", "seq", "embed"))
 
 
 def precompute_cross_kv(params, enc_out):

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import stream_length
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import rglru as rglru_lib
@@ -77,7 +78,16 @@ def block_full(params, x, positions, cfg: ModelConfig, kind: str,
     dense layer); cache, when `collect_cache`, is the layer's decode cache
     of length t — post-RoPE {"k", "v"}, or MLA's {"c_kv", "k_rope"}; None
     for a recurrent layer, whose prefill state the reference does not
-    collect either — else None."""
+    collect either — else None.  Under sequence parallelism x and the
+    result are this rank's slice of the stream, whose true length is
+    `positions`' (`distributed/sharding.py`)."""
+    with stream_length(positions.shape[-1]):
+        return _block_full(params, x, positions, cfg, kind, moe_layer, causal,
+                           collect_cache)
+
+
+def _block_full(params, x, positions, cfg, kind, moe_layer, causal,
+                collect_cache):
     h = apply_norm(params["pre_norm"], x, cfg.norm_kind)
     cache = None
     if kind == RGLRU:
@@ -159,10 +169,14 @@ def block_decode(params, x, cache, pos, cfg: ModelConfig, kind: str,
 def _block_tail(params, x, mixed, cfg: ModelConfig, kind: str, moe_layer: bool,
                 capacity_factor):
     """Post-mixer norm, residual, dense MLP or MoE (with its norms; none
-    after an SSD mixer), residual.  Returns (x, aux)."""
+    after an SSD mixer), residual.  Returns (x, aux).  Under sequence
+    parallelism every step here runs on this rank's slice of the stream:
+    the mixer and the feed-forward leave through their reduce-scatters."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.post_attn_norm:
         mixed = apply_norm(params["post_norm"], mixed, cfg.norm_kind)
+    # the reference's first `act_seq` point (`maybe_shard(mixed, "batch",
+    # "act_seq", "embed")`): `mixed` is this rank's slice
     x = x + mixed
     if has_mlp(cfg, kind):
         h = apply_norm(params["mlp_norm"], x, cfg.norm_kind)
@@ -173,5 +187,6 @@ def _block_tail(params, x, mixed, cfg: ModelConfig, kind: str, moe_layer: bool,
             h = apply_mlp(params["mlp"], h, cfg.mlp_kind, d_ff=cfg.d_ff)
         if cfg.post_attn_norm:
             h = apply_norm(params["post_mlp_norm"], h, cfg.norm_kind)
+        # the reference's second `act_seq` point
         x = x + h
     return x, aux

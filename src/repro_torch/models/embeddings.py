@@ -5,7 +5,10 @@ Tensor parallelism: a `table` with fewer rows than the config's vocab is
 this rank's vocab shard (rows [m·n, (m+1)·n)).  The lookup is then
 vocab-parallel — each rank looks up the tokens in its rows, zeros for the
 rest, and the sum over the model group is every token's row — and the
-unembedding gives this rank's columns of the logits (`vocab_shard`)."""
+unembedding gives this rank's columns of the logits (`vocab_shard`).
+Under sequence parallelism (`sliced`) the lookup's sum is reduce-scattered
+instead: the residual stream is born as this rank's slice of the
+sequence."""
 
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import model_axis, tp_enter, tp_reduce
+from repro_torch.distributed.sharding import (
+    model_axis, stream_exit, stream_scatter, tp_enter, tp_reduce)
 from repro_torch.models.common import normal_init
 
 
@@ -32,16 +36,21 @@ def vocab_shard(table, vocab: int | None):
 
 
 def embed_tokens(params, tokens, scale: bool, d_model: int,
-                 vocab: int | None = None):
+                 vocab: int | None = None, sliced: bool = False):
+    """The tokens' rows (b, t, d); `sliced` (under sequence parallelism):
+    this rank's slice of the sequence."""
     shard = vocab_shard(params["table"], vocab)
     if shard is not None:
         v0, n = shard
         local = tokens.long() - v0
         inside = (local >= 0) & (local < n)
         x = F.embedding(local.clamp(0, n - 1), params["table"])
-        x = tp_reduce(x * inside[..., None].to(x.dtype))
+        x = x * inside[..., None].to(x.dtype)
+        x = stream_exit(x) if sliced else tp_reduce(x)
     else:
         x = _lookup(params["table"], tokens)
+        if sliced:
+            x = stream_scatter(x)
     if scale:
         x = x * torch.tensor(math.sqrt(d_model), dtype=x.dtype)
     return x
@@ -57,11 +66,13 @@ def _lookup(table, tokens):
     return F.embedding(tokens.long(), table)
 
 
-def unembed(params, x, tied_table=None, vocab: int | None = None):
+def unembed(params, x, tied_table=None, vocab: int | None = None,
+            entered: bool = False):
     """Project hidden states to vocab logits (tied or untied); a vocab
-    shard gives this rank's columns, x entering through `tp_enter`."""
+    shard gives this rank's columns, x entering through `tp_enter` unless
+    it has `entered` already (the sequence-parallel gather)."""
     table = tied_table if tied_table is not None else params["table"]
-    if vocab_shard(table, vocab) is not None:
+    if vocab_shard(table, vocab) is not None and not entered:
         x = tp_enter(x)
     return torch.einsum("...d,vd->...v", x, table.to(x.dtype))
 

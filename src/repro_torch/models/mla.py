@@ -25,6 +25,12 @@ rank holds whole (the latents come from replicated leaves), or, from
 head's partial softmax over the slice (the absorbed queries all-gathered)
 is combined over the group (`attention.sharded_softmax`), as attention's
 case (c).
+
+Under sequence parallelism (training) the latent projections and their
+norms need whole rows: x is all-gathered whole at the entry
+(`stream_gather`, whose backward takes this rank's slice of a gradient
+that `tp_enter` has already made the same on every rank), and the exit
+reduce-scatters into this rank's slice of the stream.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import (
-    maybe_shard, model_axis, model_size, tp_enter, tp_gather, tp_reduce)
+    maybe_shard, model_axis, model_size, stream_gather, stream_scatter,
+    tp_enter, tp_gather, tp_reduce)
 from repro_torch.models.attention import (
     NEG_INF, causal_mask, sharded_softmax, write_positions)
 from repro_torch.models.common import normal_init
@@ -123,6 +130,7 @@ def mla_full(params, x, positions, m: MLAConfig, causal: bool = True,
     With `return_latents` it returns (out, c_kv, k_rope) — the prefill
     cache.  `num_heads` is the config's: leaves with fewer heads are this
     rank's shard (module docstring)."""
+    x = stream_gather(x)
     b, t, _ = x.shape
     tp = model_axis()
     h = params["w_uk"].shape[1]
@@ -146,8 +154,8 @@ def mla_full(params, x, positions, m: MLAConfig, causal: bool = True,
     else:
         out = _mla_attend(q_nope, q_rope, k_nope, k_rope, v, m, causal)
     out = torch.einsum("bthv,hvd->btd", out, params["w_o"].to(x.dtype))
-    if shard is not None:
-        out = maybe_shard(out, "batch", "seq", "embed")
+    out = (stream_scatter(out) if shard is None
+           else maybe_shard(out, "batch", "seq", "embed"))
     return (out, *cache) if return_latents else out
 
 

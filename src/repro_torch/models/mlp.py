@@ -3,15 +3,19 @@
 
 Tensor parallelism: when `w_up` holds fewer columns than the config's
 `d_ff`, the leaves are this rank's ffn shard; the input enters through
-`tp_enter` and `w_down`'s partial sum is made whole by `maybe_shard` at
-the reference's exit."""
+`stream_enter` and `w_down`'s partial sum is made whole by `maybe_shard`
+at the reference's exit (under sequence parallelism: the stream's slices
+all-gathered at the entry, the sum reduce-scattered at the exit).  Whole
+leaves on a sequence-parallel stream run on the gathered rows, and the
+rank keeps its slice of the result."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import maybe_shard, model_axis, tp_enter
+from repro_torch.distributed.sharding import (
+    maybe_shard, model_axis, stream_enter, stream_gather, stream_scatter)
 from repro_torch.models.common import normal_init
 
 
@@ -38,8 +42,7 @@ def _gelu(x):
 def apply_mlp(params, x, kind: str, d_ff: int | None = None):
     sharded = (d_ff is not None and params["w_up"].shape[1] != d_ff
                and model_axis() is not None)
-    if sharded:
-        x = tp_enter(x)
+    x = stream_enter(x) if sharded else stream_gather(x)
     if kind in ("swiglu", "geglu"):
         gate = torch.einsum("btd,df->btf", x, params["w_gate"].to(x.dtype))
         up = torch.einsum("btd,df->btf", x, params["w_up"].to(x.dtype))
@@ -54,4 +57,5 @@ def apply_mlp(params, x, kind: str, d_ff: int | None = None):
         else:
             raise ValueError(kind)
     out = torch.einsum("btf,fd->btd", h, params["w_down"].to(x.dtype))
-    return maybe_shard(out, "batch", "seq", "embed") if sharded else out
+    return (maybe_shard(out, "batch", "seq", "embed") if sharded
+            else stream_scatter(out))

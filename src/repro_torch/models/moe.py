@@ -38,6 +38,13 @@ gradient then comes out whole ("replicated"); likewise x reaches the
 router as it is, and the experts through `tp_enter`.  DeepSeek-V2's shared
 experts are a dense SwiGLU: column/row parallel when their leaves are
 slices, their partial sum joining the experts' before the one exit.
+
+Under sequence parallelism (training) the router, the per-row capacity
+dispatch and the aux loss need every token of a row: x is all-gathered
+whole first (`stream_gather`: the gradient reaching it is the same on
+every rank, the router's whole and the experts' summed by `tp_enter`),
+and the exit reduce-scatters into this rank's slice of the stream; a
+whole part added after the exit is cut to that slice.
 """
 
 from __future__ import annotations
@@ -45,7 +52,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import maybe_shard, model_axis, tp_enter
+from repro_torch.distributed.sharding import (
+    maybe_shard, model_axis, stream_gather, stream_scatter, tp_enter)
 from repro_torch.models.common import normal_init
 from repro_torch.models.config import MoEConfig
 
@@ -152,6 +160,7 @@ def moe_apply(params, x, m: MoEConfig, *, capacity_factor: float | None = None,
     capacity C = factor·t·top_k/E per row; aux is the mean over rows.
     Expert and shared leaves that are this rank's slices run tensor-parallel
     (module docstring)."""
+    x = stream_gather(x)
     b, n, d = x.shape
     dt = x.dtype
     tp = model_axis()
@@ -192,6 +201,8 @@ def moe_apply(params, x, m: MoEConfig, *, capacity_factor: float | None = None,
             y, whole = ys, y
     if experts_tp or shared_tp:
         y = maybe_shard(y, "batch", "seq", "embed")
+    else:
+        y = stream_scatter(y)
     if whole is not None:
-        y = y + whole
+        y = y + stream_scatter(whole)
     return y, r["aux"].mean()

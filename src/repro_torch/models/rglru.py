@@ -29,6 +29,9 @@ vectors that the rank applies to its own columns only, so each rank's
 gradient of them is zero off its columns: "partial", summed over the model
 group by the step (`params.model_roles`).  Decode runs the same split on
 one token, its `h` and `conv` state the rank's columns (`cache_pspecs`).
+Under sequence parallelism (training) x enters through `stream_enter`
+(the conv and the scan see the whole sequence) and the exit
+reduce-scatters into this rank's slice of the stream.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (
-    maybe_shard, model_axis, tp_enter, tp_gather)
+    maybe_shard, model_axis, stream_enter, stream_gather, stream_scatter,
+    tp_enter, tp_gather)
 from repro_torch.models.common import normal_init, zeros_init
 from repro_torch.models.config import RGLRUConfig
 
@@ -108,8 +112,7 @@ def rglru_block(params, x, r: RGLRUConfig):
     w = params["w_branch_b"].shape[1]
     tp = tp if tp is not None and w != (r.lru_width or x.shape[-1]) else None
     cols = slice(None) if tp is None else slice(tp[1] * w, (tp[1] + 1) * w)
-    if tp is not None:
-        x = tp_enter(x)
+    x = stream_gather(x) if tp is None else stream_enter(x)
     branch_a = _gelu(torch.einsum("btd,dw->btw", x, params["w_branch_a"].to(x.dtype)))
     u = torch.einsum("btd,dw->btw", x, params["w_branch_b"].to(x.dtype))
     u = _causal_conv(u, params["conv_w"].to(x.dtype), params["conv_b"][cols].to(x.dtype))
@@ -117,7 +120,8 @@ def rglru_block(params, x, r: RGLRUConfig):
                    x_in=None if tp is None else tp_enter(tp_gather(u, -1)), cols=cols)
     h = rglru_scan(a, bx).to(x.dtype)
     out = torch.einsum("btw,wd->btd", branch_a * h, params["w_out"].to(x.dtype))
-    return out if tp is None else maybe_shard(out, "batch", "seq", "embed")
+    return (stream_scatter(out) if tp is None
+            else maybe_shard(out, "batch", "seq", "embed"))
 
 
 def init_rglru_state(batch: int, d_model: int, r: RGLRUConfig, dtype, device):

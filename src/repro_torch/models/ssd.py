@@ -23,7 +23,11 @@ of a gradient every rank computes the same) and runs whole on every rank,
 so it computes what one process does, to the bit: its gradients of the
 whole leaves are whole on every rank ("replicated"), the cut leaves' the
 rank's slices ("sharded"), and no activation crosses the model group.
-Right rather than fast: each rank repeats the block's work.  Splitting
+Right rather than fast: each rank repeats the block's work.  Under
+sequence parallelism (training) the chunked scan needs the whole
+sequence: the stream's slices are all-gathered at the block's entry
+(`stream_gather`) and the rank keeps its slice of the output
+(`stream_scatter`).  Splitting
 the work instead (the projection's columns gathered, y's rows through
 `w_out` summed at the exit) rounds the projection in another order, and
 the scan's decay gradients, sums with much cancellation over a sequence,
@@ -44,7 +48,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import maybe_shard, model_axis, tp_gather
+from repro_torch.distributed.sharding import (
+    maybe_shard, model_axis, stream_gather, stream_scatter, tp_gather)
 from repro_torch.models.common import normal_init, ones_init, zeros_init
 from repro_torch.models.config import SSMConfig
 
@@ -105,6 +110,7 @@ def _gated_out(params, y, z, x_dtype):
 def ssd_block(params, x, s: SSMConfig):
     """Chunked SSD over a full sequence.  x: (b, t, d); t must be a multiple
     of `s.chunk_size`, as in the reference."""
+    x = stream_gather(x)
     b, t, d_model = x.shape
     z, xbc, dt_raw, di, nh = _split_proj(params, x, s, d_model)
     conv_w = _whole(params["conv_w"], 1, xbc.shape[-1])
@@ -162,7 +168,7 @@ def ssd_block(params, x, s: SSMConfig):
 
     y = (y_intra + y_inter).reshape(b, t, nh, p)
     y = y + params["d_skip"][None, None, :, None] * xs.float()
-    return _gated_out(params, y.reshape(b, t, di), z, x.dtype)
+    return stream_scatter(_gated_out(params, y.reshape(b, t, di), z, x.dtype))
 
 
 def init_ssd_state(batch: int, d_model: int, s: SSMConfig, dtype, device):

@@ -31,6 +31,14 @@ all-gathered, `tp_gather`), so the greedy pick is the reference's, and
 prefill's caches come out in `cache_pspecs`'s layout (attention's kv heads
 as the rank holds them, a long cache's positions and MLA's long latents
 the rank's slice of them).
+
+Sequence parallelism (training under `with_sequence_parallel` rules): the
+stream is built whole — the vision prefix concatenated, the position
+terms added — and then cut to this rank's slice of the sequence, or born
+as that slice by the vocab-parallel lookup's reduce-scatter; Whisper's
+encoder input likewise, its output gathered whole for every layer's
+cross-attention.  The blocks and the final norm run on the slice, and the
+cross-entropy gathers it back into whole rows.
 """
 
 from __future__ import annotations
@@ -40,7 +48,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.params import seq_sharded
 from repro_torch.distributed.sharding import (
-    checkpoint_tp_boundary, model_axis, model_size, tp_gather, tp_max, tp_reduce)
+    checkpoint_tp_boundary, model_axis, model_size, seq_parallel, stream_enter,
+    stream_gather, stream_length, stream_scatter, tp_gather, tp_max, tp_reduce)
 from repro_torch.models import blocks as blk
 from repro_torch.models.attention import (
     cross_attend, init_attention, precompute_cross_kv)
@@ -109,14 +118,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
 
 def encode(params, frames, cfg: ModelConfig):
     """Whisper-style encoder over stub frame embeddings (b, nf, d):
-    sinusoidal positions, non-causal attention layers, a final norm."""
+    sinusoidal positions, non-causal attention layers, a final norm.  Under
+    sequence parallelism the layers and the norm run on this rank's slice
+    of the frames, and the output is gathered whole."""
     b, nf = frames.shape[:2]
     x = frames + sinusoidal_positions(nf, cfg.d_model, frames.dtype,
                                       frames.device)[None]
+    x = stream_scatter(x)
     positions = torch.arange(nf, device=frames.device).expand(b, nf)
     for p in params["encoder"]["blocks"]:
         x = blk.block_full(p, x, positions, cfg, ATTN, False, causal=False)[0]
-    return apply_norm(params["encoder"]["final_norm"], x, cfg.norm_kind)
+    with stream_length(nf):
+        return stream_gather(apply_norm(params["encoder"]["final_norm"], x,
+                                        cfg.norm_kind))
 
 
 # ----------------------------------------------------------------- stack ----
@@ -130,8 +144,9 @@ def _apply_cross(p, x, enc, cfg):
 
 
 def _block(p, x, positions, enc, cfg, kind, moe_layer):
-    x, a, _ = blk.block_full(p, x, positions, cfg, kind, moe_layer)
-    return _apply_cross(p, x, enc, cfg), a
+    with stream_length(positions.shape[-1]):
+        x, a, _ = blk.block_full(p, x, positions, cfg, kind, moe_layer)
+        return _apply_cross(p, x, enc, cfg), a
 
 
 def run_stack(params, x, positions, cfg: ModelConfig, enc=None,
@@ -173,11 +188,13 @@ def _unembed_table(params, cfg: ModelConfig):
     return (params["embed"] if cfg.tie_embeddings else params["unembed"])["table"]
 
 
-def _logits(params, hidden, cfg: ModelConfig):
-    """Logits; under a vocab-sharded table this rank's columns."""
+def _logits(params, hidden, cfg: ModelConfig, entered: bool = False):
+    """Logits; under a vocab-sharded table this rank's columns (`entered`:
+    `hidden` has passed the sequence-parallel entry already)."""
     tied = params["embed"]["table"] if cfg.tie_embeddings else None
     src = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    logits = unembed(src, hidden, tied_table=tied, vocab=cfg.vocab_size)
+    logits = unembed(src, hidden, tied_table=tied, vocab=cfg.vocab_size,
+                     entered=entered)
     if cfg.final_logit_softcap > 0:
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)
@@ -214,20 +231,28 @@ def _xent_vocab_parallel(logits, labels, v0: int):
 
 def token_loss(params, hidden, labels, cfg: ModelConfig):
     """Masked mean cross-entropy, chunked over the sequence axis when
-    `cfg.xent_chunk` divides it."""
+    `cfg.xent_chunk` divides it.  Under sequence parallelism `hidden` is
+    this rank's slice of the stream, gathered here into whole rows: the
+    vocab-parallel unembedding's entry (`stream_enter`), or, with a whole
+    table, `stream_gather`."""
     shard = vocab_shard(_unembed_table(params, cfg), cfg.vocab_size)
     if shard is None:
         xent = _xent
     else:
         xent = lambda logits, lab: _xent_vocab_parallel(logits, lab, shard[0])
+    entered = seq_parallel()
+    if entered:
+        with stream_length(labels.shape[1]):
+            hidden = (stream_gather(hidden) if shard is None
+                      else stream_enter(hidden))
     chunk = cfg.xent_chunk
     t = hidden.shape[1]
     if chunk <= 0 or t <= chunk or t % chunk != 0:
-        s, c = xent(_logits(params, hidden, cfg), labels)
+        s, c = xent(_logits(params, hidden, cfg, entered), labels)
         return s / torch.clamp(c, min=1)
 
     def body(hc, lc):
-        return xent(_logits(params, hc, cfg), lc)
+        return xent(_logits(params, hc, cfg, entered), lc)
 
     s = torch.zeros((), dtype=torch.float32, device=hidden.device)
     c = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -242,9 +267,9 @@ def token_loss(params, hidden, labels, cfg: ModelConfig):
 
 # ------------------------------------------------------------- model API ----
 
-def _embed(params, tokens, cfg: ModelConfig):
+def _embed(params, tokens, cfg: ModelConfig, sliced: bool = False):
     x = embed_tokens(params["embed"], tokens, cfg.scale_embed, cfg.d_model,
-                     vocab=cfg.vocab_size)
+                     vocab=cfg.vocab_size, sliced=sliced)
     return x.to(cfg.act_dtype)
 
 
@@ -252,19 +277,26 @@ def _assemble_inputs(params, batch, cfg: ModelConfig):
     """Embed the tokens and any stub-frontend input: a vision config's
     `patch_embeds` (b, np, d) go before the text; an audio config's
     `frames` (b, nf, d) go through the encoder.  Returns (x, positions,
-    label_offset, enc)."""
-    x = _embed(params, batch["tokens"], cfg)
+    label_offset, enc).  Under sequence parallelism x is this rank's slice
+    of the stream (module docstring); positions stay whole."""
+    tokens = batch["tokens"]
+    vision = cfg.frontend.kind == "vision_stub"
+    sp = seq_parallel()
+    x = _embed(params, tokens, cfg, sliced=sp and not vision)
     enc = None
     offset = 0
-    if cfg.frontend.kind == "vision_stub":
+    if vision:
         patches = batch["patch_embeds"].to(cfg.act_dtype)
         x = torch.cat([patches, x], dim=1)
         offset = patches.shape[1]
     elif cfg.frontend.kind == "audio_stub":
         enc = encode(params, batch["frames"].to(cfg.act_dtype), cfg)
-    b, t = x.shape[:2]
+    b, t = tokens.shape[0], tokens.shape[1] + offset
     if cfg.pos_embed == "sinusoidal":
-        x = x + sinusoidal_positions(t, cfg.d_model, x.dtype, x.device)[None]
+        pos = sinusoidal_positions(t, cfg.d_model, x.dtype, x.device)[None]
+        x = x + (stream_scatter(pos) if sp and not vision else pos)
+    if sp and vision:
+        x = stream_scatter(x)
     return x, torch.arange(t, device=x.device).expand(b, t), offset, enc
 
 

@@ -302,12 +302,22 @@ assert rl["flops"] > 0 and rl["hbm_bytes"] > 0 and rl["wire_bytes"] > 0
 assert rl["bottleneck"] in ("compute", "memory", "collective")
 assert mem["params_bytes"] == mem["param_spec_bytes"] > 0 and mem["fits"]
 assert rec["collectives"]["all-reduce"]["group_sizes"] == [16]
-try:
-    lower_combo("llama3.2-1b", "train_4k", multi_pod=False, device="cpu", seqpar=True)
-except NotImplementedError as e:
-    assert "ROADMAP" in str(e)
-else:
-    raise AssertionError("--seqpar traced")
+# --seqpar: FSDP-Norm train shapes only; the TP all-reduces of the model
+# groups become reduce-scatters and all-gathers, and the layers' inputs
+# kept for the backward pass are 1/16 of a sequence
+_, sp = lower_combo("llama3.2-1b", "train_4k", multi_pod=False, device="cpu", seqpar=True)
+_, whole = lower_combo("llama3.2-1b", "train_4k", multi_pod=False, device="cpu")
+_, dec = lower_combo("llama3.2-1b", "decode_32k", multi_pod=False, device="cpu", seqpar=True)
+assert sp["seqpar"] is True and whole["seqpar"] is False, (sp["seqpar"], whole["seqpar"])
+assert rec["seqpar"] is False and dec["seqpar"] is False
+rs, ag = sp["collectives"]["reduce-scatter"], sp["collectives"]["all-gather"]
+assert rs["count"] > 0 and set(rs["group_sizes"]) == {16}, rs
+assert whole["collectives"]["reduce-scatter"]["count"] == 0
+assert ag["count"] > whole["collectives"]["all-gather"]["count"] and set(ag["group_sizes"]) == {16}
+assert (sp["collectives"]["all-reduce"]["result_bytes"]
+        < whole["collectives"]["all-reduce"]["result_bytes"])
+assert sp["memory"]["peak_bytes"] < whole["memory"]["peak_bytes"], (
+    sp["memory"]["peak_bytes"], whole["memory"]["peak_bytes"])
 try:
     main(["--arch", "llama3.2-1b", "--shape", "decode_32k", "--out", %(out)r])
 except RuntimeError as e:
@@ -329,7 +339,9 @@ def test_lower_combo_and_main_write_the_record(subproc, tmp_path):
     """The reference's test_dryrun.py at full size on the CPU, in a
     subprocess (it joins a fake 256-rank group): the record's mesh and
     workers, non-zero cost, a bottleneck, parameter bytes equal to the
-    specs' slices; `--seqpar` refused; the CLI's record on disk with the
+    specs' slices; llama3.2-1b train_4k `--seqpar` (reduce-scatters and
+    more all-gathers on groups of 16, fewer all-reduce bytes, a lower peak
+    than without it, the record's flag; decode ignores it); the CLI's record on disk with the
     reference's keys, and the card's route refused by a torch with no CUDA
     build."""
     out = subproc(_LOWER % dict(out=str(tmp_path)), timeout=TIMEOUT_S)

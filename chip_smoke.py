@@ -1286,6 +1286,7 @@ def mesh_rank(runs, layers, root):
                         shutil.copy(os.path.join(src, f), job["checkpoint_dir"])
             if dist.is_initialized():
                 dist.barrier()
+            # repro: allow(unfenced-timing) — whole-run span; run_training materializes host floats every step, so the wall clock cannot run ahead of device work
             t0 = time.time()
             with recorded_kernel_calls(ops) as calls, recorded_flat_calls(ops) as flat:
                 hist = T.run_training(T.TrainJob(**job))
@@ -1343,6 +1344,7 @@ def mesh_phase(smi, ops, dev) -> tuple:
     import tempfile
     from repro_torch.launch.mesh import spawn_workers
 
+    # repro: allow(unfenced-timing) — phase wall clock; the phase ends in host reads of its results and joined child ranks, so no device work is left in flight
     t_phase = time.time()
     root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     L = MESH_LAYERS
@@ -1569,6 +1571,7 @@ def mesh_kinds_phase(smi, ops, dev) -> tuple:
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn_workers
 
+    # repro: allow(unfenced-timing) — phase wall clock; the phase ends in host reads of its results and joined child ranks, so no device work is left in flight
     t_phase = time.time()
     # the card as empty as this process can leave it: recurrentgemma's 1 x 1
     # run here peaks near 70 GB
@@ -1731,6 +1734,7 @@ def seqpar_phase(smi, ops, dev, trained=None) -> tuple:
     shapes)."""
     from repro_torch.launch.mesh import spawn_workers
 
+    # repro: allow(unfenced-timing) — phase wall clock; the phase ends in host reads of its results and joined child ranks, so no device work is left in flight
     t_phase = time.time()
     if trained is None:
         trained = {grid: spawn_workers(seqpar_train_rank, grid[0] * grid[1], grid,
@@ -1811,6 +1815,7 @@ def sm_prefill(ops, model, whole, mesh, dev) -> dict:
     dist.barrier()
     t0 = time.perf_counter()
     (logits, caches), launches, calls = sm_counted(ops, lambda: run(local, {"tokens": tokens}))
+    torch.cuda.synchronize(dev)
     ms = 1e3 * (time.perf_counter() - t0)
     like = model.init_cache(PREFILL_BATCH, PREFILL_LEN, device="meta")
     caches = gather_tree(caches, cache_pspecs(like, mesh, batch_divisible=True), mesh)
@@ -1974,6 +1979,7 @@ def sm_piece(ops, name, mesh, dev) -> dict:
     with use_sharding_rules(_serve_rules(mesh, b), mesh):
         (y, pre, outs, cache), launches, calls = sm_counted(
             ops, lambda: run(local, cache, start, seq))
+    torch.cuda.synchronize(dev)
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     cache = gather_tree([cache], specs, mesh)[0]
@@ -2068,6 +2074,7 @@ def serve_mesh_phase(smi, ops, dev) -> tuple:
     from repro_torch.launch.serve import run_continuous_serving, run_serving
     from repro_torch.models.model import build_model
 
+    # repro: allow(unfenced-timing) — phase wall clock; the phase ends in host reads of its results and joined child ranks, so no device work is left in flight
     t_phase = time.time()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2932,6 +2939,7 @@ def resume_accum(smi, ops, layout):
     full = T.get_config
     T.get_config = lambda arch: full(arch).replace(num_layers=RESUME_ACCUM_LAYERS)
     try:
+        # repro: allow(unfenced-timing) — whole-run span; run_training materializes host floats every step, so the wall clock cannot run ahead of device work
         t0 = time.time()
         ref = run_training(TrainJob(**RESUME_JOB, checkpoint_dir=f"{tmp}/ref"))
         ref = {k: ref[k] for k in ("loss", "global_batch", "samples", "var_l1",
@@ -3005,6 +3013,7 @@ def resume_fsdp_rank(job, root):
                              resume=True)))
     out = {}
     for name, over in runs:
+        # repro: allow(unfenced-timing) — whole-run span; run_training materializes host floats every step, so the wall clock cannot run ahead of device work
         t0 = time.time()
         hist = run_training(TrainJob(**{**job, **over}))
         out[name] = {k: hist[k] for k in keep} | {"wall_s": time.time() - t0}
@@ -3027,6 +3036,7 @@ def resume_fsdp(smi, fsdp_layout):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     free = shutil.disk_usage(tmp).free
     try:
+        # repro: allow(unfenced-timing) — the span ends when its child processes have exited; nothing of this process is left in flight
         t0 = time.time()
         out = spawn_workers(resume_fsdp_rank, 2, RESUME_FSDP_JOB, tmp, backend="gloo")
         same_suffix(out["resumed"], out["ref"], 4)
@@ -3150,6 +3160,7 @@ def mixed_and_local(smi, ops, dev):
     model = build_model(cfg)
     cpu_params = model.init(0, "cpu")
     src = MarkovTokens(vocab_size=cfg.vocab_size, seed=0)
+    # repro: allow(unfenced-timing) — whole-run span; every step's results are read back to the host before the next, so the wall clock cannot run ahead of device work
     t0 = time.time()
     # ACCUM-NORM, this process
     plan = BatchPlan(global_batch=8, micro_batch=4, accum_steps=2, workers=1)
@@ -3313,6 +3324,7 @@ def coord_phase(smi):
         return {p.relative_to(cache).as_posix(): (p.stat().st_ino, p.stat().st_mtime_ns)
                 for p in cache.rglob("*.so")}
 
+    # repro: allow(unfenced-timing) — the span ends when its child processes have exited; nothing of this process is left in flight
     t0 = time.time()
     try:
         job = dict(COORD_JOB, coord_dir=str(tmp / "coord-a"), compile_cache=str(cache))
@@ -3362,6 +3374,133 @@ def coord_phase(smi):
             seconds=round(time.time() - t0, 3))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def analysis_phase(smi) -> dict:
+    """Phase analysis: the static-analysis gate (`repro_torch.analysis`) on
+    fake CUDA tensors, the kernels' custom ops and their fake
+    implementations on the card's route.  The invariant checks, the cost
+    budget's exact metrics (op counts, collective bytes, FLOPs, in-place
+    count; the peak is printed beside the budget's CPU figure, not gated)
+    and the divergence checks must leave no unwaived finding, and each
+    variant's layout counts and collective signature on "cuda" must equal
+    the CPU trace's in this run: the kernel route and the plain route
+    pack and reduce the same things.  Nothing is launched; the traced
+    kernel calls are printed as calls."""
+    from repro_torch.analysis.costmodel import BUDGET_PATH, load_budget, run_cost_checks
+    from repro_torch.analysis.divergence import collective_signature, run_divergence_checks
+    from repro_torch.analysis.findings import active
+    from repro_torch.analysis.invariants import build_variants, run_invariant_checks
+
+    # repro: allow(unfenced-timing) — fake tensors: the traces run on the host, nothing on the card
+    t0 = time.time()
+    on_cpu, on_card = build_variants(), build_variants()
+    cpu_findings, cpu_checked = run_invariant_checks(variants=on_cpu, device="cpu")
+    t_cpu = time.time() - t0
+    findings, checked = run_invariant_checks(variants=on_card, device="cuda")
+    cost, cost_checked = run_cost_checks(BUDGET_PATH, variants=on_card, device="cuda")
+    div, _ = run_divergence_checks(on_card, device="cuda")
+    bad = active(cpu_findings + findings + cost + div)
+    if bad:
+        raise AssertionError("analysis findings on the card:\n"
+                             + "\n".join(f.render() for f in bad))
+    budget = load_budget(BUDGET_PATH)["variants"]
+    rows = {}
+    for vc, vg in zip(on_cpu, on_card, strict=True):
+        st_cpu, st_card = vc.traces[("cpu", 0)][1], vg.traces[("cuda", 0)][1]
+        if cpu_checked["layout_counts"][vc.name] != checked["layout_counts"][vg.name]:
+            raise AssertionError(f"{vc.name}: layout counts on the card "
+                                 f"{checked['layout_counts'][vg.name]} != the CPU's "
+                                 f"{cpu_checked['layout_counts'][vc.name]}")
+        if collective_signature(st_cpu) != collective_signature(st_card):
+            raise AssertionError(f"{vc.name}: the card's collective signature differs "
+                                 f"from the CPU's")
+        m = cost_checked["metrics"][vg.name]
+        rows[vg.name] = {"layout": checked["layout_counts"][vg.name],
+                         "collectives": m["collectives"], "flops": m["flops"],
+                         "inplace": m["inplace"], "cuda_peak_bytes": m["peak_bytes"],
+                         "cpu_peak_bytes": budget[vg.name]["peak_bytes"],
+                         "traced_kernel_calls": st_card.kernel_calls,
+                         "trace_s": round(st_card.seconds, 3)}
+    seconds = round(time.time() - t0, 1)
+    say("analysis", nvidia_smi=smi, variants=rows, waived=sum(f.waived for f in cost + div),
+        cpu_trace_s=round(t_cpu, 1), seconds=seconds)
+    return rows
+
+
+# the examples' runs on the card: (example, arguments)
+EXAMPLE_RUNS = (("torch_pretrain_e2e", ["--full", "--steps", "4"]),
+                ("torch_serve_batched", []),
+                ("torch_quickstart", ["--steps", "6"]),
+                ("torch_gns_tracking", ["--steps", "6"]))
+
+
+def examples_phase(smi, ops) -> dict:
+    """Phase examples: the port's examples through their `main`, on the
+    card, in a temporary working directory (their `experiments/` outputs
+    and the e2e job's checkpoint go there and are removed).
+    `torch_pretrain_e2e.py --full` trains full-width microllama-300m
+    (ACCUM-NORM, flat stats and params) for a few steps: one
+    `fused_adamw_stats` launch a step per dtype group, no other tail
+    kernel; `torch_serve_batched.py` serves gemma2 smoke through
+    `run_serving` (the prompt streamed through the decode graph: rmsnorm
+    launches, the decode's attention plain); quickstart and gns_tracking
+    run a few steps.  Each one's summary, launches and seconds are printed;
+    the launches are returned."""
+    import importlib.util
+    import shutil
+    import tempfile
+    from repro_torch.distributed.flatbuf import FlatLayout
+    from repro_torch.launch.train import summarize
+
+    total = {k: 0 for k in KERNELS}
+    out = {}
+    here, work = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        os.chdir(work)
+        for name, argv in EXAMPLE_RUNS:
+            spec = importlib.util.spec_from_file_location(
+                name, ROOT / "examples" / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            ops.reset_launch_counts()
+            t0 = time.time()
+            res = mod.main(argv)
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            launches = ops.launch_counts()
+            total = {k: total[k] + launches[k] for k in KERNELS}
+            if name == "torch_serve_batched":
+                # the prompt streams through decode, whose attention is the
+                # plain grouped one: rmsnorm's kernel, no flash
+                if not launches["rmsnorm"] or launches["flash_attention"]:
+                    raise AssertionError(f"serving launched {launches}")
+                summary = {"tokens_shape": list(res["tokens"].shape),
+                           "decode_tok_per_s": res["decode_tok_per_s"]}
+            else:
+                if not all(map(math.isfinite, res["loss"])):
+                    raise AssertionError(f"{name}: losses {res['loss']}")
+                summary = summarize(res)
+            if name == "torch_pretrain_e2e":
+                layout = FlatLayout.from_tree(res["final_params"], device="cuda")
+                want = len(res["step"]) * adamw_groups(layout)
+                if (launches["fused_adamw_stats"] != want or launches["fused_adamw"]
+                        or launches["fused_stats"] or launches["sqdiff_norm"]):
+                    raise AssertionError(f"e2e --full launched {launches}, expected "
+                                         f"{want} fused_adamw_stats and no other "
+                                         f"tail kernel")
+                summary["params"] = sum(layout.buffer_sizes)
+                summary["global_batch"] = res["global_batch"]
+            out[name] = {"argv": argv, "seconds": round(secs, 2),
+                         "launches": launches, "summary": summary}
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+    say("examples", nvidia_smi=smi, runs=out)
+    return total
 
 
 def child_processes() -> dict:
@@ -3676,6 +3815,12 @@ def main() -> int:
     # serve-mesh: serving on a data x model grid, every layer kind ------------
     sm_launches, sm_err = serve_mesh_phase(smi, ops, dev)
     lap("serve-mesh")
+    # analysis: the static-analysis gate on fake CUDA tensors ----------------
+    analysis_phase(smi)
+    lap("analysis")
+    # examples: the port's examples on the card --------------------------------
+    ex_launches = examples_phase(smi, ops)
+    lap("examples")
     # 8. timing at the main path's shapes --------------------------------------
     sizes = layout.buffer_sizes
     n_total = sum(sizes)
@@ -3895,9 +4040,9 @@ def main() -> int:
                      **{k: serve_launches[k] + arch_launches[k]
                         for k in ("rmsnorm", "flash_attention")}}
     # and the mesh phase's 2 x 2 grid, mesh-kinds', seqpar's and serve-mesh's
-    # runs (every rank)
+    # runs (every rank), and the examples'
     path_launches = {k: n + mesh_launches[k] + kinds_launches[k] + sp_launches[k]
-                     + sm_launches[k] for k, n in path_launches.items()}
+                     + sm_launches[k] + ex_launches[k] for k, n in path_launches.items()}
     err = {k: max(e, mesh_err.get(k, 0.0), kinds_err.get(k, 0.0), sp_err.get(k, 0.0),
                   sm_err.get(k, 0.0))
            for k, e in err.items()}
@@ -3925,10 +4070,10 @@ def main() -> int:
 
 
 def phase_alone(phase: str, layers: int | None) -> int:
-    """`python3 chip_smoke.py mesh|mesh-kinds|seqpar|serve-mesh|dryrun
-    [layers]`: the device, the build and that phase alone (mesh and seqpar
-    at `layers` layers, mesh-kinds with mamba2 at `layers`; dryrun at
-    DRYRUN_PLAN), nothing else (no result line)."""
+    """`python3 chip_smoke.py mesh|mesh-kinds|seqpar|serve-mesh|dryrun|
+    analysis|examples [layers]`: the device, the build and that phase alone
+    (mesh and seqpar at `layers` layers, mesh-kinds with mamba2 at
+    `layers`; dryrun at DRYRUN_PLAN), nothing else (no result line)."""
     global MESH_LAYERS, SEQPAR_LAYERS
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3942,6 +4087,10 @@ def phase_alone(phase: str, layers: int | None) -> int:
     kernels.build_all(sorted(p.stem for p in kernels.CSRC.glob("*.cu")))
     if phase == "dryrun":
         dryrun_phase(smi, ops, torch.device("cuda"), DRYRUN_PLAN)
+    elif phase == "analysis":
+        analysis_phase(smi)
+    elif phase == "examples":
+        examples_phase(smi, ops)
     elif phase == "mesh":
         MESH_LAYERS = layers or MESH_LAYERS
         mesh_phase(smi, ops, torch.device("cuda"))
@@ -3960,6 +4109,7 @@ def phase_alone(phase: str, layers: int | None) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] in (["mesh"], ["mesh-kinds"], ["seqpar"], ["serve-mesh"], ["dryrun"]):
+    if sys.argv[1:2] in (["mesh"], ["mesh-kinds"], ["seqpar"], ["serve-mesh"], ["dryrun"],
+                         ["analysis"], ["examples"]):
         sys.exit(phase_alone(sys.argv[1], int(sys.argv[2]) if len(sys.argv) > 2 else None))
     sys.exit(main())

@@ -21,6 +21,12 @@ the buffers, so parameters that live in bucket buffers are used by the
 model through those views, and an in-place update of a buffer is seen by
 every view.  The train step writes each leaf's gradient straight into a
 congruent view of an f32 gradient buffer, so gradients are born flat too.
+
+Every layout entry point (`flatten`, `unflatten`, `pack_cotangents`)
+dispatches one `repro_torch::layout_marker` op over its buffers, the
+counterpart of the reference's `layout_marker_p`: it computes nothing and
+returns nothing, and a trace of a step (`analysis/graph_check.py`) sees
+each pack, unflatten and adjoint pack in order with the collectives.
 """
 
 from __future__ import annotations
@@ -32,6 +38,22 @@ import numpy as np
 import torch
 
 from repro_torch.tree import TreeDef, tree_flatten, tree_unflatten
+
+# the layout marker: one dispatch a layout event, with no outputs (so it
+# makes no alias) and nothing to compute on any device
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("layout_marker(Tensor[] bufs, str kind, int nleaves) -> ()")
+_LIB.impl("layout_marker", lambda bufs, kind, nleaves: None,
+          "CompositeExplicitAutograd")
+torch.library.register_fake("repro_torch::layout_marker", lib=_LIB)(
+    lambda bufs, kind, nleaves: None)
+
+
+def layout_marker(bufs, kind: str, nleaves: int) -> None:
+    """Mark one layout event ("pack", "unflatten" or "adjoint") over the
+    buffers `bufs` of a layout of `nleaves` leaves."""
+    torch.ops.repro_torch.layout_marker.default(list(bufs), kind, nleaves)
+
 
 # ~4 MiB of f32 per bucket on the card: big enough that per-launch overhead
 # is small next to the bucket's traffic, small enough for many buckets
@@ -152,6 +174,15 @@ class FlatLayout:
     def flatten(self, tree):
         """Pack a congruent tree of tensors into fresh buffers (list of 1-D
         tensors; the dtype is the tree's, the shard pad zero-filled)."""
+        return self._pack(tree, "pack")
+
+    def pack_cotangents(self, tree):
+        """Pack a tree of leaf cotangents (any dtype) through the same slots
+        as `flatten`: the transpose of `unflatten`, marked as an adjoint
+        pack so that a gradient's pack is told apart from a tree's."""
+        return self._pack(tree, "adjoint")
+
+    def _pack(self, tree, kind: str):
         leaves, _ = tree_flatten(tree)
         if len(leaves) != self.num_leaves:
             raise ValueError(
@@ -172,11 +203,8 @@ class FlatLayout:
                     f"buffer {bi} mixes dtypes {sorted({str(r.dtype) for r in ravels})}")
             buf = torch.cat(ravels + [ravels[0].new_zeros(self.buffer_pads[bi])])
             buffers.append(buf)
+        layout_marker(buffers, kind, self.num_leaves)
         return buffers
-
-    # the transpose of `unflatten` is packing: in the port, leaf cotangents
-    # of any dtype pack through the same slots as `flatten`
-    pack_cotangents = flatten
 
     def unflatten(self, buffers):
         """The tree of views `buffer[offset:offset+size].view(shape)` — no
@@ -189,6 +217,7 @@ class FlatLayout:
                 raise ValueError(
                     f"buffer {bi} has shape {tuple(buf.shape)}, layout "
                     f"expects ({size},)")
+        layout_marker(buffers, "unflatten", self.num_leaves)
         leaves = [buffers[s.buffer_index][s.offset:s.offset + s.size].view(s.shape)
                   for s in self.slots]
         return tree_unflatten(self.treedef, leaves)
@@ -232,6 +261,6 @@ class FlatParams:
         return self.layout.unflatten(list(self.buffers))
 
 
-__all__ = ["FlatLayout", "FlatParams", "Slot", "flatten_tree",
+__all__ = ["FlatLayout", "FlatParams", "Slot", "flatten_tree", "layout_marker",
            "default_bucket_bytes", "as_torch_dtype", "DEFAULT_BUCKET_BYTES",
            "CPU_BUCKET_BYTES"]

@@ -47,7 +47,7 @@ def _local_grads(model, tree, mb):
 
 def make_local_sgd_step(model, opt_cfg: AdamWConfig, *,
                         stats_impl: str = "tree", params_impl: str = "tree",
-                        params_like=None, device=None):
+                        params_like=None, device=None, bucket_bytes=None):
     """Build this worker's local-SGD round (J = `num_workers()`, every
     worker calls it in lockstep).  Returns `wrap`, with `wrap(batch_like)`
     -> `round(params, opt_state, batch, lr) -> (params', opt', metrics)`
@@ -67,7 +67,8 @@ def make_local_sgd_step(model, opt_cfg: AdamWConfig, *,
     updated in place, where the reference donates them; the returned
     params and moments are new tensors, the workers' means.  Tree stats
     over flat params are rejected, as in the reference: the flat round
-    always runs the buffer AdamW."""
+    always runs the buffer AdamW.  `bucket_bytes`: the layout's bucket
+    size (default: the device's)."""
     _check_impls(stats_impl, params_impl)
     if params_impl == "flat" and stats_impl == "tree":
         raise ValueError("local-SGD has no tree-oracle tail over flat "
@@ -80,7 +81,7 @@ def make_local_sgd_step(model, opt_cfg: AdamWConfig, *,
     device = torch.device(device)
     J, idx = num_workers(), worker_index()
     # Δ_j and Δ are param-shaped, so they pack through the params layout
-    layout = (FlatLayout.from_tree(params_like, device=device)
+    layout = (FlatLayout.from_tree(params_like, bucket_bytes, device=device)
               if "flat" in (stats_impl, params_impl) else None)
     grad_bufs = []             # persistent f32 gradient buffers (flat round)
 

@@ -190,7 +190,10 @@ def update_slots(full: list, sub: list, n: int) -> list:
     wrote through the views of `slice_slots`, so nothing is copied; this
     checks that `sub` is exactly those views and returns `full`."""
     for f, s in zip(_leaves(full), _leaves(sub), strict=True):
-        if (s.data_ptr() != f.data_ptr() or s.shape[0] != n
+        # the same storage and start, read without a data pointer (the step
+        # may run on fake tensors, `analysis/graph_check.py`)
+        if (s.untyped_storage()._cdata != f.untyped_storage()._cdata
+                or s.storage_offset() != f.storage_offset() or s.shape[0] != n
                 or s.shape[1:] != f.shape[1:] or s.stride() != f.stride()):
             raise ValueError("update_slots: the sub-cache is not a view of "
                              f"rows [0, {n}) of the resident buffer")

@@ -259,9 +259,11 @@ def _stream_len() -> int:
 def _all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
     y = x.contiguous().clone()
     if group_size(group) > 1:
+        # repro: allow(wallclock-traced) — TP seconds; gloo's collectives block the host, so the span is the collective's
         t0 = time.perf_counter()
         dist.all_reduce(y, op=op or dist.ReduceOp.SUM, group=group)
         TP_STATS["calls"] += 1
+        # repro: allow(wallclock-traced) — TP seconds; gloo's collectives block the host, so the span is the collective's
         TP_STATS["seconds"] += time.perf_counter() - t0
     return y
 
@@ -269,9 +271,11 @@ def _all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
 def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(group_size(group))]
+    # repro: allow(wallclock-traced) — TP seconds; gloo's collectives block the host, so the span is the collective's
     t0 = time.perf_counter()
     dist.all_gather(parts, x, group=group)
     TP_STATS["calls"] += 1
+    # repro: allow(wallclock-traced) — TP seconds; gloo's collectives block the host, so the span is the collective's
     TP_STATS["seconds"] += time.perf_counter() - t0
     return torch.cat(parts, dim=dim)
 
@@ -287,11 +291,13 @@ def _reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     (m+1)·c) of it (m its index in the group)."""
     rows = x.movedim(1, 0).contiguous()
     y = rows.new_empty((rows.shape[0] // group_size(group),) + rows.shape[1:])
+    # repro: allow(wallclock-traced) — TP seconds; gloo's collectives block the host, so the span is the collective's
     t0 = time.perf_counter()
     dist.reduce_scatter_tensor(y, rows, group=group)
     y = y.movedim(0, 1).contiguous()
     TP_STATS["calls"] += 1
     TP_STATS["seq_reduce_scatter"] += 1
+    # repro: allow(wallclock-traced) — TP seconds; gloo's collectives block the host, so the span is the collective's
     TP_STATS["seconds"] += time.perf_counter() - t0
     return y
 

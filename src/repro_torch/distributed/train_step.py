@@ -289,7 +289,7 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
                         variance_impl: str = "scalar",
                         stats_impl: str = "tree", params_impl: str = "tree",
                         sequence_parallel: bool = False, params_like=None,
-                        device=None, mesh=None):
+                        device=None, mesh=None, bucket_bytes=None):
     """Build the FSDP-Norm step of this rank (every rank builds and calls
     it in lockstep).  Workers: the `mesh`'s data coordinates (J =
     `num_workers(mesh)`, j = `worker_index(mesh)`); no mesh: the process
@@ -322,7 +322,10 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
     rules; `distributed/sharding.py`): each TP exit reduce-scatters and
     each entry all-gathers, and the stream's norms run on the slice, their
     gradients summed over the model group.  Nothing changes without a
-    model axis."""
+    model axis.
+
+    bucket_bytes: the flat layout's bucket size (default: the device's,
+    `flatbuf.default_bucket_bytes`)."""
     _check_impls(stats_impl, params_impl)
     if variance_impl not in ("scalar", "paper"):
         raise ValueError(f"variance_impl must be 'scalar' or 'paper', got "
@@ -347,7 +350,8 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
         grid, tree_specs = grid
     # ONE layout per step, shared by the statistics, the AdamW tail and
     # the residency (None on the pure tree path)
-    layout = (FlatLayout.from_tree(params_like, shard_divisor=J, device=device)
+    layout = (FlatLayout.from_tree(params_like, bucket_bytes, shard_divisor=J,
+                                   device=device)
               if "flat" in (stats_impl, params_impl) else None)
     # the gradient is born flat: flat params, and on a grid any flat half
     born_flat = params_impl == "flat" or (grid is not None and layout is not None)
@@ -610,7 +614,8 @@ def _accum_grid_step(model, opt_cfg, grid, rest_specs, layout, stats_impl,
 
 def make_accum_norm_step(model, opt_cfg: AdamWConfig, *,
                          stats_impl: str = "tree", params_impl: str = "tree",
-                         params_like=None, device=None, mesh=None):
+                         params_like=None, device=None, mesh=None,
+                         bucket_bytes=None):
     """Build the ACCUM-NORM step.  Returns `wrap`, with `wrap(batch_like)`
     -> `step(params, opt_state, batch, lr) -> (params, opt_state, metrics)`
     (one eager step serves every batch shape), `wrap.flat_layout` the
@@ -626,7 +631,8 @@ def make_accum_norm_step(model, opt_cfg: AdamWConfig, *,
     GLOBAL batch on a mesh; `lr` is a float or 0-d tensor.  Metrics are 0-d
     f32 tensors on the device, equal on every rank.  Without `params_like`
     (the whole tree) the step is built from `model.init(0, device)`: on the
-    CUDA card unless `device` names another, and it raises without one."""
+    CUDA card unless `device` names another, and it raises without one.
+    `bucket_bytes` as in `make_fsdp_norm_step`."""
     _check_impls(stats_impl, params_impl)
     if params_like is None:
         params_like = model.init(0, device)
@@ -638,7 +644,8 @@ def make_accum_norm_step(model, opt_cfg: AdamWConfig, *,
     grid = _tp_grid(mesh, params_like, fsdp=params_impl == "tree",
                     manual=False)
     J = 1 if grid is None else grid[0].J
-    layout = (FlatLayout.from_tree(params_like, shard_divisor=J, device=device)
+    layout = (FlatLayout.from_tree(params_like, bucket_bytes, shard_divisor=J,
+                                   device=device)
               if "flat" in (stats_impl, params_impl) else None)
 
     def wrap(batch_like=None):

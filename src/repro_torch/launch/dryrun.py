@@ -210,7 +210,12 @@ class Trace:
     """Trace one run: `with FakeTensorMode(), Trace() as tr:` make the
     step's state (`tr.mark(name)` after each part records its bytes), run
     the step, drop its outputs and call `tr.finish()`.  Then `tr.memory`,
-    `tr.cost`, `tr.collectives`, `tr.kernel_calls` and `tr.seconds`."""
+    `tr.cost`, `tr.collectives`, `tr.kernel_calls` and `tr.seconds`.
+    `tally`: the `TraceTally` to run under (a subclass that records more,
+    `analysis/graph_check.py`); a fresh one by default."""
+
+    def __init__(self, tally: TraceTally | None = None):
+        self._tally = tally
 
     def __enter__(self):
         self.marks = {}
@@ -218,7 +223,7 @@ class Trace:
         self._calls = ops.call_counts()
         self.flop_counter = FlopCounterMode(display=False)
         self.flop_counter.__enter__()
-        self.tally = TraceTally()
+        self.tally = self._tally if self._tally is not None else TraceTally()
         self.tally.__enter__()
         return self
 
@@ -262,10 +267,12 @@ class Trace:
 # ------------------------------------------------------------ the state ----
 
 def _fake(like, device):
-    """Tensors of `like`'s shapes and dtypes on `device` (fake under
-    `FakeTensorMode`), each its own contiguous storage."""
-    return tree_map(lambda x: torch.empty(tuple(x.shape), dtype=x.dtype,
-                                          device=device), like)
+    """Tensors of `like`'s shapes and dtypes (fake under `FakeTensorMode`),
+    each its own contiguous storage: a meta leaf's on `device`, any other
+    leaf's on its own device."""
+    return tree_map(lambda x: torch.empty(
+        tuple(x.shape), dtype=x.dtype,
+        device=device if x.device.type == "meta" else x.device), like)
 
 
 def _whole(like):

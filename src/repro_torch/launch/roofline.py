@@ -111,10 +111,11 @@ def link_of(ranks) -> str:
     return "nvlink" if len(nodes) <= 1 else "infiniband"
 
 
-def note_collective(collectives: dict, func, args) -> None:
-    """Add one dispatched collective op (`func` an `OpOverload` of a
-    collective namespace, `args` its arguments) to the tally; raises on an
-    op it does not know."""
+def collective_parts(func, args):
+    """(kind, global ranks of its group, result tensors' argument, operand
+    tensors' argument) of one dispatched collective op (`func` an
+    `OpOverload` of a collective namespace, `args` its arguments); raises
+    on an op the tally does not know."""
     name = func._schema.name.split("::")[-1]
     if func.namespace != "c10d" or name not in _C10D:
         raise NotImplementedError(
@@ -124,9 +125,15 @@ def note_collective(collectives: dict, func, args) -> None:
     pg = next(dist.ProcessGroup.unbox(a) for a in args
               if isinstance(a, torch.ScriptObject)
               and "ProcessGroup" in str(a._type()))
-    ranks = dist.get_process_group_ranks(pg)
+    return kind, dist.get_process_group_ranks(pg), args[res_i], args[op_i]
+
+
+def note_collective(collectives: dict, func, args) -> None:
+    """Add one dispatched collective op to the tally (`collective_parts`);
+    raises on an op it does not know."""
+    kind, ranks, results, operands = collective_parts(func, args)
     entry = collectives[kind]
-    result, operand = _tensor_bytes(args[res_i]), _tensor_bytes(args[op_i])
+    result, operand = _tensor_bytes(results), _tensor_bytes(operands)
     entry["count"] += 1
     entry["result_bytes"] += result
     entry["operand_bytes"] += operand

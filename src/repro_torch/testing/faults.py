@@ -118,10 +118,12 @@ class FaultInjector:
                 self._log.append((site, n, r.action))
         for r in hits:      # side effects OUTSIDE the lock
             if r.action == "delay":
+                # repro: allow(wallclock-traced) — the delay fault's ACTION is a wall-clock sleep; determinism lives in the rule schedule (site hit counts), not the wait itself
                 time.sleep(r.delay_s)
             elif r.action == "die":
                 # a real unhandled death (no atexit, no finally blocks) —
                 # the same failure mode as a preempted/OOM-killed worker
+                # repro: allow(host-divergence) — kills its OWN process; the pid never feeds a traced computation
                 os.kill(os.getpid(), signal.SIGKILL)
             elif r.action == "truncate":
                 if path is None:

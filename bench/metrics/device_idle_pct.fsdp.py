@@ -1,0 +1,5 @@
+"""`device_idle_pct` of the four-card FSDP-Norm cells (moves `train_tokens_per_s.fsdp`)."""
+
+from benchkit.manifest import metric_reader
+
+read = metric_reader("device_idle_pct")

@@ -1,0 +1,5 @@
+"""`backward_ms` of the four-card FSDP-Norm cells (moves `train_tokens_per_s.fsdp`)."""
+
+from benchkit.manifest import metric_reader
+
+read = metric_reader("backward_ms")

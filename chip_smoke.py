@@ -1381,7 +1381,7 @@ def mesh_phase(smi, ops, dev) -> tuple:
                     loss=r["loss"], var_l1=r["var_l1"], grad_sqnorm=r["grad_sqnorm"],
                     peak_mem_bytes=[x["peak_mem_bytes"] for x in r["ranks"]],
                     tp_allreduce_s_per_step=[round(x["tp_allreduce_s"] / len(steps), 4)
-                                             for x in r["ranks"] if "tp_allreduce_s" in x],
+                                             for x in r["ranks"] if x.get("tp_allreduce_s") is not None],
                     launches=r["ranks"][0]["launches"])
         ck_bytes = same_checkpoint(ck, ck + "-resume", MESH_JOB["steps"])
     finally:
@@ -1611,7 +1611,7 @@ def mesh_kinds_phase(smi, ops, dev) -> tuple:
                 loss=r["loss"], var_l1=r["var_l1"], grad_sqnorm=r["grad_sqnorm"],
                 peak_mem_bytes=[x["peak_mem_bytes"] for x in r["ranks"]],
                 tp_allreduce_s_per_step=[round(x["tp_allreduce_s"] / len(steps), 4)
-                                         for x in r["ranks"] if "tp_allreduce_s" in x],
+                                         for x in r["ranks"] if x.get("tp_allreduce_s") is not None],
                 launches=r["ranks"][0]["launches"])
         del out
         gc.collect()

@@ -30,6 +30,7 @@ import torch.distributed as dist
 
 from repro_torch.distributed.sharding import entry_axes, spec_entry
 from repro_torch.launch.mesh import MODEL, SELF, data_axes
+from repro_torch.tracing import span
 from repro_torch.tree import tree_flatten, tree_paths, tree_unflatten
 
 # name -> preferred axes per dim; "F" takes the fsdp axes when fsdp=True
@@ -242,7 +243,8 @@ def gather_tree(tree, specs, mesh, axes=None):
             if group is SELF or n == 1:
                 continue
             parts = [torch.empty_like(x.contiguous()) for _ in range(n)]
-            dist.all_gather(parts, x.contiguous(), group=group)
+            with span("comm.all_gather", bytes=n * x.nbytes, group=n):
+                dist.all_gather(parts, x.contiguous(), group=group)
             x = torch.cat(parts, dim=d)
         out.append(x)
     return tree_unflatten(treedef, out)

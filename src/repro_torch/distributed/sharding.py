@@ -72,6 +72,7 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.mesh import MODEL, group_size, num_workers, worker_index
+from repro_torch.tracing import span
 
 MeshAxes = tuple[str, ...] | str | None
 
@@ -204,9 +205,11 @@ def logical_spec(*logical_axes) -> tuple:
 
 # ----------------------------------------------------- tensor parallelism ----
 
-# host seconds inside the TP collectives (each gloo call blocks until it is
-# done), and their count; of those, the sequence-parallel reduce-scatters
-# and all-gathers of the stream; reset by the caller (`reset_tp_stats`)
+# the TP collectives' count, and their host seconds where the group's
+# backend blocks the host until a collective is done (gloo: NCCL returns
+# once it is enqueued, so its calls add nothing); of the calls, the
+# sequence-parallel reduce-scatters and all-gathers of the stream; reset
+# by the caller (`reset_tp_stats`)
 TP_STATS = {"calls": 0, "seconds": 0.0, "seq_reduce_scatter": 0,
             "seq_all_gather": 0}
 
@@ -256,27 +259,36 @@ def _stream_len() -> int:
     return _CTX.seq_len
 
 
+@contextlib.contextmanager
+def _tp_collective(kind: str, nbytes: int, group):
+    """One TP collective: counted in `TP_STATS`, its host seconds added
+    only where the group's backend blocks the host (gloo), and recorded as
+    the `comm.<kind>` span."""
+    blocks = dist.get_backend(group) == "gloo"
+    with span(f"comm.{kind}", bytes=nbytes, group=group_size(group)):
+        # repro: allow(wallclock-traced) — TP seconds under gloo only, whose collectives block the host, so the interval is the collective's
+        t0 = time.perf_counter() if blocks else 0.0
+        yield
+    TP_STATS["calls"] += 1
+    if blocks:
+        # repro: allow(wallclock-traced) — TP seconds under gloo only, whose collectives block the host, so the interval is the collective's
+        TP_STATS["seconds"] += time.perf_counter() - t0
+
+
 def _all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
     y = x.contiguous().clone()
     if group_size(group) > 1:
-        # repro: allow(wallclock-traced) — TP seconds; gloo's collectives block the host, so the span is the collective's
-        t0 = time.perf_counter()
-        dist.all_reduce(y, op=op or dist.ReduceOp.SUM, group=group)
-        TP_STATS["calls"] += 1
-        # repro: allow(wallclock-traced) — TP seconds; gloo's collectives block the host, so the span is the collective's
-        TP_STATS["seconds"] += time.perf_counter() - t0
+        with _tp_collective("all_reduce", y.nbytes, group):
+            dist.all_reduce(y, op=op or dist.ReduceOp.SUM, group=group)
     return y
 
 
 def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(group_size(group))]
-    # repro: allow(wallclock-traced) — TP seconds; gloo's collectives block the host, so the span is the collective's
-    t0 = time.perf_counter()
-    dist.all_gather(parts, x, group=group)
-    TP_STATS["calls"] += 1
-    # repro: allow(wallclock-traced) — TP seconds; gloo's collectives block the host, so the span is the collective's
-    TP_STATS["seconds"] += time.perf_counter() - t0
+    n = group_size(group)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    with _tp_collective("all_gather", n * x.nbytes, group):
+        dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
 
 
@@ -291,15 +303,10 @@ def _reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     (m+1)·c) of it (m its index in the group)."""
     rows = x.movedim(1, 0).contiguous()
     y = rows.new_empty((rows.shape[0] // group_size(group),) + rows.shape[1:])
-    # repro: allow(wallclock-traced) — TP seconds; gloo's collectives block the host, so the span is the collective's
-    t0 = time.perf_counter()
-    dist.reduce_scatter_tensor(y, rows, group=group)
-    y = y.movedim(0, 1).contiguous()
-    TP_STATS["calls"] += 1
+    with _tp_collective("reduce_scatter", rows.nbytes, group):
+        dist.reduce_scatter_tensor(y, rows, group=group)
     TP_STATS["seq_reduce_scatter"] += 1
-    # repro: allow(wallclock-traced) — TP seconds; gloo's collectives block the host, so the span is the collective's
-    TP_STATS["seconds"] += time.perf_counter() - t0
-    return y
+    return y.movedim(0, 1).contiguous()
 
 
 def _gather_rows(x: torch.Tensor, group, t: int) -> torch.Tensor:
@@ -581,7 +588,8 @@ def gather_flat_buffers(shards, out=None, mesh=None):
     if out is None:
         out = [s.new_empty(s.numel() * J) for s in shards]
     for full, s in zip(out, shards):
-        dist.all_gather_into_tensor(full, s, group=group)
+        with span("comm.all_gather", bytes=full.nbytes, group=J):
+            dist.all_gather_into_tensor(full, s, group=group)
     return list(out)
 
 

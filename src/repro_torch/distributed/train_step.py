@@ -71,6 +71,8 @@ combinations:
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core.norm_test import (
@@ -88,6 +90,7 @@ from repro_torch.launch.mesh import (
     MODEL, data_axes, num_workers, psum, worker_index)
 from repro_torch.optim.adamw import (
     AdamWConfig, adamw_update, adamw_update_buffers, clip_scale_from_norm)
+from repro_torch.tracing import span
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 
@@ -100,6 +103,15 @@ def _check_impls(stats_impl: str, params_impl: str):
 def batch_to_device(batch, device):
     """numpy stacked batch -> tensors on `device`."""
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def _in_step_span(step):
+    """`step` called inside the `step` span (`repro_torch.tracing`)."""
+    @functools.wraps(step)
+    def spanned(params, opt_state, batch, lr):
+        with span("step"):
+            return step(params, opt_state, batch, lr)
+    return spanned
 
 
 def _accumulate(loss_fn, params, batch, track_micro_sqnorm: bool, acc_g):
@@ -122,9 +134,11 @@ def _accumulate(loss_fn, params, batch, track_micro_sqnorm: bool, acc_g):
     acc_loss, acc_aux, acc_sq, acc_w, acc_m = (zero() for _ in range(5))
     for i in range(batch["tokens"].shape[0]):
         mb = {k: v[i] for k, v in batch.items()}
-        loss, metrics = loss_fn(tree, mb)
-        grads = torch.autograd.grad(loss, xs)
-        with torch.no_grad():
+        with span("step.forward"):
+            loss, metrics = loss_fn(tree, mb)
+        with span("step.backward"):
+            grads = torch.autograd.grad(loss, xs)
+        with span("step.accumulate"), torch.no_grad():
             w = (mb["labels"] >= 0).sum().float()
             for a, g in zip(acc_g, grads):
                 a.add_(w * g.float())
@@ -357,6 +371,7 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
     born_flat = params_impl == "flat" or (grid is not None and layout is not None)
     bufs = {}        # persistent full params (flat params, J > 1), g_j and g
 
+    @_in_step_span
     def step(params, opt_state, batch, lr):
         batch = worker_batch(batch, idx, J)
         if born_flat and not bufs:
@@ -369,8 +384,9 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
         if params_impl == "flat":
             # the params rest as this worker's shards: gather the full
             # buffers (one worker: the params are the full buffers)
-            full = layout.unflatten(gather_flat_buffers(params, bufs["full"],
-                                                        mesh))
+            with span("step.gather_params"):
+                full = layout.unflatten(gather_flat_buffers(
+                    params, bufs["full"], mesh))
             tree = full if grid is None else grid.local(full)
         else:
             tree = params
@@ -391,71 +407,86 @@ def make_fsdp_norm_step(model, opt_cfg: AdamWConfig, *,
             with grid.rules_on():
                 loss, aux, _, _, w_j = _accumulate(model.loss, tree, batch,
                                                    False, acc)
-            if born_flat:
+        with span("step.exchange"):
+            if grid is not None and born_flat:
                 grid.make_whole(g_j, layout)
-            else:
+            elif grid is not None:
                 grid.sum_partial(g_j)
-        w_sum = worker_mean(g_j, w_j, g, dg)  # g_j stays: the statistic needs it
+            w_sum = worker_mean(g_j, w_j, g, dg)  # g_j stays: the statistic needs it
         if grid is not None and not born_flat:
             g_j, g = tree_unflatten(treedef, g_j), tree_unflatten(treedef, g)
             stats = (paper_faithful_worker_variance if variance_impl == "paper"
                      else worker_variance_stats)
-            var_l1, gsq = stats(grid.once(tree_leaves(g_j)),
-                                grid.once(tree_leaves(g)), group=dg,
-                                model_group=grid.mg)
-            with torch.no_grad():
+            with span("step.statistic"):
+                var_l1, gsq = stats(grid.once(tree_leaves(g_j)),
+                                    grid.once(tree_leaves(g)), group=dg,
+                                    model_group=grid.mg)
+            with span("step.tail"), torch.no_grad():
                 new_params, new_opt, gnorm = adamw_update(
                     params, g, opt_state, opt_cfg, lr, grad_sqnorm=gsq)
         elif params_impl == "flat" and stats_impl == "flat":
-            var_l1, gsq = worker_variance_stats_buffers(g_j, g, group=dg)
-            new_params, new_opt, gnorm = _sharded_buffer_update(
-                tuple(params), g, opt_state, opt_cfg, lr, gsq, idx, J)
+            with span("step.statistic"):
+                var_l1, gsq = worker_variance_stats_buffers(g_j, g, group=dg)
+            with span("step.tail"):
+                new_params, new_opt, gnorm = _sharded_buffer_update(
+                    tuple(params), g, opt_state, opt_cfg, lr, gsq, idx, J)
         elif params_impl == "flat":
             # tree-oracle tail on the whole views, then the worker's shard
             # of the packed result
             g_tree = layout.unflatten(g)
-            var_l1, gsq = worker_variance_stats(layout.unflatten(g_j), g_tree,
-                                                group=dg)
-            with torch.no_grad():
-                new_tree, new_opt, gnorm = adamw_update(full, g_tree, opt_state,
-                                                        opt_cfg, lr)
-            new_params = tuple(shard_flat_buffers(layout.flatten(new_tree),
-                                                  mesh))
+            with span("step.statistic"):
+                var_l1, gsq = worker_variance_stats(layout.unflatten(g_j),
+                                                    g_tree, group=dg)
+            with span("step.tail"):
+                with torch.no_grad():
+                    new_tree, new_opt, gnorm = adamw_update(
+                        full, g_tree, opt_state, opt_cfg, lr)
+                new_params = tuple(shard_flat_buffers(layout.flatten(new_tree),
+                                                      mesh))
         elif stats_impl == "flat" and grid is not None:
             # the born-flat pair; the params packed whole, the worker
             # updates its shard, and the rank keeps its slices of the result
-            var_l1, gsq = worker_variance_stats_buffers(g_j, g, group=dg)
-            whole = gather_tree(params, tree_specs, mesh, axes=(MODEL,))
-            pb_local = [shard_bucket(b, idx, J) for b in layout.flatten(whole)]
-            pb_local, new_opt, gnorm = _sharded_buffer_update(
-                pb_local, g, opt_state, opt_cfg, lr, gsq, idx, J)
-            new_params = _contiguous_copy(grid.local(layout.unflatten(
-                gather_flat_buffers(pb_local, mesh=mesh))))
+            with span("step.statistic"):
+                var_l1, gsq = worker_variance_stats_buffers(g_j, g, group=dg)
+            with span("step.tail"):
+                whole = gather_tree(params, tree_specs, mesh, axes=(MODEL,))
+                pb_local = [shard_bucket(b, idx, J)
+                            for b in layout.flatten(whole)]
+                pb_local, new_opt, gnorm = _sharded_buffer_update(
+                    pb_local, g, opt_state, opt_cfg, lr, gsq, idx, J)
+                new_params = _contiguous_copy(grid.local(layout.unflatten(
+                    gather_flat_buffers(pb_local, mesh=mesh))))
         elif stats_impl == "flat":
             # pack g and the params once; the fused pair hands back the
             # packed mean gradient, the worker updates its shard, and the
             # updated shards are gathered into the tree's buffers
             g_j, g = tree_unflatten(treedef, g_j), tree_unflatten(treedef, g)
-            var_l1, gsq, gb = worker_variance_stats_flat(g_j, g, layout=layout,
-                                                         group=dg)
-            pb_local = [shard_bucket(b, idx, J) for b in layout.flatten(params)]
-            pb_local, new_opt, gnorm = _sharded_buffer_update(
-                pb_local, gb, opt_state, opt_cfg, lr, gsq, idx, J)
-            new_params = layout.unflatten(gather_flat_buffers(pb_local,
-                                                              mesh=mesh))
+            with span("step.statistic"):
+                var_l1, gsq, gb = worker_variance_stats_flat(
+                    g_j, g, layout=layout, group=dg)
+            with span("step.tail"):
+                pb_local = [shard_bucket(b, idx, J)
+                            for b in layout.flatten(params)]
+                pb_local, new_opt, gnorm = _sharded_buffer_update(
+                    pb_local, gb, opt_state, opt_cfg, lr, gsq, idx, J)
+                new_params = layout.unflatten(gather_flat_buffers(pb_local,
+                                                                  mesh=mesh))
         else:
             g_j, g = tree_unflatten(treedef, g_j), tree_unflatten(treedef, g)
             stats = (paper_faithful_worker_variance if variance_impl == "paper"
                      else worker_variance_stats)
-            var_l1, gsq = stats(g_j, g, group=dg)
-            with torch.no_grad():
+            with span("step.statistic"):
+                var_l1, gsq = stats(g_j, g, group=dg)
+            with span("step.tail"), torch.no_grad():
                 new_params, new_opt, gnorm = adamw_update(params, g, opt_state,
                                                           opt_cfg, lr)
-        # the workers' token-weighted loss and aux, in one collective
-        loss, aux = psum(torch.stack([loss * w_j, aux * w_j]), dg) / w_sum
-        metrics = {"loss": loss, "aux": aux, "var_l1": var_l1,
-                   "grad_sqnorm": gsq, "grad_norm": gnorm,
-                   "clip_scale": clip_scale_from_norm(gnorm, opt_cfg.grad_clip)}
+        with span("step.metrics"):
+            # the workers' token-weighted loss and aux, in one collective
+            loss, aux = psum(torch.stack([loss * w_j, aux * w_j]), dg) / w_sum
+            metrics = {"loss": loss, "aux": aux, "var_l1": var_l1,
+                       "grad_sqnorm": gsq, "grad_norm": gnorm,
+                       "clip_scale": clip_scale_from_norm(gnorm,
+                                                          opt_cfg.grad_clip)}
         return new_params, new_opt, metrics
 
     def wrap(batch_like=None):
@@ -491,9 +522,11 @@ def _accumulate_spanning(loss_fn, params, batch, grid, add):
     for i in range(batch["tokens"].shape[0]):
         mb = {k: v[i] for k, v in batch.items()}
         with grid.rules_on():
-            loss, metrics = loss_fn(tree, mb)
-            grads = torch.autograd.grad(loss, xs)
-        with torch.no_grad():
+            with span("step.forward"):
+                loss, metrics = loss_fn(tree, mb)
+            with span("step.backward"):
+                grads = torch.autograd.grad(loss, xs)
+        with span("step.accumulate"), torch.no_grad():
             w = (mb["labels"] >= 0).sum().float()
             w_m = psum(w.clone(), grid.dg)
             sq = add(grads, w)
@@ -504,7 +537,8 @@ def _accumulate_spanning(loss_fn, params, batch, grid, add):
             acc_w += w_m
             acc_m += (w_m > 0).float()
     denom = torch.clamp(acc_w, min=1.0)
-    loss, aux = psum(torch.stack([acc_loss, acc_aux]), grid.dg) / denom
+    with span("step.metrics"):
+        loss, aux = psum(torch.stack([acc_loss, acc_aux]), grid.dg) / denom
     return loss, aux, acc_sq, acc_m, denom
 
 
@@ -514,6 +548,7 @@ def _accum_grid_step(model, opt_cfg, grid, rest_specs, layout, stats_impl,
     residency (module docstring)."""
     bufs = {}
 
+    @_in_step_span
     def step(params, opt_state, batch, lr):
         batch = worker_batch(batch, grid.idx, grid.J)
         if layout is not None and not bufs:
@@ -523,13 +558,15 @@ def _accum_grid_step(model, opt_cfg, grid, rest_specs, layout, stats_impl,
                              for n, dt in zip(layout.buffer_sizes,
                                               layout.buffer_dtypes)]
                             if grid.J > 1 and params_impl == "flat" else None)
-        if params_impl == "flat":
-            full = layout.unflatten(gather_flat_buffers(params, bufs["full"],
-                                                        grid.mesh))
-            tree = grid.local(full)
-        else:
-            # ZeRO-3: this rank's slices gathered over the data workers
-            tree = gather_tree(params, rest_specs, grid.mesh, axes=grid.daxes)
+        with span("step.gather_params"):
+            if params_impl == "flat":
+                full = layout.unflatten(gather_flat_buffers(
+                    params, bufs["full"], grid.mesh))
+                tree = grid.local(full)
+            else:
+                # ZeRO-3: this rank's slices gathered over the data workers
+                tree = gather_tree(params, rest_specs, grid.mesh,
+                                   axes=grid.daxes)
         if layout is not None:
             # born flat: each microbatch's gradient made whole in g_m
             acc, g_m = bufs["acc"], bufs["g_m"]
@@ -565,48 +602,61 @@ def _accum_grid_step(model, opt_cfg, grid, rest_specs, layout, stats_impl,
         if stats_impl == "flat":
             # the worker's shard of the mean gradient; Σg² over the shards
             g_local = [shard_bucket(b, grid.idx, grid.J) for b in acc]
-            gsq = torch.zeros((), dtype=torch.float32, device=device)
-            for b in g_local:
-                gsq += torch.sum(torch.square(b))
-            gsq = psum(gsq, grid.dg)
-            pb_local = (list(params) if params_impl == "flat" else
-                        [shard_bucket(b, grid.idx, grid.J) for b in layout.flatten(
-                            gather_tree(params, rest_specs, grid.mesh))])
-            _, new_mb, new_vb, count, gnorm, _ = adamw_update_buffers(
-                pb_local, g_local, list(opt_state["m"]),
-                list(opt_state["v"]), opt_cfg, lr, opt_state["count"],
-                grad_sqnorm=gsq)
-            new_opt = {"m": tuple(new_mb), "v": tuple(new_vb), "count": count}
-            # tree params: the rank keeps its slices of the updated params
-            new_params = (tuple(params) if params_impl == "flat" else
-                          _contiguous_copy(shard_tree(layout.unflatten(
-                              gather_flat_buffers(pb_local, mesh=grid.mesh)),
-                              rest_specs, grid.mesh)))
-            var_l1, gsq = accum_variance_stats(sq_sum, None, m_eff, grid.J,
-                                               gsq=gsq)
+            with span("step.statistic"):
+                gsq = torch.zeros((), dtype=torch.float32, device=device)
+                for b in g_local:
+                    gsq += torch.sum(torch.square(b))
+                gsq = psum(gsq, grid.dg)
+            with span("step.tail"):
+                pb_local = (list(params) if params_impl == "flat" else
+                            [shard_bucket(b, grid.idx, grid.J)
+                             for b in layout.flatten(gather_tree(
+                                 params, rest_specs, grid.mesh))])
+                _, new_mb, new_vb, count, gnorm, _ = adamw_update_buffers(
+                    pb_local, g_local, list(opt_state["m"]),
+                    list(opt_state["v"]), opt_cfg, lr, opt_state["count"],
+                    grad_sqnorm=gsq)
+                new_opt = {"m": tuple(new_mb), "v": tuple(new_vb),
+                           "count": count}
+                # tree params: the rank keeps its slices of the updated params
+                new_params = (tuple(params) if params_impl == "flat" else
+                              _contiguous_copy(shard_tree(layout.unflatten(
+                                  gather_flat_buffers(pb_local, mesh=grid.mesh)),
+                                  rest_specs, grid.mesh)))
+            with span("step.statistic"):
+                var_l1, gsq = accum_variance_stats(sq_sum, None, m_eff, grid.J,
+                                                   gsq=gsq)
         elif params_impl == "flat":
             # the tree oracle on the whole views, with whole moment trees;
             # the worker keeps its shard of the packed result
             g = layout.unflatten(acc)
-            var_l1, gsq = accum_variance_stats(sq_sum, g, m_eff, grid.J)
-            with torch.no_grad():
-                new_tree, new_opt, gnorm = adamw_update(full, g, opt_state,
-                                                        opt_cfg, lr)
-            new_params = tuple(shard_flat_buffers(layout.flatten(new_tree),
-                                                  grid.mesh))
+            with span("step.statistic"):
+                var_l1, gsq = accum_variance_stats(sq_sum, g, m_eff, grid.J)
+            with span("step.tail"):
+                with torch.no_grad():
+                    new_tree, new_opt, gnorm = adamw_update(
+                        full, g, opt_state, opt_cfg, lr)
+                new_params = tuple(shard_flat_buffers(layout.flatten(new_tree),
+                                                      grid.mesh))
         else:
-            gsq = psum(tree_sqnorm(grid.once(acc)), grid.mg)
-            g = tree_unflatten(tree_flatten(params)[1], acc)
-            g_local = _contiguous_copy(shard_tree(g, rest_specs, grid.mesh,
-                                                  axes=grid.daxes))
-            with torch.no_grad():
-                new_params, new_opt, gnorm = adamw_update(
-                    params, g_local, opt_state, opt_cfg, lr, grad_sqnorm=gsq)
-            var_l1, gsq = accum_variance_stats(sq_sum, None, m_eff, grid.J,
-                                               gsq=gsq)
-        metrics = {"loss": loss, "aux": aux, "var_l1": var_l1,
-                   "grad_sqnorm": gsq, "grad_norm": gnorm,
-                   "clip_scale": clip_scale_from_norm(gnorm, opt_cfg.grad_clip)}
+            with span("step.statistic"):
+                gsq = psum(tree_sqnorm(grid.once(acc)), grid.mg)
+            with span("step.tail"):
+                g = tree_unflatten(tree_flatten(params)[1], acc)
+                g_local = _contiguous_copy(shard_tree(g, rest_specs, grid.mesh,
+                                                      axes=grid.daxes))
+                with torch.no_grad():
+                    new_params, new_opt, gnorm = adamw_update(
+                        params, g_local, opt_state, opt_cfg, lr,
+                        grad_sqnorm=gsq)
+            with span("step.statistic"):
+                var_l1, gsq = accum_variance_stats(sq_sum, None, m_eff, grid.J,
+                                                   gsq=gsq)
+        with span("step.metrics"):
+            metrics = {"loss": loss, "aux": aux, "var_l1": var_l1,
+                       "grad_sqnorm": gsq, "grad_norm": gnorm,
+                       "clip_scale": clip_scale_from_norm(gnorm,
+                                                          opt_cfg.grad_clip)}
         return new_params, new_opt, metrics
 
     return step
@@ -663,6 +713,8 @@ def make_accum_norm_step(model, opt_cfg: AdamWConfig, *,
         return wrap
     wrap.param_specs, wrap.grid = None, None
     grad_bufs = []             # persistent f32 gradient buffers (flat params)
+
+    @_in_step_span
     def step(params, opt_state, batch, lr):
         if params_impl == "flat":
             if not grad_bufs:
@@ -675,22 +727,26 @@ def make_accum_norm_step(model, opt_cfg: AdamWConfig, *,
             loss, aux, sq_sum, m_eff, _ = _accumulate(
                 model.loss, tree, batch, True, acc)
             if stats_impl == "flat":
-                _, new_mb, new_vb, count, gnorm, gsq = adamw_update_buffers(
-                    pb, grad_bufs, list(opt_state["m"]), list(opt_state["v"]),
-                    opt_cfg, lr, opt_state["count"])
+                with span("step.tail"):
+                    _, new_mb, new_vb, count, gnorm, gsq = adamw_update_buffers(
+                        pb, grad_bufs, list(opt_state["m"]),
+                        list(opt_state["v"]), opt_cfg, lr, opt_state["count"])
                 new_params = tuple(pb)
                 new_opt = {"m": tuple(new_mb), "v": tuple(new_vb),
                            "count": count}
-                var_l1, gsq = accum_variance_stats(sq_sum, None, m_eff, J,
-                                                   gsq=gsq)
+                with span("step.statistic"):
+                    var_l1, gsq = accum_variance_stats(sq_sum, None, m_eff, J,
+                                                       gsq=gsq)
             else:
                 # tree-oracle tail on the views, packed back once
                 g = layout.unflatten(grad_bufs)
-                var_l1, gsq = accum_variance_stats(sq_sum, g, m_eff, J)
-                with torch.no_grad():
-                    new_tree, new_opt, gnorm = adamw_update(
-                        tree, g, opt_state, opt_cfg, lr)
-                new_params = tuple(layout.flatten(new_tree))
+                with span("step.statistic"):
+                    var_l1, gsq = accum_variance_stats(sq_sum, g, m_eff, J)
+                with span("step.tail"):
+                    with torch.no_grad():
+                        new_tree, new_opt, gnorm = adamw_update(
+                            tree, g, opt_state, opt_cfg, lr)
+                    new_params = tuple(layout.flatten(new_tree))
         else:
             leaves, treedef = tree_flatten(params)
             acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -701,23 +757,28 @@ def make_accum_norm_step(model, opt_cfg: AdamWConfig, *,
             if stats_impl == "flat":
                 # pack g and the params once; the fused tail updates the
                 # packed params, whose views are the new tree
-                pb = layout.flatten(params)
-                _, new_mb, new_vb, count, gnorm, gsq = adamw_update_buffers(
-                    pb, layout.flatten(g), list(opt_state["m"]),
-                    list(opt_state["v"]), opt_cfg, lr, opt_state["count"])
-                new_params = layout.unflatten(pb)
+                with span("step.tail"):
+                    pb = layout.flatten(params)
+                    _, new_mb, new_vb, count, gnorm, gsq = adamw_update_buffers(
+                        pb, layout.flatten(g), list(opt_state["m"]),
+                        list(opt_state["v"]), opt_cfg, lr, opt_state["count"])
+                    new_params = layout.unflatten(pb)
                 new_opt = {"m": tuple(new_mb), "v": tuple(new_vb),
                            "count": count}
-                var_l1, gsq = accum_variance_stats(sq_sum, g, m_eff, J,
-                                                   gsq=gsq)
+                with span("step.statistic"):
+                    var_l1, gsq = accum_variance_stats(sq_sum, g, m_eff, J,
+                                                       gsq=gsq)
             else:
-                var_l1, gsq = accum_variance_stats(sq_sum, g, m_eff, J)
-                with torch.no_grad():
+                with span("step.statistic"):
+                    var_l1, gsq = accum_variance_stats(sq_sum, g, m_eff, J)
+                with span("step.tail"), torch.no_grad():
                     new_params, new_opt, gnorm = adamw_update(
                         params, g, opt_state, opt_cfg, lr)
-        metrics = {"loss": loss, "aux": aux, "var_l1": var_l1,
-                   "grad_sqnorm": gsq, "grad_norm": gnorm,
-                   "clip_scale": clip_scale_from_norm(gnorm, opt_cfg.grad_clip)}
+        with span("step.metrics"):
+            metrics = {"loss": loss, "aux": aux, "var_l1": var_l1,
+                       "grad_sqnorm": gsq, "grad_norm": gnorm,
+                       "clip_scale": clip_scale_from_norm(gnorm,
+                                                          opt_cfg.grad_clip)}
         return new_params, new_opt, metrics
 
     return wrap

@@ -45,6 +45,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.tracing import span
+
 
 DATA_AXES = ("pod", "data")
 MODEL = "model"
@@ -218,8 +220,10 @@ def group_size(group=None) -> int:
 
 def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum of `x` over the group's ranks, IN PLACE; one rank: `x` itself."""
-    if group_size(group) > 1:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    n = group_size(group)
+    if n > 1:
+        with span("comm.all_reduce", bytes=x.nbytes, group=n):
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 
 

@@ -701,13 +701,15 @@ def _train(job: TrainJob) -> dict:
     history["final_params"] = full_tree(params)
     # what each rank ran: its kernel launches in this run, its peak device
     # memory (a spawned rank's counters are not the caller's), and on a
-    # model axis the host seconds in its tensor-parallel all-reduces
+    # model axis its tensor-parallel collectives and their host seconds
+    # (None under NCCL, whose calls return once enqueued)
     mine = {"launches": {k: n - launches_before[k]
                          for k, n in launch_counts().items()},
             "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
                                if device.type == "cuda" else None)}
     if job.mesh_model > 1:
-        mine.update(tp_allreduce_s=TP_STATS["seconds"],
+        blocks = torch.distributed.get_backend() == "gloo"
+        mine.update(tp_allreduce_s=TP_STATS["seconds"] if blocks else None,
                     tp_allreduce_calls=TP_STATS["calls"])
     history["ranks"] = [mine]
     if world > 1:

@@ -60,6 +60,7 @@ from repro_torch.distributed.sharding import (
 from repro_torch.kernels import ops
 from repro_torch.models.common import normal_init
 from repro_torch.models.embeddings import apply_rope
+from repro_torch.tracing import span
 
 # a large finite negative, not -inf: a fully masked row stays finite
 NEG_INF = -2.0e38
@@ -159,10 +160,11 @@ def _sdpa_chunked(q, k, v, softcap, causal, window, q_chunk=Q_CHUNK):
         raise ValueError(f"sequence {t} is not a multiple of {q_chunk}")
 
     def body(qi, k, v, ci):
-        mask = (causal_mask(q_chunk, s, offset=ci * q_chunk, window=window,
-                            device=q.device)
-                if (causal or window > 0) else None)
-        return _sdpa(qi, k, v, mask, softcap)
+        with span("model.attention"):
+            mask = (causal_mask(q_chunk, s, offset=ci * q_chunk, window=window,
+                                device=q.device)
+                    if (causal or window > 0) else None)
+            return _sdpa(qi, k, v, mask, softcap)
 
     outs = [checkpoint(body, q[:, c * q_chunk:(c + 1) * q_chunk], k, v, c,
                        use_reentrant=False)

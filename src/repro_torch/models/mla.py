@@ -48,6 +48,7 @@ from repro_torch.models.common import normal_init
 from repro_torch.models.config import MLAConfig
 from repro_torch.models.embeddings import apply_rope
 from repro_torch.models.norms import apply_norm, init_norm
+from repro_torch.tracing import span
 
 Q_CHUNK = 512
 CHUNK_THRESHOLD = 2048   # query-chunked attention for t >= this
@@ -143,8 +144,9 @@ def mla_full(params, x, positions, m: MLAConfig, causal: bool = True,
     v = torch.einsum("btr,rhv->bthv", c_kv, params["w_uv"].to(x.dtype))
     if t >= CHUNK_THRESHOLD and t % q_chunk == 0:
         def body(qn, qr, k_nope, k_rope, v, c):
-            return _mla_attend(qn, qr, k_nope, k_rope, v, m, causal,
-                               offset=c * q_chunk)
+            with span("model.attention"):
+                return _mla_attend(qn, qr, k_nope, k_rope, v, m, causal,
+                                   offset=c * q_chunk)
 
         out = torch.cat([
             checkpoint(body, q_nope[:, c * q_chunk:(c + 1) * q_chunk],

@@ -59,6 +59,7 @@ from repro_torch.models.embeddings import (
     embed_tokens, init_embedding, sinusoidal_at, sinusoidal_positions, unembed,
     vocab_shard)
 from repro_torch.models.norms import init_norm, apply_norm
+from repro_torch.tracing import span
 
 
 def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
@@ -144,7 +145,7 @@ def _apply_cross(p, x, enc, cfg):
 
 
 def _block(p, x, positions, enc, cfg, kind, moe_layer):
-    with stream_length(positions.shape[-1]):
+    with span("model.block"), stream_length(positions.shape[-1]):
         x, a, _ = blk.block_full(p, x, positions, cfg, kind, moe_layer)
         return _apply_cross(p, x, enc, cfg), a
 
@@ -252,7 +253,8 @@ def token_loss(params, hidden, labels, cfg: ModelConfig):
         return s / torch.clamp(c, min=1)
 
     def body(hc, lc):
-        return xent(_logits(params, hc, cfg, entered), lc)
+        with span("model.xent"):
+            return xent(_logits(params, hc, cfg, entered), lc)
 
     s = torch.zeros((), dtype=torch.float32, device=hidden.device)
     c = torch.zeros((), dtype=torch.float32, device=hidden.device)

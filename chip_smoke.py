@@ -31,6 +31,22 @@ exit (nothing is caught):
               (openllama-3b's), 128, 200 and 256 (O in two halves,
               recurrentgemma's), causal or not, window 0/100, softcap
               0/30, f32 and bf16; tolerances printed and asserted.
+   dense    — the split-TF32 GEMM (`kernels.dense.dense_mm`) against the
+              f64 product: ragged M, N, K in all four layouts, 16- and
+              4-byte copies (DENSE_RAGGED), then every main-path product
+              (DENSE_SHAPES: phi3-mini's projections and head at 4096
+              rows, each as the forward, dX and dW) at most twice
+              cuBLAS's f32 error, reruns bit-identical, timed with CUDA
+              events beside `torch.matmul` in f32 and the 165 TFLOP/s
+              split-TF32 bound; the error against cuBLAS's over K 8-4096
+              (DENSE_K_SWEEP: the shortest K from which the kernel errs no
+              more is printed).  `python3 chip_smoke.py dense` runs the
+              device, its build (its compiler log printed) and this phase
+              alone.  Every whole-dict launch check below counts `dense`
+              too: three launches (forward, dX, dW) a projection of each
+              training microbatch, one a projection of a forward without
+              grad, none where the rows are under 64 (decode, a prefill's
+              head).
    archs    — every registered config at full width, depth cut
               (ARCH_LAYERS: 1 layer for the dense Llama family; gemma2 one
               local and one global layer, 2 312 151 552 parameters;
@@ -381,7 +397,7 @@ MOE_TRAIN_JOB = dict(arch="deepseek-v2-236b", smoke=True, schedule="adaptive",
                      base_micro_batch=2, max_micro_batch=4, base_accum=2, steps=4,
                      eval_every=0)
 KERNELS = ("fused_adamw_stats", "fused_adamw", "fused_stats", "sqdiff_norm",
-           "rmsnorm", "flash_attention")
+           "rmsnorm", "flash_attention", "dense")
 # phase mesh: the model axis, full-width microllama-300m on gloo ranks that
 # share the card; a constant plan of 8 a step (M = 2 microbatches of 4)
 MESH_LAYERS = 2           # of 12: at full depth the phase took 234 s, at 4 105 s (PERF.md §4, §6)
@@ -772,6 +788,115 @@ def caches_rel_err(a, b) -> float:
                default=0.0)
 
 
+# phase dense: the split-TF32 GEMM at the main path's shapes (phi3-mini's
+# widths, a microbatch of 2 x 2048 rows), each as the forward, dX and dW
+# products of `kernels.dense.Dense`: (name, rows, K of the forward, N of
+# the forward, the weight stored (N, K) as the head's table)
+DENSE_ROWS = 4096
+DENSE_SHAPES = (("qkvo", 3072, 3072, False), ("gate_up", 3072, 8192, False),
+                ("down", 8192, 3072, False), ("head", 3072, 32064, True))
+# ragged (M, N, K): tails past the 128 x 128 tile and the 32-deep slice.
+# There the error may also reach DENSE_FLOOR: over a short sum cuBLAS's
+# error is a rounding or two of the output, while each of the kernel's
+# products keeps the split's ~2^-22 (the main path's shapes hold to 2 x
+# cuBLAS's error alone)
+DENSE_FLOOR = 2.0 ** -21
+DENSE_RAGGED = ((64, 128, 32), (65, 130, 33), (200, 129, 100), (1000, 77, 3),
+                (4097, 3071, 3073))
+DENSE_SPLIT_TF32 = 495e12 / 3        # f32 work at three TF32 products
+# the sum's length at which the kernel's error meets cuBLAS's f32 error:
+# 512 x 512 outputs, K-major operands, three draws each
+DENSE_K_SWEEP = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def dense_operands(rows, k, n, table, gen, dev):
+    """The forward's, dX's and dW's operands of one projection, views as
+    `Dense` hands them to the kernel: x (rows, k), the weight (k, n) (a
+    (n, k) table transposed), dY (rows, n)."""
+    x = torch.randn(rows, k, device=dev, generator=gen)
+    w = (torch.randn(n, k, device=dev, generator=gen).t() if table
+         else torch.randn(k, n, device=dev, generator=gen))
+    g = torch.randn(rows, n, device=dev, generator=gen)
+    dw = (g.t(), x) if table else (x.t(), g)
+    return {"fwd": (x, w), "dx": (g, w.t()), "dw": dw}
+
+
+def layout(a, b) -> str:
+    return ("A K" if a.stride(1) == 1 else "A M") + ("/B K" if b.stride(0) == 1 else "/B N")
+
+
+def dense_errors(dense_mm, a, b) -> dict:
+    """The kernel's and cuBLAS's f32 errors against the f64 product (max
+    abs error over the largest magnitude), and whether a rerun is
+    bit-identical."""
+    want = a.double() @ b.double()
+    got = dense_mm(a, b)
+    again = dense_mm(a, b)
+    out = {"kernel": rel_err(got, want), "matmul": rel_err(a @ b, want),
+           "rerun_equal": bool(torch.equal(got, again))}
+    del want
+    return out
+
+
+def dense_phase(smi, dev) -> dict:
+    """Phase dense: `dense_mm` against the f64 product at every main-path
+    product and the ragged shapes (the error at most 2 x cuBLAS's f32
+    error, reruns bit-identical, unaligned views on the 4-byte copies),
+    then CUDA-event times beside the split-TF32 bound and cuBLAS's f32
+    `torch.matmul` (the einsum's own route).  Returns the timing rows."""
+    from repro_torch.kernels.dense import dense_mm
+    gen = torch.Generator(device=dev).manual_seed(29)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = {}
+    for m, n, k in DENSE_RAGGED:
+        for a_k in (True, False):
+            for b_k in (True, False):
+                for offset in (0, 1):
+                    a = torch.randn(m * k + offset, device=dev, generator=gen)[offset:]
+                    b = torch.randn(k * n + offset, device=dev, generator=gen)[offset:]
+                    a = a.view(m, k) if a_k else a.view(k, m).t()
+                    b = b.view(n, k).t() if b_k else b.view(k, n)
+                    e = dense_errors(dense_mm, a, b)
+                    say("dense", shape=[m, n, k], layout=layout(a, b), offset=offset, **e)
+                    assert e["rerun_equal"] and e["kernel"] <= max(2 * e["matmul"], DENSE_FLOOR), e
+                    worst[layout(a, b)] = max(worst.get(layout(a, b), 0.0), e["kernel"])
+    sweep = {}
+    for k in DENSE_K_SWEEP:
+        errs = [dense_errors(dense_mm, torch.randn(512, k, device=dev, generator=gen),
+                             torch.randn(k, 512, device=dev, generator=gen))
+                for _ in range(3)]
+        sweep[k] = {"kernel": max(e["kernel"] for e in errs),
+                    "matmul": max(e["matmul"] for e in errs)}
+        say("dense", k_sweep=k, **sweep[k])
+    # the shortest K from which on the kernel errs no more than cuBLAS
+    k_even = min((k for k in DENSE_K_SWEEP
+                  if all(sweep[j]["kernel"] <= sweep[j]["matmul"] for j in DENSE_K_SWEEP
+                         if j >= k)), default=None)
+    rows = []
+    for name, k, n, table in DENSE_SHAPES:
+        ops_ = dense_operands(DENSE_ROWS, k, n, table, gen, dev)
+        for kind, (a, b) in ops_.items():
+            e = dense_errors(dense_mm, a, b)
+            flops = 2 * a.shape[0] * a.shape[1] * b.shape[1]
+            ms = cuda_ms(lambda: dense_mm(a, b), 10)
+            lib_ms = cuda_ms(lambda: a @ b, 10)
+            row = {"product": f"{name}.{kind}", "mnk": [a.shape[0], b.shape[1], a.shape[1]],
+                   "layout": layout(a, b), **e, "ms": round(ms, 4),
+                   "tflops": round(flops / ms / 1e9, 2),
+                   "bound_ms": round(flops / DENSE_SPLIT_TF32 * 1e3, 4),
+                   "matmul_ms": round(lib_ms, 4)}
+            say("dense", **row)
+            assert e["rerun_equal"] and e["kernel"] <= 2 * e["matmul"], row
+            rows.append(row)
+        del ops_
+        torch.cuda.empty_cache()
+    total = sum(r["ms"] for r in rows)
+    say("dense", nvidia_smi=smi, ragged_worst=worst, k_at_most_matmul_error=k_even,
+        total_ms=round(total, 3),
+        matmul_total_ms=round(sum(r["matmul_ms"] for r in rows), 3))
+    return {r["product"]: r for r in rows}
+
+
 def check_serving_kernels(dev):
     """Phase serve-check: rmsnorm and flash_attention against their plain
     versions on the card; ends with each kernel's max abs error by dtype."""
@@ -888,7 +1013,20 @@ def prefill_gemm_flops(cfg, b: int, t: int) -> int:
     return 2 * macs
 
 
-def forward_kernel_launches(cfg) -> dict:
+def layer_dense_calls(cfg, kind: str, moe_layer: bool = False) -> int:
+    """`ops.dense` calls in one forward of a layer of `kind`: q, k, v and
+    the output projection of an attention layer (MLA's, SSD's and RG-LRU's
+    mixers keep their einsums), and the MLP's gate, up and down (up and
+    down without a gate; an MoE feed-forward keeps its einsums)."""
+    from repro_torch.models.blocks import has_mlp
+    from repro_torch.models.config import ATTN, LOCAL_ATTN
+
+    mlp = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
+    return (4 * (kind in (ATTN, LOCAL_ATTN))
+            + mlp * (has_mlp(cfg, kind) and not moe_layer))
+
+
+def forward_kernel_launches(cfg, prefill_batch: int = 0) -> dict:
     """Launches of the forward-only kernels in one forward of `cfg` on the
     card with grad mode off (prefill, the eval loss): `flash_attention` once
     an attention layer (MLA attends in plain PyTorch; RG-LRU and SSD layers
@@ -899,13 +1037,19 @@ def forward_kernel_launches(cfg) -> dict:
     cross-attention norm, every encoder layer's norms and the final norms
     — plus MLA's `q_norm` and `kv_norm`, which are RMSNorm in every config.
     A decode step runs the same decoder rmsnorms and, for an
-    encoder-decoder, its cross-attention flash calls.  Counted from the
-    config alone, so that a model that stops reaching a kernel fails the
-    phase; `tests/test_torch_archs.py` holds it against the calls a
-    forward makes."""
+    encoder-decoder, its cross-attention flash calls.  And `dense`, which
+    runs under grad mode too: each layer's `layer_dense_calls`, an encoder
+    layer's, a decoder layer's cross-attention q, k, v and o (a prefill's
+    k and v twice: once more for its cache) and the head, every product
+    with at least `MIN_ROWS` rows, as at every shape here — except a
+    prefill's head, whose rows are its `prefill_batch` (the last position
+    of each prompt).  Counted from the config alone, so that a model that
+    stops reaching a kernel fails the phase; `tests/test_torch_archs.py`
+    holds it against the calls a forward makes."""
+    from repro_torch.kernels.dense import MIN_ROWS
     from repro_torch.models.blocks import has_mlp
     from repro_torch.models.config import ATTN, LOCAL_ATTN, MLA_ATTN
-    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.models.transformer import layer_kinds, layer_plan
 
     rms = cfg.norm_kind == "rmsnorm"
     cross = cfg.encoder is not None
@@ -920,10 +1064,31 @@ def forward_kernel_launches(cfg) -> dict:
         norms += (layer_norms(kind) + cross) * rms
         if kind == MLA_ATTN:
             norms += 1 + bool(cfg.mla.q_lora_rank)
+    dense = sum(layer_dense_calls(cfg, kind, moe) for kind, moe in layer_plan(cfg))
+    dense += (not prefill_batch or prefill_batch >= MIN_ROWS)         # the head
     if cross:
         flash += cfg.encoder.num_layers
         norms += (cfg.encoder.num_layers * layer_norms(ATTN) + 1) * rms
-    return {"flash_attention": flash, "rmsnorm": norms}
+        dense += (len(layer_kinds(cfg)) * (6 if prefill_batch else 4)
+                  + cfg.encoder.num_layers * layer_dense_calls(cfg, ATTN))
+    return {"flash_attention": flash, "rmsnorm": norms, "dense": dense}
+
+
+def train_dense_launches(cfg, micro_steps: int, evals: int = 0) -> dict:
+    """A rank's `dense` launches in training `cfg` on the card: three (the
+    forward, dX and dW) for each projection of each of the `micro_steps`
+    microbatches it ran (a padded bucket's too: the history's
+    `micro_steps`), one for each of `evals` eval forwards'; every product
+    with at least `MIN_ROWS` rows, as in every run here."""
+    per = forward_kernel_launches(cfg)["dense"]
+    return {"dense": per * (3 * micro_steps + evals)}
+
+
+def history_dense_launches(cfg, hist, eval_batches: int = 1) -> dict:
+    """`train_dense_launches` of a `run_training` history: its steps'
+    microbatches, `eval_batches` forwards at each eval it logged."""
+    evals = sum(map(math.isfinite, hist["val_loss"])) * eval_batches
+    return train_dense_launches(cfg, sum(hist["micro_steps"]), evals)
 
 
 @contextlib.contextmanager
@@ -1291,7 +1456,8 @@ def mesh_rank(runs, layers, root):
             with recorded_kernel_calls(ops) as calls, recorded_flat_calls(ops) as flat:
                 hist = T.run_training(T.TrainJob(**job))
             r = {k: hist[k] for k in ("loss", "var_l1", "grad_sqnorm", "val_loss", "time",
-                                      "global_batch", "samples", "ranks", "resumed_from")}
+                                      "global_batch", "samples", "ranks", "resumed_from",
+                                      "micro_steps")}
             r.update(seconds=time.time() - t0, calls=calls, flat_calls=flat,
                      final_params=[x.detach().cpu() for x in
                                    tree_leaves(hist["final_params"])])
@@ -1342,6 +1508,7 @@ def mesh_phase(smi, ops, dev) -> tuple:
     result}, which the groups of 2 and 4 ranks run after the phase's own)."""
     import shutil
     import tempfile
+    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn_workers
 
     # repro: allow(unfenced-timing) — phase wall clock; the phase ends in host reads of its results and joined child ranks, so no device work is left in flight
@@ -1407,7 +1574,9 @@ def mesh_phase(smi, ops, dev) -> tuple:
                                              "fused_adamw_stats": steps * groups},
             "accum-flat-J2": zero | evals | {"fused_adamw_stats": steps * groups},
             "fsdp-tree-2x2": zero | evals | {"fused_adamw": steps, "sqdiff_norm": steps}}
+    cfg = get_config(MESH_JOB["arch"]).replace(num_layers=L)
     for name, w in want.items():
+        w.update(history_dense_launches(cfg, runs[name]))
         for rank, r in enumerate(runs[name]["ranks"]):
             if r["launches"] != w:
                 raise AssertionError(f"{name} rank {rank} launched {r['launches']}, "
@@ -1634,6 +1803,8 @@ def mesh_kinds_phase(smi, ops, dev) -> tuple:
             "rglru-tree-1x2": zero | forward_kernel_launches(rg_cfg)
             | {"fused_adamw": steps, "sqdiff_norm": steps}}
     for name, w in want.items():
+        w.update(history_dense_launches(rg_cfg if name.startswith("rglru") else ssd_cfg,
+                                        runs[name]))
         for rank, r in enumerate(runs[name]["ranks"]):
             if r["launches"] != w:
                 raise AssertionError(f"{name} rank {rank} launched {r['launches']}, "
@@ -1732,6 +1903,7 @@ def seqpar_phase(smi, ops, dev, trained=None) -> tuple:
     (each kernel's launches on the phase's sequence-parallel runs, summed
     over their ranks; each kernel's max abs error at the phase's
     shapes)."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn_workers
 
     # repro: allow(unfenced-timing) — phase wall clock; the phase ends in host reads of its results and joined child ranks, so no device work is left in flight
@@ -1742,6 +1914,7 @@ def seqpar_phase(smi, ops, dev, trained=None) -> tuple:
                    for grid in SEQPAR_GRIDS}
     zero = {k: 0 for k in KERNELS}
     launches, flat_calls, err = dict(zero), None, {}
+    cfg = get_config(MESH_JOB["arch"]).replace(num_layers=SEQPAR_LAYERS)
     for grid in SEQPAR_GRIDS:
         out = trained[grid]
         runs = {("sp" if sp else "whole"): {
@@ -1752,8 +1925,10 @@ def seqpar_phase(smi, ops, dev, trained=None) -> tuple:
         pair = mesh_agree(runs, "sp", "whole", what, dev)
         groups = len({dt for _, dts in out[True]["flat_calls"]["fused_adamw_stats"]
                       for dt in dts})
+        # `seqpar_train_rank`'s plan: 4 // d microbatches a step on each rank
         want = zero | {"fused_stats": SEQPAR_STEPS,
-                       "fused_adamw_stats": SEQPAR_STEPS * groups}
+                       "fused_adamw_stats": SEQPAR_STEPS * groups} | train_dense_launches(
+            cfg, SEQPAR_STEPS * (4 // grid[0]))
         for sp, r in out.items():
             for rank, x in enumerate(r["ranks"]):
                 if x["launches"] != want:
@@ -2001,11 +2176,13 @@ def sm_piece(ops, name, mesh, dev) -> dict:
     return out
 
 
-def piece_launches(arch: str, kind: str) -> dict:
+def piece_launches(arch: str, kind: str, moe: bool) -> dict:
     """A piece's kernel launches a rank: flash once in an attention
     block's prefill; rmsnorm at each of the block's norms where they are
     RMSNorm (LayerNorm has none), and MLA's `q_norm` and `kv_norm`, in the
-    prefill and every decode step."""
+    prefill and every decode step; dense at each of the block's
+    projections in the prefill (a decode step's rows, SM_PIECE_TOKENS[0],
+    are under `MIN_ROWS`)."""
     from repro_torch.configs import get_config
     from repro_torch.models.blocks import has_mlp
 
@@ -2014,7 +2191,8 @@ def piece_launches(arch: str, kind: str) -> dict:
     if kind == "mla":
         norms += 1 + bool(cfg.mla.q_lora_rank)
     return {"flash_attention": int(kind in ("attn", "local")),
-            "rmsnorm": norms * (1 + SM_PIECE_STEPS)}
+            "rmsnorm": norms * (1 + SM_PIECE_STEPS),
+            "dense": layer_dense_calls(cfg, kind, moe)}
 
 
 def serve_mesh_rank(world: int):
@@ -2108,7 +2286,8 @@ def serve_mesh_checks(smi, ranks, solo, cfg, dev) -> tuple:
     per_step = 2 * layers + 1
 
     pre = ranks["prefill-1x2"]
-    want = zero | {"flash_attention": layers, "rmsnorm": per_step}
+    want = zero | {"flash_attention": layers, "rmsnorm": per_step,
+                   "dense": forward_kernel_launches(cfg, PREFILL_BATCH)["dense"]}
     heads = {(c[0][2], c[1][2]) for r in pre for c in r["calls"]["flash_attention"]}
     if any(r["launches"] != want for r in pre) or heads != {(cfg.num_heads // 2,
                                                             cfg.num_kv_heads // 2)}:
@@ -2168,7 +2347,7 @@ def serve_mesh_checks(smi, ranks, solo, cfg, dev) -> tuple:
     for name in SM_PIECES:
         rs = ranks[f"piece-{name}"]
         errs = rs[0]["rel_errs"]
-        want = zero | piece_launches(*SM_PIECES[name][:2])
+        want = zero | piece_launches(*SM_PIECES[name])
         if not max(errs.values()) <= SERVE_MESH_REL or any(r["launches"] != want for r in rs):
             raise AssertionError(f"{name} on 1x2 vs whole: {errs}, launches "
                                  f"{[r['launches'] for r in rs]}")
@@ -2268,6 +2447,7 @@ def check_archs(smi, ops, dev):
                       **frontend_inputs(cfg, b, gen, dev)}
             npfx = prompt["patch_embeds"].shape[1] if "patch_embeds" in prompt else 0
             prefill = make_prefill(model)
+            pre_want = {k: 0 for k in KERNELS} | forward_kernel_launches(cfg, b)
             ms = []
             for run in range(3):
                 ops.reset_launch_counts()
@@ -2280,9 +2460,9 @@ def check_archs(smi, ops, dev):
                 torch.cuda.synchronize()
                 ms.append(1e3 * (time.perf_counter() - t0))
                 launches = ops.launch_counts()
-                if launches != want:
+                if launches != pre_want:
                     raise AssertionError(f"{arch}: prefill {b} x {t} launched "
-                                         f"{launches}, expected {want}")
+                                         f"{launches}, expected {pre_want}")
                 if (logits.shape != (b, cfg.vocab_size)
                         or not torch.isfinite(logits).all()):
                     raise AssertionError(f"{arch}: prefill logits are not finite "
@@ -2371,7 +2551,8 @@ def moe_on_card(smi, ops, dev):
     finally:
         model_mod.Model.init = real_init
     groups = adamw_groups(FlatLayout.from_tree(card["final_params"], device=dev))
-    if launches != {k: 0 for k in KERNELS} | {"fused_adamw_stats": job["steps"] * groups}:
+    if launches != {k: 0 for k in KERNELS} | {"fused_adamw_stats": job["steps"] * groups} \
+            | history_dense_launches(get_smoke_config(job["arch"]), card):
         raise AssertionError(f"MoE ACCUM-NORM launched {launches}")
     if card["global_batch"] != cpu["global_batch"]:
         raise AssertionError(f"batch trajectory: card {card['global_batch']} vs "
@@ -2473,7 +2654,8 @@ def serve_path(smi, ops, dev):
         lambda: prefill(params, {"tokens": tokens}), "prefill")
     layers = cfg.num_layers
     want = {k: 0 for k in KERNELS} | {"flash_attention": layers,
-                                      "rmsnorm": 2 * layers + 1}
+                                      "rmsnorm": 2 * layers + 1,
+                                      "dense": forward_kernel_launches(cfg, PREFILL_BATCH)["dense"]}
     if launches != want:
         raise AssertionError(f"prefill launched {launches}, expected {want}")
     if logits.shape != (PREFILL_BATCH, cfg.vocab_size) or not torch.isfinite(logits).all():
@@ -2604,6 +2786,7 @@ def dryrun_phase(smi, ops, dev, plan) -> dict:
     phase's real launches."""
     from repro_torch.configs import ALL_ARCHS, get_config
     from repro_torch.distributed.train_step import make_accum_norm_step
+    from repro_torch.kernels.dense import MIN_ROWS
     from repro_torch.kernels.flash_attention import attended_pairs
     from repro_torch.launch import dryrun, roofline
     from repro_torch.models.model import build_model
@@ -2667,7 +2850,8 @@ def dryrun_phase(smi, ops, dev, plan) -> dict:
         cfg = get_config(arch).replace(num_layers=ARCH_LAYERS.get(arch, 1))
         b, t = ARCH_PREFILL.get(arch, (PREFILL_BATCH, PREFILL_LEN))
         tr, _ = dryrun.trace_prefill(cfg, prefill_like(cfg, b, t), None, dev)
-        want = forward_kernel_launches(cfg)
+        want = forward_kernel_launches(cfg, b)
+        want["dense"] += b < MIN_ROWS      # the head's einsum: a call the trace counts
         got = {k: tr.kernel_calls[k] for k in want}
         rl = roofline.roofline_terms(tr.cost)
         say("dryrun", check="forward", arch=arch, layers=cfg.num_layers, batch=b,
@@ -2971,7 +3155,8 @@ def resume_accum(smi, ops, layout):
         layers = RESUME_ACCUM_LAYERS
         want = {k: 0 for k in KERNELS} | {"fused_adamw_stats": 2 * groups,
                                           "flash_attention": layers,
-                                          "rmsnorm": 2 * layers + 1}
+                                          "rmsnorm": 2 * layers + 1} | history_dense_launches(
+            T.get_config(RESUME_JOB["arch"]), resumed)
         if launches != want:
             raise AssertionError(f"resumed path launched {launches}, expected {want}")
         nbytes = same_checkpoint(f"{tmp}/ref", run["checkpoint_dir"], 6)
@@ -3005,7 +3190,7 @@ def resume_fsdp_rank(job, root):
     full = T.get_config
     T.get_config = lambda arch: full(arch).replace(num_layers=RESUME_FSDP_LAYERS)
     keep = ("loss", "global_batch", "samples", "var_l1", "val_loss",
-            "resumed_from", "time", "ranks")
+            "resumed_from", "time", "ranks", "micro_steps")
     runs = (("ref", dict(checkpoint_dir=f"{root}/ref")),
             ("first", dict(steps=4, checkpoint_dir=f"{root}/run",
                            checkpoint_every=2)),
@@ -3031,6 +3216,7 @@ def resume_fsdp(smi, fsdp_layout):
     equal the uninterrupted run's bit for bit."""
     import shutil
     import tempfile
+    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn_workers
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -3044,7 +3230,8 @@ def resume_fsdp(smi, fsdp_layout):
         layers = RESUME_FSDP_LAYERS
         want = {k: 0 for k in KERNELS} | {
             "fused_stats": 2, "fused_adamw_stats": 2 * adamw_groups(fsdp_layout),
-            "flash_attention": layers, "rmsnorm": 2 * layers + 1}
+            "flash_attention": layers, "rmsnorm": 2 * layers + 1} | history_dense_launches(
+            get_config(RESUME_FSDP_JOB["arch"]).replace(num_layers=layers), out["resumed"])
         got = [r["launches"] for r in out["resumed"]["ranks"]]
         if got != [want, want]:
             raise AssertionError(f"resumed ranks launched {got}, expected {want} each")
@@ -3223,7 +3410,8 @@ def mixed_and_local(smi, ops, dev):
         if cpu["launches"] != {k: 0 for k in KERNELS}:
             raise AssertionError(f"the CPU round launched {cpu['launches']}")
         want = {k: 0 for k in KERNELS} | {"fused_stats": 1,
-                                          "fused_adamw_stats": LOCAL_H * card["groups"]}
+                                          "fused_adamw_stats": LOCAL_H * card["groups"]} \
+            | train_dense_launches(small_config(), LOCAL_H)
         if card["launches"] != want:
             raise AssertionError(f"rank {rank} local round launched "
                                  f"{card['launches']}, expected {want}")
@@ -3637,6 +3825,7 @@ def main() -> int:
         device=dev)
     list_err = check_bucket_kernels(dev, tol, hyper, sum_rtol, shard_layout)
     check_serving_kernels(dev)
+    dense_rows = dense_phase(smi, dev)
     lap("check")
     arch_launches, arch_err = check_archs(smi, ops, dev)
     lap("archs")
@@ -3692,15 +3881,18 @@ def main() -> int:
                                              f"{a[k]} vs {b[k]}")
             if any(cpu["launches"].values()):
                 raise AssertionError(f"a CPU run launched a kernel: {cpu['launches']}")
-        steps = len(batches)
+        steps, micro = len(batches), fplan.accum_steps
         zero = {k: 0 for k in KERNELS}
         # the flat tail: one launch a step of each list kernel per dtype
         # group; the tree routes likewise, over every leaf (the statistic's
-        # check is one call over f32 g_j and g)
+        # check is one call over f32 g_j and g, from one more pass over the
+        # first batch's microbatches)
         want = {"flat": zero | {"fused_stats": steps,
-                                "fused_adamw_stats": steps * out["flat/cuda"]["adamw_groups"]},
+                                "fused_adamw_stats": steps * out["flat/cuda"]["adamw_groups"]}
+                | train_dense_launches(cfg, steps * micro),
                 "tree": zero | {"fused_adamw": steps * out["tree/cuda"]["param_dtypes"],
-                                "sqdiff_norm": 1}}
+                                "sqdiff_norm": 1}
+                | train_dense_launches(cfg, (steps + 1) * micro)}
         for impl in ("flat", "tree"):
             if out[f"{impl}/cuda"]["launches"] != want[impl]:
                 raise AssertionError(f"rank {rank} {impl} launches "
@@ -3748,10 +3940,11 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     layout = FlatLayout.from_tree(hist["final_params"], device=dev)
     expect = TRAIN_JOB["steps"] * adamw_groups(layout)
-    if launches != {k: 0 for k in KERNELS} | {"fused_adamw_stats": expect}:
+    dense = history_dense_launches(get_config(TRAIN_JOB["arch"]), hist)
+    if launches != {k: 0 for k in KERNELS} | {"fused_adamw_stats": expect} | dense:
         raise AssertionError(f"ACCUM-NORM launches {launches}, expected "
                              f"{expect} fused_adamw_stats (one a step per dtype "
-                             f"group) and nothing else")
+                             f"group), {dense} and nothing else")
     say("train", nvidia_smi=smi, params=sum(layout.buffer_sizes),
         buckets=layout.num_buffers, launches=launches, peak_mem_bytes=peak,
         **check_train(TRAIN_JOB, hist))
@@ -3770,7 +3963,8 @@ def main() -> int:
     steps = FSDP_JOB["steps"]
     for rank, r in enumerate(hist["ranks"]):
         want = {k: 0 for k in KERNELS} | {"fused_stats": steps,
-                                          "fused_adamw_stats": steps * adamw_groups(fsdp_layout)}
+                                          "fused_adamw_stats": steps * adamw_groups(fsdp_layout)} \
+            | history_dense_launches(get_config(FSDP_JOB["arch"]), hist)
         if r["launches"] != want:
             raise AssertionError(f"rank {rank} launched {r['launches']}, expected "
                                  f"{want} (one a step per dtype group, over "
@@ -3780,7 +3974,7 @@ def main() -> int:
     if ops.launch_counts() != {k: 0 for k in launches}:
         raise AssertionError("the parent launched kernels during the ranks' run")
     fsdp_launches = {k: sum(r["launches"][k] for r in hist["ranks"])
-                     for k in ("fused_stats", "fused_adamw_stats")}
+                     for k in ("fused_stats", "fused_adamw_stats", "dense")}
     say("fsdp", nvidia_smi=smi, workers=hist["workers"], backend="gloo",
         buckets=fsdp_layout.num_buffers, ranks=hist["ranks"],
         **check_train(FSDP_JOB, hist))
@@ -4035,10 +4229,11 @@ def main() -> int:
     # launches: the FSDP main path's run (both ranks) for the flat kernels,
     # the tree run of phase 5 (both ranks, on the card) for the per-tensor
     # ones, serving's path (prefill, run_serving, continuous) and the archs
-    # phase's forwards and prefills for the rest
+    # phase's forwards and prefills for the rest; dense's in all three
     path_launches = {**fsdp_launches, **tree_launches,
                      **{k: serve_launches[k] + arch_launches[k]
                         for k in ("rmsnorm", "flash_attention")}}
+    path_launches["dense"] += serve_launches["dense"] + arch_launches["dense"]
     # and the mesh phase's 2 x 2 grid, mesh-kinds', seqpar's and serve-mesh's
     # runs (every rank), and the examples'
     path_launches = {k: n + mesh_launches[k] + kinds_launches[k] + sp_launches[k]
@@ -4060,6 +4255,16 @@ def main() -> int:
             "bound_ms": bound,
             "bound_by": "bytes" if t["bound_bytes_ms"] >= ops_ms else "operations",
             "library_ms": min(t["library_ms"])})
+    # the dense GEMM replaces no TPU kernel: its products at the main path's
+    # shapes (phase dense), summed; its error against the f64 product is
+    # relative (max abs error over the largest magnitude)
+    entries.append({
+        "name": "dense", "route": "cuda", "source": "src/repro_torch/kernels/csrc/dense.cu",
+        "replaces": None, "launches": path_launches["dense"],
+        "max_rel_err": max(r["kernel"] for r in dense_rows.values()),
+        "ms": sum(r["ms"] for r in dense_rows.values()),
+        "bound_ms": sum(r["bound_ms"] for r in dense_rows.values()), "bound_by": "operations",
+        "library_ms": sum(r["matmul_ms"] for r in dense_rows.values())})
     say("total", seconds=round(time.time() - t_start, 3), phase_seconds=laps)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
@@ -4071,7 +4276,8 @@ def main() -> int:
 
 def phase_alone(phase: str, layers: int | None) -> int:
     """`python3 chip_smoke.py mesh|mesh-kinds|seqpar|serve-mesh|dryrun|
-    analysis|examples [layers]`: the device, the build and that phase alone
+    analysis|examples|dense [layers]`: the device, the build (dense: its
+    own source alone, its compiler log printed) and that phase alone
     (mesh and seqpar at `layers` layers, mesh-kinds with mamba2 at
     `layers`; dryrun at DRYRUN_PLAN), nothing else (no result line)."""
     global MESH_LAYERS, SEQPAR_LAYERS
@@ -4084,8 +4290,13 @@ def phase_alone(phase: str, layers: int | None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    kernels.build_all(sorted(p.stem for p in kernels.CSRC.glob("*.cu")))
-    if phase == "dryrun":
+    logs = kernels.build_all(["dense"] if phase == "dense" else
+                             sorted(p.stem for p in kernels.CSRC.glob("*.cu")))
+    if phase == "dense":
+        say("build", ptxas=[line.strip() for log in logs.values()
+                            for line in log.splitlines() if line.strip()])
+        dense_phase(smi, torch.device("cuda"))
+    elif phase == "dryrun":
         dryrun_phase(smi, ops, torch.device("cuda"), DRYRUN_PLAN)
     elif phase == "analysis":
         analysis_phase(smi)
@@ -4110,6 +4321,6 @@ def phase_alone(phase: str, layers: int | None) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] in (["mesh"], ["mesh-kinds"], ["seqpar"], ["serve-mesh"], ["dryrun"],
-                         ["analysis"], ["examples"]):
+                         ["analysis"], ["examples"], ["dense"]):
         sys.exit(phase_alone(sys.argv[1], int(sys.argv[2]) if len(sys.argv) > 2 else None))
     sys.exit(main())

@@ -14,7 +14,11 @@ version bucket by bucket on the CPU) and the serving path's forward-only
 `rmsnorm` and `flash_attention`, whose kernels raise under grad mode on a
 tensor that requires grad.  The model calls those two wherever the card
 launches them, on every device, and hands them its own plain code for the
-CPU (`plain=`).
+CPU (`plain=`).  `dense`, the model's products against its weights, routes
+by what it is given: f32 operands on the card with at least one wgmma row
+tile of rows take the split-TF32 kernel, forward and both gradients; every
+other call (decode's rows, bf16, the CPU, a `torch.func` transform) the
+einsum it names.
 
 Each kernel is a PyTorch custom op (`repro_torch::<name>`) with a fake
 implementation, so under `FakeTensorMode` a fake CUDA tensor takes the
@@ -26,9 +30,12 @@ that ran a plain version, counted as the launches the card would make.
 from __future__ import annotations
 
 import contextlib
+import functools
+import math
 
 import torch
 
+from repro_torch.kernels import dense as _dense
 from repro_torch.kernels import fused_adamw as _fa
 from repro_torch.kernels import fused_stats as _fs
 from repro_torch.kernels import ref
@@ -219,6 +226,51 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                    softcap=softcap)
 
 
+@functools.cache
+def _dense_plan(eq: str) -> tuple:
+    """(contracted dims, w K-major) of an einsum `eq` that contracts x's
+    trailing dims with w's leading dims (w stored (K, ...), N-major) or
+    with its trailing dims (the head's (v, d) table, K-major), the output
+    being x's free dims, then w's."""
+    ins, out = eq.replace("...", "").split("->")
+    xs, ws = ins.split(",")
+    n = sum(ch in ws for ch in xs)
+    tail = xs[len(xs) - n:]
+    if n and all(ch not in out for ch in tail):
+        if ws[:n] == tail and out == xs[:-n] + ws[n:]:
+            return n, False
+        if ws[len(ws) - n:] == tail and out == xs[:-n] + ws[:-n]:
+            return n, True
+    raise ValueError(f"dense: {eq!r} is not a product against a weight")
+
+
+def _dense_routed(x, w, rows: int) -> bool:
+    """The kernel's rule, read off the operands: both float32 on the card
+    and at least one wgmma row tile of rows, outside a `torch.func`
+    transform (`Dense` has no vmap rule: per-sample gradients keep the
+    einsum)."""
+    return (x.device.type == "cuda" and x.dtype == torch.float32
+            and w.dtype == torch.float32 and rows >= _dense.MIN_ROWS
+            and not torch._C._are_functorch_transforms_active())
+
+
+def dense(eq: str, x, w):
+    """`torch.einsum(eq, x, w)` for x against a weight w (`_dense_plan`).
+    Both float32 on the card with at least `MIN_ROWS` rows (x's free dims):
+    the split-TF32 kernel through `Dense`, whose backward launches it for
+    dX and dW; otherwise the einsum."""
+    kdims, w_kmajor = _dense_plan(eq)
+    k = math.prod(x.shape[x.dim() - kdims:])
+    rows = x.numel() // k if k else 0
+    if _dense_routed(x, w, rows):
+        w2 = w.reshape(-1, k).t() if w_kmajor else w.reshape(k, -1)
+        free = w.shape[:w.dim() - kdims] if w_kmajor else w.shape[kdims:]
+        y = _dense.Dense.apply(x.reshape(rows, k), w2)
+        return y.view(*x.shape[:x.dim() - kdims], *free)
+    _PLAIN_CALLS["dense"] += 1
+    return torch.einsum(eq, x, w)
+
+
 def flat_dispatch_info(device) -> dict:
     """Which implementation the flat hot path (the statistics pair and the
     AdamW tail) runs for tensors on `device`."""
@@ -231,7 +283,7 @@ def flat_dispatch_info(device) -> dict:
 
 # the calls above that ran a plain version (off the card), each counted as
 # the launches the card would make for it (one per dtype group of a list
-# call)
+# call; a `dense` call that took the einsum counts once)
 _PLAIN_CALLS = {}
 
 
@@ -250,7 +302,7 @@ def call_counts() -> dict:
 _COUNTED = {"fused_adamw_stats": _fa.fused_adamw_stats,
             "fused_adamw": _fa.fused_adamw, "fused_stats": _fs.fused_stats,
             "sqdiff_norm": _sqdiff_norm, "rmsnorm": _rmsnorm,
-            "flash_attention": _flash_attention}
+            "flash_attention": _flash_attention, "dense": _dense.dense_mm}
 
 
 _PLAIN_CALLS.update({name: 0 for name in _COUNTED})

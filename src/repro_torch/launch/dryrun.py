@@ -27,8 +27,9 @@ trace records:
   temporary peak above them, `peak_bytes`, and `fits` (peak ≤ the card's
   memory);
 * cost: FLOPs from `torch.utils.flop_counter.FlopCounterMode` (with
-  `flash_attention`'s formula: 4·d a (query, key) pair its masks admit),
-  split by the class each product runs at (`roofline.PEAKS`); bytes
+  `flash_attention`'s formula: 4·d a (query, key) pair its masks admit;
+  `dense`'s 2·M·N·K), split by the class each product runs at
+  (`roofline.PEAKS`: the two kernels' f32 products at `split_tf32`); bytes
   accessed, the input and output bytes of every dispatched op that moves
   data (no view, allocation or metadata read), an in-place operand read
   and written once each, a gather's source counted as the rows it reads;
@@ -89,7 +90,9 @@ from repro_torch.tree import tree_flatten, tree_map
 _NO_TRAFFIC = {"aten::empty", "aten::empty_strided", "aten::empty_like",
                "aten::new_empty", "aten::new_empty_strided", "aten::detach",
                "aten::lift_fresh", "aten::_unsafe_view", "aten::alias"}
-_FLASH = "repro_torch::flash_attention"
+# the kernels whose f32 products run as three TF32 products on the tensor
+# cores (`roofline.PEAKS["split_tf32"]`)
+_SPLIT_TF32 = {"repro_torch::flash_attention", "repro_torch::dense"}
 # ops that read only the rows they return from their source (the first
 # argument; `embedding`'s table): the source counts as the result's bytes
 _GATHERS = {"aten::embedding", "aten::index_select", "aten::gather",
@@ -133,9 +136,9 @@ def _traffic(func):
 
 def compute_class(func, args) -> str:
     """The rate class of a counted product: its first operand's dtype, and
-    `split_tf32` for the f32 flash kernel's products."""
+    `split_tf32` for the f32 products of the flash and dense kernels."""
     name = str(_tensors(args)[0].dtype).removeprefix("torch.")
-    if func._schema.name == _FLASH and name == "float32":
+    if func._schema.name in _SPLIT_TF32 and name == "float32":
         return "split_tf32"
     return name
 

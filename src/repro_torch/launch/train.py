@@ -486,7 +486,7 @@ def _train(job: TrainJob) -> dict:
 
     history = {"step": [], "loss": [], "val_loss": [], "global_batch": [],
                "T": [], "var_l1": [], "grad_sqnorm": [], "samples": [],
-               "time": [], "accum_steps": [], "opt_steps": [],
+               "time": [], "accum_steps": [], "opt_steps": [], "micro_steps": [],
                "pred_rung": [], "pred_eta": []}
     history["workers"] = workers
     samples = 0
@@ -611,6 +611,7 @@ def _train(job: TrainJob) -> dict:
                           * sub_plan.global_batch / plan.global_batch)
                 gsq = float(metrics["grad_sqnorm"])
                 exec_plan, opt_steps = sub_plan, repeats
+                micro_steps = repeats
             else:
                 if engine is not None:
                     batch_np = pad_to_bucket(batch_np, plan, bucket)
@@ -625,6 +626,8 @@ def _train(job: TrainJob) -> dict:
                 loss = float(metrics["loss"])
                 samples += plan.global_batch
                 exec_plan, opt_steps = plan, 1
+                # the microbatches the step ran: its bucket's M when padded
+                micro_steps = len(batch_np["tokens"])
             step += 1
             if job.schedule == "adaptive":
                 ctrl = controller_update(ctrl_cfg, ctrl, var_l1, gsq)
@@ -659,6 +662,7 @@ def _train(job: TrainJob) -> dict:
             history["time"].append(time.time() - t0)
             history["accum_steps"].append(exec_plan.accum_steps)
             history["opt_steps"].append(opt_steps)
+            history["micro_steps"].append(micro_steps)
             history["pred_rung"].append(
                 ctrl.pred_rung if job.schedule == "adaptive" else 0)
             history["pred_eta"].append(

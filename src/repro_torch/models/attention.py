@@ -16,7 +16,10 @@ reference's TPU drop-in for the same math; so does cross-attention there,
 non-causal over the encoder's frames (decode steps included).  Off the
 card such a forward calls the same entry point, which runs the plain code
 passed to it.  Decode's self-attention runs the plain `_sdpa_grouped`, as
-the reference does.
+the reference does.  The products against the weights (q, k, v and the
+output projection) go through `kernels.ops.dense`: the split-TF32 GEMM
+kernel, gradients included, for f32 on the card with at least 64 rows, the
+einsum for every other call (decode's rows, bf16, the CPU).
 
 Tensor parallelism (`distributed/sharding.py`): when `wq` holds fewer
 heads than the config's `num_heads`, it is this rank's shard over the
@@ -77,9 +80,9 @@ def init_attention(gen, d_model: int, num_heads: int, num_kv_heads: int,
 
 
 def _project_qkv(params, x, positions, rope_theta, qk_norm: bool):
-    q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(x.dtype))
-    k = torch.einsum("btd,dhk->bthk", x, params["wk"].to(x.dtype))
-    v = torch.einsum("btd,dhk->bthk", x, params["wv"].to(x.dtype))
+    q = ops.dense("btd,dhk->bthk", x, params["wq"].to(x.dtype))
+    k = ops.dense("btd,dhk->bthk", x, params["wk"].to(x.dtype))
+    v = ops.dense("btd,dhk->bthk", x, params["wv"].to(x.dtype))
     if qk_norm:
         q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-6)
         k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-6)
@@ -226,7 +229,7 @@ def attend_full(params, x, positions, *, rope_theta, softcap=0.0, window=0,
         out = ops.flash_attention(q, k, v, causal=causal,
                                   window=window if causal else 0,
                                   softcap=softcap, plain=plain)
-    out = torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
+    out = ops.dense("bthk,hkd->btd", out, params["wo"].to(x.dtype))
     out = (stream_scatter(out) if shard is None
            else maybe_shard(out, "batch", "seq", "embed"))
     return (out, *kv) if return_kv else out
@@ -241,7 +244,7 @@ def cross_attend(params, x, kv_source, *, softcap=0.0, num_heads=None,
     `tp_enter`)."""
     shard = _tp_heads(params, num_heads)
     x = stream_gather(x) if shard is None else stream_enter(x)
-    q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(x.dtype))
+    q = ops.dense("btd,dhk->bthk", x, params["wq"].to(x.dtype))
     if isinstance(kv_source, dict):
         k, v = kv_source["k"].to(x.dtype), kv_source["v"].to(x.dtype)
     else:
@@ -255,14 +258,14 @@ def cross_attend(params, x, kv_source, *, softcap=0.0, num_heads=None,
     else:
         out = ops.flash_attention(q, k, v, causal=False, softcap=softcap,
                                   plain=lambda: _sdpa(q, k, v, None, softcap))
-    out = torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
+    out = ops.dense("bthk,hkd->btd", out, params["wo"].to(x.dtype))
     return (stream_scatter(out) if shard is None
             else maybe_shard(out, "batch", "seq", "embed"))
 
 
 def precompute_cross_kv(params, enc_out):
-    return {"k": torch.einsum("bsd,dhk->bshk", enc_out, params["wk"].to(enc_out.dtype)),
-            "v": torch.einsum("bsd,dhk->bshk", enc_out, params["wv"].to(enc_out.dtype))}
+    return {"k": ops.dense("bsd,dhk->bshk", enc_out, params["wk"].to(enc_out.dtype)),
+            "v": ops.dense("bsd,dhk->bshk", enc_out, params["wv"].to(enc_out.dtype))}
 
 
 # ------------------------------------------------------------- KV cache ----
@@ -372,7 +375,7 @@ def attend_decode(params, x, cache, pos, *, rope_theta, softcap=0.0,
         if shard is not None:
             k, v = _local_kv(k, v, shard, num_heads, num_kv_heads)
         out = _sdpa_grouped(q, k, v, mask, softcap)
-    out = torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
+    out = ops.dense("bthk,hkd->btd", out, params["wo"].to(x.dtype))
     if shard is not None:
         out = maybe_shard(out, "batch", "seq", "embed")
     return out, cache

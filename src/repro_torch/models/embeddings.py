@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (
     model_axis, stream_exit, stream_scatter, tp_enter, tp_reduce)
+from repro_torch.kernels import ops
 from repro_torch.models.common import normal_init
 
 
@@ -70,11 +71,12 @@ def unembed(params, x, tied_table=None, vocab: int | None = None,
             entered: bool = False):
     """Project hidden states to vocab logits (tied or untied); a vocab
     shard gives this rank's columns, x entering through `tp_enter` unless
-    it has `entered` already (the sequence-parallel gather)."""
+    it has `entered` already (the sequence-parallel gather).  The product
+    goes through `kernels.ops.dense`, the table read K-major in place."""
     table = tied_table if tied_table is not None else params["table"]
     if vocab_shard(table, vocab) is not None and not entered:
         x = tp_enter(x)
-    return torch.einsum("...d,vd->...v", x, table.to(x.dtype))
+    return ops.dense("...d,vd->...v", x, table.to(x.dtype))
 
 
 # ---------------------------------------------------------------- RoPE ----

@@ -7,7 +7,9 @@ Tensor parallelism: when `w_up` holds fewer columns than the config's
 at the reference's exit (under sequence parallelism: the stream's slices
 all-gathered at the entry, the sum reduce-scattered at the exit).  Whole
 leaves on a sequence-parallel stream run on the gathered rows, and the
-rank keeps its slice of the result."""
+rank keeps its slice of the result.  The products against the weights go
+through `kernels.ops.dense` (the split-TF32 GEMM kernel for f32 on the card
+with at least 64 rows, else the einsum)."""
 
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (
     maybe_shard, model_axis, stream_enter, stream_gather, stream_scatter)
+from repro_torch.kernels import ops
 from repro_torch.models.common import normal_init
 
 
@@ -44,18 +47,18 @@ def apply_mlp(params, x, kind: str, d_ff: int | None = None):
                and model_axis() is not None)
     x = stream_enter(x) if sharded else stream_gather(x)
     if kind in ("swiglu", "geglu"):
-        gate = torch.einsum("btd,df->btf", x, params["w_gate"].to(x.dtype))
-        up = torch.einsum("btd,df->btf", x, params["w_up"].to(x.dtype))
+        gate = ops.dense("btd,df->btf", x, params["w_gate"].to(x.dtype))
+        up = ops.dense("btd,df->btf", x, params["w_up"].to(x.dtype))
         act = F.silu(gate) if kind == "swiglu" else _gelu(gate)
         h = act * up
     else:
-        h = torch.einsum("btd,df->btf", x, params["w_up"].to(x.dtype))
+        h = ops.dense("btd,df->btf", x, params["w_up"].to(x.dtype))
         if kind == "gelu":
             h = _gelu(h)
         elif kind == "relu2":
             h = torch.square(F.relu(h))
         else:
             raise ValueError(kind)
-    out = torch.einsum("btf,fd->btd", h, params["w_down"].to(x.dtype))
+    out = ops.dense("btf,fd->btd", h, params["w_down"].to(x.dtype))
     return (maybe_shard(out, "batch", "seq", "embed") if sharded
             else stream_scatter(out))

@@ -151,9 +151,11 @@ def test_config_and_param_count_equal_reference(arch):
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_forward_kernel_launches_count_each_kernel_call(arch, monkeypatch):
     """`forward_kernel_launches` — what chip_smoke.py and the card tests
-    expect a forward with grad mode off to launch — equals the RMSNorm and
-    attention calls a forward makes, counted on the CPU where the same
-    calls reach the kernels' plain versions."""
+    expect a forward with grad mode off to launch — equals the RMSNorm,
+    attention and dense-projection calls a forward makes, counted on the
+    CPU where the same calls reach the kernels' plain versions (every
+    `ops.dense` call the einsum, counted once)."""
+    from repro_torch.kernels import ops
     calls = {"flash_attention": 0, "rmsnorm": 0}
     real_norm, real_sdpa = norms.apply_norm, attention._sdpa
 
@@ -171,9 +173,40 @@ def test_forward_kernel_launches_count_each_kernel_call(arch, monkeypatch):
     cfg = get_smoke_config(arch)
     model = build_model(cfg)
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, 2, 8, seed=0).items()}
+    params = model.init(0, "cpu")
+    before = ops.call_counts()["dense"]
     with torch.no_grad():
-        model.loss(model.init(0, "cpu"), batch)
+        model.loss(params, batch)
+    calls["dense"] = ops.call_counts()["dense"] - before
     assert calls == forward_kernel_launches(cfg)
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_forward_kernel_launches_count_the_dense_products_a_prefill_routes(
+        arch, monkeypatch):
+    """`forward_kernel_launches(cfg, prefill_batch=b)["dense"]`, what the
+    card launches in a prefill, equals the `ops.dense` calls of a prefill
+    with at least `MIN_ROWS` rows (the rows the kernel's rule reads), and
+    of a loss forward all of them: 4 prompts of 64 tokens (whisper's smoke
+    encoder 4 x 16 frames), so that only a prefill's head (one row a
+    prompt) falls under the rule."""
+    from repro_torch.kernels import dense as dense_mod
+    from repro_torch.kernels import ops
+    rows = []
+    monkeypatch.setattr(ops, "_dense_routed",
+                        lambda x, w, n: rows.append(n) or False)
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    params = model.init(0, "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, 4, 64, seed=0).items()}
+    with torch.no_grad():
+        model.loss(params, batch)
+        loss_rows, rows[:] = list(rows), []
+        model.prefill(params, {k: v for k, v in batch.items() if k != "labels"})
+    routed = lambda ns: sum(n >= dense_mod.MIN_ROWS for n in ns)
+    assert routed(loss_rows) == len(loss_rows) == forward_kernel_launches(cfg)["dense"]
+    assert routed(rows) == forward_kernel_launches(cfg, prefill_batch=4)["dense"]
+    assert len(rows) == routed(rows) + 1                  # the head's 4 rows
 
 
 @pytest.mark.parametrize("arch", ARCHS)

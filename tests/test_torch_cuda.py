@@ -16,7 +16,12 @@ flash f32 is held to 2e-5 of the f64 attention instead, see
 `test_cuda_flash_attention_large_logits`); bf16 outputs to one bf16
 rounding (2^-7 relative, 1e-2 absolute).  The list entry points over many buckets are
 held against the plain versions bucket by bucket at the same tolerances,
-and two calls on the same inputs must give the same bits.
+and two calls on the same inputs must give the same bits.  The dense
+split-TF32 GEMM is held to the f64 product: at most twice cuBLAS's f32
+error (`torch.matmul`, TF32 off) at every main-path product, and on ragged
+shapes also under `DENSE_FLOOR` (a short sum: cuBLAS's error is a rounding
+of the output, the kernel keeps its split's ~2^-22 a product); its
+gradients against the einsum's at rtol 1e-5.
 """
 
 import dataclasses
@@ -28,6 +33,7 @@ import torch
 
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import dense as dense_mod
 from repro_torch.kernels.buckets import TABLES
 from repro_torch.kernels.fused_adamw import (
     adamw_scalars, fused_adamw, fused_adamw_stats, fused_adamw_stats_buckets)
@@ -39,6 +45,7 @@ from repro_torch.models.model import build_model
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
+    DENSE_FLOOR, DENSE_RAGGED, DENSE_ROWS, DENSE_SHAPES, dense_errors, dense_operands,
     forward_kernel_launches, frontend_inputs, prefill_vs_decode)
 
 SIZES = [1, 17, 1_000_003]
@@ -395,9 +402,8 @@ def test_cuda_dense_configs_forward_without_grad_and_prefill(cuda, arch):
     ops.reset_launch_counts()
     with torch.no_grad():
         fast = model.loss(params, batch)[0]
-    counts = ops.launch_counts()
-    assert {k: counts[k] for k in ("flash_attention", "rmsnorm")} == \
-        forward_kernel_launches(cfg), counts
+    counts, want = ops.launch_counts(), forward_kernel_launches(cfg)
+    assert {k: counts[k] for k in want} == want, counts
     torch.testing.assert_close(fast, plain.detach(), rtol=1e-5, atol=0)
     if cfg.moe is not None:
         model = build_model(cfg.replace(moe=dataclasses.replace(
@@ -527,3 +533,180 @@ def test_cuda_serve_engine_graph_rungs_match_the_cpu(cuda):
         assert eng.stats.transition_hits == eng.stats.rung_transitions >= 1
         out[d] = [q.generated for q in reqs]
     assert out["cuda"] == out["cpu"]
+
+
+# ------------------------------------------------------------- dense GEMM
+
+@pytest.fixture
+def f32_matmul(cuda):
+    """cuBLAS in full f32 for the yardstick, as the training step sets it."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fwd", "dx", "dw"])
+@pytest.mark.parametrize("name,k,n,table", DENSE_SHAPES)
+def test_cuda_dense_main_path_products_within_twice_cublas(cuda, f32_matmul, name, k, n,
+                                                           table, kind):
+    """Each main-path product (phi3-mini's widths, 4096 rows) in the layout
+    `Dense` hands it: the error against f64 at most 2 x cuBLAS's f32 error,
+    a rerun bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    a, b = dense_operands(DENSE_ROWS, k, n, table, gen, cuda)[kind]
+    e = dense_errors(dense_mod.dense_mm, a, b)
+    assert e["rerun_equal"] and e["kernel"] <= 2 * e["matmul"], e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("a_k,b_k", [(True, True), (True, False), (False, True),
+                                     (False, False)])
+@pytest.mark.parametrize("m,n,k", DENSE_RAGGED)
+def test_cuda_dense_ragged_every_layout(cuda, f32_matmul, m, n, k, a_k, b_k, offset):
+    """Ragged M, N and K in every layout, 16-byte copies (offset 0) and
+    4-byte ones (a view one element in): masked edges, no padding."""
+    gen = torch.Generator(device=cuda).manual_seed(m * n + k)
+    a = torch.randn(m * k + offset, device=cuda, generator=gen)[offset:]
+    b = torch.randn(k * n + offset, device=cuda, generator=gen)[offset:]
+    a = a.view(m, k) if a_k else a.view(k, m).t()
+    b = b.view(n, k).t() if b_k else b.view(k, n)
+    e = dense_errors(dense_mod.dense_mm, a, b)
+    assert e["rerun_equal"] and e["kernel"] <= max(2 * e["matmul"], DENSE_FLOOR), e
+
+
+EINSUMS = [  # every product the model routes, at 128 rows
+    ("btd,dhk->bthk", (2, 64, 96), (96, 4, 24)),
+    ("bthk,hkd->btd", (2, 64, 4, 24), (4, 24, 96)),
+    ("btd,df->btf", (1, 128, 96), (96, 200)),
+    ("btf,fd->btd", (1, 128, 200), (200, 96)),
+    ("...d,vd->...v", (2, 64, 96), (1000, 96)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eq,xs,ws", EINSUMS)
+def test_cuda_dense_gradients_match_the_einsum(cuda, f32_matmul, eq, xs, ws):
+    """`ops.dense` on f32 with >= 64 rows: one launch forward, two
+    backward, output and both gradients the einsum's; decode's rows and
+    bf16 take the einsum and launch nothing."""
+    gen = torch.Generator(device=cuda).manual_seed(len(eq))
+    x = torch.randn(*xs, device=cuda, generator=gen, requires_grad=True)
+    w = torch.randn(*ws, device=cuda, generator=gen, requires_grad=True)
+    y = torch.einsum(eq, x, w)
+    dy = torch.randn(y.shape, device=cuda, generator=gen)
+    want = torch.autograd.grad(y, (x, w), dy)
+    before = ops.launch_counts()["dense"]
+    got_y = ops.dense(eq, x, w)
+    got = torch.autograd.grad(got_y, (x, w), dy)
+    assert ops.launch_counts()["dense"] == before + 3
+    # two f32 sums of up to 1000 terms in different orders: an error of
+    # the order of 1e-6 of the largest magnitude
+    close = lambda a, b: torch.testing.assert_close(
+        a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
+    close(got_y, y)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.is_contiguous()
+        close(a, b)
+    calls = ops.call_counts()["dense"]
+    x1 = x.detach()[:1, :1]                  # one row: decode
+    torch.testing.assert_close(ops.dense(eq, x1, w.detach()),
+                               torch.einsum(eq, x1, w.detach()), rtol=0, atol=0)
+    xb, wb = x.detach().bfloat16(), w.detach().bfloat16()
+    assert torch.equal(ops.dense(eq, xb, wb), torch.einsum(eq, xb, wb))
+    assert ops.launch_counts()["dense"] == before + 3
+    assert ops.call_counts()["dense"] == calls + 2
+
+
+@pytest.mark.cuda
+def test_cuda_dense_per_sample_gradients_keep_the_einsum(cuda, f32_matmul):
+    """`torch.func.vmap(torch.func.grad(...))` over a model's loss, 96
+    tokens a sample (rows over `MIN_ROWS` in every product): `ops.dense`
+    takes the einsum inside the transform (`Dense` has no vmap rule) and
+    launches nothing; the per-sample gradients' mean is the batch's
+    gradient."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("microllama-300m")
+    model = build_model(cfg)
+    params = model.init(0, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (4, 97), device=cuda, generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss = lambda p, ex: model.loss(p, {k: v[None] for k, v in ex.items()})[0]
+    before = ops.launch_counts()["dense"]
+    per = torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))(params, batch)
+    assert ops.launch_counts()["dense"] == before
+    leaves = _leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    whole = torch.autograd.grad(model.loss(params, batch)[0], leaves)
+    for a, b in zip(_leaves(per), whole):
+        torch.testing.assert_close(a.mean(0), b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_dense_every_projection_of_a_training_step(cuda, f32_matmul):
+    """A smoke phi3-mini forward and backward on the card: three launches
+    (forward, dX, dW) for each of a layer's seven projections and the
+    head's; the loss and the gradients the plain einsums' (rows under 64
+    take the einsum: the same model at one row of 32 tokens)."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("phi3-mini-3.8b")
+    model = build_model(cfg)
+    params = model.init(0, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda, generator=gen)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    leaves = [p for p in _leaves(params)]
+    for p in leaves:
+        p.requires_grad_(True)
+    before = ops.launch_counts()["dense"]
+    loss = model.loss(params, batch)[0]
+    grads = torch.autograd.grad(loss, leaves)
+    assert ops.launch_counts()["dense"] - before == 3 * (7 * cfg.num_layers + 1)
+    old = dense_mod.MIN_ROWS
+    dense_mod.MIN_ROWS = 10 ** 9             # every product through the einsum
+    try:
+        plain = model.loss(params, batch)[0]
+        plain_grads = torch.autograd.grad(plain, leaves)
+    finally:
+        dense_mod.MIN_ROWS = old
+    torch.testing.assert_close(loss, plain, rtol=1e-5, atol=0)
+    for a, b in zip(grads, plain_grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+
+
+def _leaves(tree):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+@pytest.mark.cuda
+def test_cuda_dry_run_counts_the_step_flops_on_the_kernels_route(cuda):
+    """The dry-run's trace of a phi3-mini smoke ACCUM-NORM step on fake
+    CUDA tensors (the kernels' route) counts the same FLOPs as with every
+    product on the einsum, its projections (forward, dX, dW) in the
+    `split_tf32` class."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.shapes import InputShape, train_inputs
+    from repro_torch.launch import dryrun
+    cfg = get_smoke_config("phi3-mini-3.8b")
+    batch_like = train_inputs(cfg, InputShape("t", 64, 2, "train"))
+    routed, _ = dryrun.trace_train(cfg, batch_like, None, "cuda", step_impl="accum_norm")
+    old = dense_mod.MIN_ROWS
+    dense_mod.MIN_ROWS = 10 ** 9
+    try:
+        plain, _ = dryrun.trace_train(cfg, batch_like, None, "cuda", step_impl="accum_norm")
+    finally:
+        dense_mod.MIN_ROWS = old
+    assert routed.cost["flops"] == plain.cost["flops"]
+    rows = 2 * 64
+    per_layer = (2 * cfg.d_model * cfg.num_heads * cfg.head_dim
+                 + 2 * cfg.d_model * cfg.num_kv_heads * cfg.head_dim
+                 + 3 * cfg.d_model * cfg.d_ff)
+    want = 3 * 2 * rows * (cfg.num_layers * per_layer + cfg.d_model * cfg.vocab_size)
+    assert routed.cost["flops_by_class"]["split_tf32"] == want
+    assert routed.kernel_calls["dense"] == 3 * (7 * cfg.num_layers + 1)

@@ -264,7 +264,7 @@ def test_spawned_workers_train_and_report_their_launches():
     assert all(math.isfinite(x) for x in hist["loss"])
     assert [r["launches"] for r in hist["ranks"]] == [
         {"fused_adamw_stats": 0, "fused_adamw": 0, "fused_stats": 0,
-         "sqdiff_norm": 0, "rmsnorm": 0, "flash_attention": 0}] * 2
+         "sqdiff_norm": 0, "rmsnorm": 0, "flash_attention": 0, "dense": 0}] * 2
     leaves = tree_leaves(hist["final_params"])
     assert leaves and all(x.device.type == "cpu" for x in leaves)
 

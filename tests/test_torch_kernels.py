@@ -21,6 +21,7 @@ from repro_torch.kernels.buckets import GRID, plan
 from repro_torch.tree import tree_leaves
 from repro_torch.kernels.fused_adamw import (
     adamw_scalars, fused_adamw, fused_adamw_stats)
+from repro_torch.kernels.dense import dense_mm
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_stats import fused_stats
 from repro_torch.kernels.rmsnorm import rmsnorm
@@ -146,9 +147,11 @@ def test_dispatch_is_by_device_and_kernel_wrapper_refuses_cpu():
         rmsnorm(x, x)
     with pytest.raises(ValueError, match="CUDA device"):
         flash_attention(*(torch.zeros(1, 4, 2, 32) for _ in range(3)))
+    with pytest.raises(ValueError, match="CUDA device"):
+        dense_mm(torch.zeros(4, 3), torch.zeros(3, 5))
     assert ops.launch_counts() == {"fused_adamw_stats": 0, "fused_adamw": 0,
                                    "fused_stats": 0, "sqdiff_norm": 0,
-                                   "rmsnorm": 0, "flash_attention": 0}
+                                   "rmsnorm": 0, "flash_attention": 0, "dense": 0}
     meta = torch.zeros(8, device="meta")
     with pytest.raises(ValueError, match="no implementation"):
         ops.adamw_flat(meta, meta, meta, meta, lr=1e-3, beta1=0.9, beta2=0.95,

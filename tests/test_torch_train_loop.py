@@ -45,10 +45,14 @@ def test_quickstart_trajectory_matches_reference(monkeypatch):
                         params_from_jax(init_np, self.cfg, device))
     ht = ttrain.run_training(ttrain.TrainJob(device="cpu", **QUICKSTART))
     # the port adds what each worker ran (its kernel launches, peak memory)
-    assert sorted(set(ht) - {"ranks"}) == sorted(hj)
+    # and the microbatches each step ran (a padded bucket's M)
+    assert sorted(set(ht) - {"ranks", "micro_steps"}) == sorted(hj)
+    assert len(ht["micro_steps"]) == len(ht["step"])
+    assert all(m >= a for m, a in zip(ht["micro_steps"], ht["accum_steps"]))
     assert ht["ranks"] == [{"launches": {"fused_adamw_stats": 0, "fused_adamw": 0,
                                          "fused_stats": 0, "sqdiff_norm": 0,
-                                         "rmsnorm": 0, "flash_attention": 0},
+                                         "rmsnorm": 0, "flash_attention": 0,
+                                         "dense": 0},
                             "peak_mem_bytes": None}]
     assert ht["global_batch"] == hj["global_batch"]
     assert ht["samples"] == hj["samples"]

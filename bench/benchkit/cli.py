@@ -68,6 +68,7 @@ def _cards(device, chips: int):
 def reference_check(cell, spec, device, tf32: bool = False) -> dict:
     """The reference's numbers over the cell's check steps, from the seed
     (`tf32`: the control, its float32 products on the TF32 tensor cores)."""
+    from benchkit.manifest import rms_norm_eps
     from benchkit.program import family_shapes, model_dict, traffic_dict
     from benchkit.refstep import run_reference
     from benchkit.traffic import MarkovTokens, learning_rate, make_batch
@@ -80,7 +81,8 @@ def reference_check(cell, spec, device, tf32: bool = False) -> dict:
     start = tr["lr_schedule"]["samples_start"]
     lrs = [learning_rate(start + k * gb, tr["optimizer"], tr["lr_schedule"])
            for k in range(n)]
-    return run_reference(cell.reference(), m, cell.config["assumed"]["rms_norm_eps"],
+    eps = rms_norm_eps(cell.config, cell.config_file)
+    return run_reference(cell.reference(), m, eps,
                          cell.config["init"], family_shapes(cell.config, m),
                          spec.seed, batches, lrs, tr, device, tf32=tf32,
                          devices=_cards(device, cell.chips))

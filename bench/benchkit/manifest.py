@@ -3,14 +3,19 @@
 Everything that belongs to one configuration, one traffic mix, one cell or
 one metric sits in a file of its own under `bench/`, found by its name:
 
-* `configs/<config>.json`   — the model as it is run (`file` in the manifest)
+* `configs/<config>.json`   — the model as it is run (`file` in the manifest),
+  with what the checks hold it to: the published values (`published`), the
+  keys cut (`reduced`) or forced by the program (`assumed`), the published
+  keys the port names otherwise (`port_keys`), the expected `param_count`
+  and `flops_per_token`
 * `reference/<family>.py`   — the plain model the configuration names
 * `traffic/<traffic>.json`  — the job: step, batch, sequence, optimizer
 * `limits/<cell>.json`      — the limits that decide `correct` in that cell
 * `metrics/<metric>.py`     — a reader: `read(run) -> float | None`
 
 so a cell, a configuration or a metric is added by adding files and
-entries, never by editing one that exists.
+entries, never by editing one that exists (the one exception: the new
+cell's name appended to the `workloads` of the end-to-end rate it reports).
 """
 
 from __future__ import annotations
@@ -48,21 +53,24 @@ def _load_module(path: Path, tag: str):
 
 
 class Cell:
-    """One workload of the manifest with the files it names."""
+    """One workload of the manifest with the files it names, under `root`
+    (the checkout's root by default)."""
 
-    def __init__(self, manifest: dict, name: str):
+    def __init__(self, manifest: dict, name: str, root: Path = ROOT):
         self.manifest = manifest
         self.entry = find(manifest["workloads"], name, "workload")
         self.name = name
         self.chips = int(self.entry["chips"])
+        self.bench = Path(root) / BENCH.name
         cfg_entry = find(manifest["configs"], self.entry["config"], "config")
-        self.config = load_json(ROOT / cfg_entry["file"])
-        self.traffic = load_json(BENCH / "traffic" / f"{self.entry['traffic']}.json")
-        self.limits = load_json(BENCH / "limits" / f"{name}.json")
+        self.config_file = cfg_entry["file"]
+        self.config = load_json(self.bench.parent / self.config_file)
+        self.traffic = load_json(self.bench / "traffic" / f"{self.entry['traffic']}.json")
+        self.limits = load_json(self.bench / "limits" / f"{name}.json")
 
     def reference(self):
         """The plain model module the configuration names."""
-        return reference_module(self.config["reference"])
+        return reference_module(self.config["reference"], self.bench)
 
     def metrics(self, kind: str) -> list[dict]:
         """The manifest's `end_to_end` or `per_layer` metrics this cell
@@ -83,8 +91,19 @@ def metric_reader(name: str):
     return _load_module(BENCH / "metrics" / f"{name}.py", "metric").read
 
 
-def reference_module(family: str):
-    return _load_module(BENCH / "reference" / f"{family}.py", "reference")
+def reference_module(family: str, bench: Path = BENCH):
+    return _load_module(bench / "reference" / f"{family}.py", "reference")
+
+
+def rms_norm_eps(config: dict, file: str) -> float:
+    """The RMSNorm ε the reference runs, from a configuration's body (read
+    from `file`): its `assumed` value where the program departs from the
+    published one, else the published value."""
+    for block in ("assumed", "published"):
+        if "rms_norm_eps" in config.get(block, {}):
+            return float(config[block]["rms_norm_eps"])
+    raise KeyError(f"{file} states rms_norm_eps under neither `assumed` nor "
+                   f"`published`")
 
 
 def peaks(kind: str) -> dict:

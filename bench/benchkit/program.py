@@ -26,7 +26,7 @@ import time
 import torch
 import torch.distributed as dist
 
-from benchkit import trace as trace_lib
+from benchkit import spans as spans_lib
 from benchkit.traffic import MarkovTokens, learning_rate, make_batch
 from benchkit.weights import leaf_items, make_weights
 
@@ -245,7 +245,9 @@ class _Rank:
         """The measured window; with a trace, its first `trace_steps` steps
         under the profiler (the card's activity alone: host-side tracing
         of every operation would slow the host several-fold where kernels
-        are small)."""
+        are small) and with the program's spans recorded
+        (`repro_torch.tracing`, on only while the profiler is)."""
+        from repro_torch import tracing
         steps, prof, n_traced = [], None, self.tr["trace_steps"]
         t_untraced = None          # where the window's untraced part starts
         if self.spec.trace:
@@ -257,21 +259,25 @@ class _Rank:
             traced = prof is not None and len(steps) < n_traced
             if traced and not steps:
                 prof.start()
+                tracing.enable()
             s = self.step()
             s["traced"] = traced
             steps.append(s)
             if traced and len(steps) == n_traced:
+                tracing.disable()
                 prof.stop()
                 t_untraced = time.perf_counter()
         if prof is not None and steps and len(steps) < n_traced:
+            tracing.disable()
             prof.stop()
         trace = None
         done = [s for s in steps if s["traced"]]
         if done:
-            trace = trace_lib.reduce_events(
+            trace = spans_lib.reduce_events(
                 prof.profiler.kineto_results.events(),
                 (done[0]["ns"][0], done[-1]["ns"][1]), len(done),
-                [sp for s in done for sp in s["spans"]])
+                [sp for s in done for sp in s["spans"]],
+                program_spans=tracing.collect())
         return steps, trace, t_start, t_untraced
 
     def free(self):
@@ -330,13 +336,14 @@ def _shapes(tree) -> dict:
     return {p: tuple(x.shape) for p, x in leaf_items(tree)}
 
 
-def family_shapes(config: dict, m: dict):
-    """The parameter tree the configuration's reference module describes,
-    as meta tensors: the layout in which the benchmark hands both sides its
-    weights."""
-    from benchkit.manifest import reference_module
-    shapes = reference_module(config["reference"]).param_shapes(m)
-    return _meta(shapes)
+def family_shapes(config: dict, m: dict, reference=None):
+    """The parameter tree the configuration's reference module (`reference`,
+    else the one its name finds) describes, as meta tensors: the layout in
+    which the benchmark hands both sides its weights."""
+    if reference is None:
+        from benchkit.manifest import reference_module
+        reference = reference_module(config["reference"])
+    return _meta(reference.param_shapes(m))
 
 
 def _meta(tree):

@@ -24,7 +24,8 @@ launch's host start:
 
 The idle gaps are named by the benchmark's own spans first, then by the
 innermost program span, then by the runtime call under them.  Without
-program spans the result is `trace.reduce_events`'s alone.
+program spans (None, or none recorded) the result is
+`trace.reduce_events`'s alone.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ def reduce_events(events, window: tuple[int, int], steps: int, host_spans=(),
     """`trace.reduce_events(events, window, steps, host_spans)`, and with
     `program_spans` (`repro_torch.tracing.Span`s of the traced steps) the
     device time by span (module docstring)."""
-    if program_spans is None:
+    if not program_spans:
         return trace_lib.reduce_events(events, window, steps, host_spans)
     events = list(events)
     # the benchmark's spans lie between the program's steps, never inside

@@ -1,7 +1,10 @@
 """`fused_adamw_stats` (the flat AdamW tail) against its bytes bound: each
-traced step the kernel reads p, g, m, v and writes p, m, v, 7 × 4 bytes a
-float32 element of the rank's own flat buffers, at the card's 3.35 TB/s,
-over the summed device time of its launches in the trace (all ranks)."""
+launch reads p, g, m, v and writes p, m, v over the rank's own flat
+buffers (one launch covers every bucket: they are all float32), 7 × 4
+bytes an element, at the card's 3.35 TB/s, over the summed device time of
+its launches.  The bytes follow the launches the trace holds, not the
+traced steps: a trace that lost a launch loses its bytes with its time
+(all ranks)."""
 
 KERNEL = "adamw_kernel"
 
@@ -16,5 +19,5 @@ def read(run):
         for name, (count, secs) in trace["kernels"].items():
             if KERNEL in name:
                 took += secs
-        need += trace["steps"] * 28.0 * elements / run["peaks"]["hbm_bytes_per_s"]
+                need += count * 28.0 * elements / run["peaks"]["hbm_bytes_per_s"]
     return 100.0 * need / took if took > 0 else None

@@ -7,7 +7,7 @@ from pathlib import Path
 import pytest
 
 import bench_setup  # noqa: F401  (the import path)
-from benchkit.manifest import BENCH, ROOT, Cell, load_manifest
+from benchkit.manifest import BENCH, ROOT, Cell, load_manifest, rms_norm_eps
 
 M = load_manifest()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -98,17 +98,27 @@ def test_layer_metric_moves_what_its_cells_report(metric):
     assert metric["layer"] and "\n" not in metric["layer"]
 
 
+# a width, which `reduced` may never name: a hidden, intermediate, latent,
+# state or projection size, a head size, an expansion factor, the experts a
+# token
+WIDTH = re.compile(r"(_dim|_rank|intermediate_size)$|^(d_model|d_ff|hidden_size|"
+                   r"head_dim|expand|state_dim|top_k|num_experts_per_tok)$")
+
+
+def check_config_entry(manifest, root, cfg):
+    """A manifest's configuration entry against its file under `root`."""
+    assert cfg["file"].startswith("bench/") and (root / cfg["file"]).is_file()
+    body = json.loads((root / cfg["file"]).read_text())
+    assert body["reduced"] == cfg["reduced"] and len(cfg["reduced"]) <= 16
+    assert not any(WIDTH.search(k) for k in cfg["reduced"])
+    assert any(w["config"] == cfg["name"] for w in manifest["workloads"])
+    files = [c["file"] for c in manifest["configs"]]
+    assert files.count(cfg["file"]) == 1
+
+
 @pytest.mark.parametrize("cfg", M["configs"], ids=lambda c: c["name"])
 def test_config_file_and_reduced_keys(cfg):
-    assert cfg["file"].startswith("bench/") and (ROOT / cfg["file"]).is_file()
-    body = json.loads((ROOT / cfg["file"]).read_text())
-    assert body["reduced"] == cfg["reduced"] and len(cfg["reduced"]) <= 16
-    width = re.compile(r"(_dim|_rank)$|^(d_model|d_ff|hidden_size|intermediate_size|"
-                       r"head_dim|expand|state_dim|top_k)$")
-    assert not any(width.search(k) for k in cfg["reduced"])
-    assert any(w["config"] == cfg["name"] for w in M["workloads"])
-    files = [c["file"] for c in M["configs"]]
-    assert files.count(cfg["file"]) == 1
+    check_config_entry(M, ROOT, cfg)
 
 
 def test_four_chip_cells_are_at_most_a_quarter():
@@ -121,20 +131,47 @@ def test_paths_hold_only_the_benchmark():
     assert not Path(BENCH.name).name.endswith("_torch")
 
 
-# the published config's keys under the port's names
+# the published config's keys under the port's names: a dotted path into
+# the file's `model` entry; a file adds its own under `port_keys`
 PORT_KEYS = {"num_hidden_layers": "num_layers", "hidden_size": "d_model",
              "num_attention_heads": "num_heads", "num_key_value_heads": "num_kv_heads",
              "intermediate_size": "d_ff", "vocab_size": "vocab_size",
-             "rope_theta": "rope_theta", "tie_word_embeddings": "tie_embeddings"}
+             "rope_theta": "rope_theta", "tie_word_embeddings": "tie_embeddings",
+             "num_experts_per_tok": "moe.top_k", "moe_intermediate_size": "moe.d_expert",
+             "n_routed_experts": "moe.num_experts",
+             "n_shared_experts": "moe.num_shared_experts",
+             "first_k_dense_replace": "moe.first_dense",
+             **{k: f"mla.{k}" for k in ("kv_lora_rank", "q_lora_rank", "qk_nope_head_dim",
+                                        "qk_rope_head_dim", "v_head_dim")}}
+
+
+def _at(model: dict, path: str):
+    for key in path.split("."):
+        model = model[key]
+    return model
+
+
+def published_changes(body: dict) -> set:
+    """The published keys a configuration's file departs from: those whose
+    value in `model` differs, and those `assumed` sets otherwise."""
+    pub, model, assumed = body["published"], body["model"], body.get("assumed", {})
+    keys = {**PORT_KEYS, **body.get("port_keys", {})}
+    changed = {k for k, v in pub.items() if k in keys and _at(model, keys[k]) != v}
+    return changed | {k for k, v in assumed.items() if pub.get(k) != v}
+
+
+def check_published(body: dict, reduced, file: str):
+    """Every departure from the published config is listed, as a cut
+    (`reduced`) or as what the program forces (`assumed`), never as both;
+    the reference's ε is stated."""
+    assumed = body.get("assumed", {})
+    assert published_changes(body) == set(reduced) | set(assumed)
+    # an assumed value is what the program is forced to run, never a cut
+    assert not set(assumed) & set(reduced)
+    rms_norm_eps(body, file)
 
 
 @pytest.mark.parametrize("cfg", M["configs"], ids=lambda c: c["name"])
 def test_published_values_except_reduced_and_assumed(cfg):
     body = json.loads((ROOT / cfg["file"]).read_text())
-    pub, model, assumed = body["published"], body["model"], body["assumed"]
-    changed = {k for k, v in pub.items()
-               if k in PORT_KEYS and model[PORT_KEYS[k]] != v}
-    changed |= {k for k, v in assumed.items() if pub.get(k) != v}
-    assert changed == set(cfg["reduced"]) | set(assumed)
-    # an assumed value is what the program is forced to run, never a cut
-    assert not set(assumed) & set(cfg["reduced"])
+    check_published(body, cfg["reduced"], cfg["file"])

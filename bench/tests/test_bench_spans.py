@@ -142,3 +142,50 @@ def test_readers():
 def test_readers_find_nothing_without_program_spans(name):
     assert metric_reader(name)(_view(None)) is None
     assert metric_reader(name)(_view(trace_lib.reduce_events(EVENTS, (0, 1000), 2))) is None
+
+
+def test_tracing_is_on_only_while_the_profiler_is(monkeypatch):
+    """A traced run on the CPU: the program's spans are recorded from just
+    after the profiler starts to just before it stops, and what was
+    recorded reaches the reduction; tracing is off once the window
+    returns."""
+    import torch.profiler
+
+    from benchkit import cli
+    from repro_torch import tracing
+
+    calls, collected, reduced = [], [], []
+
+    def record(owner, name, tag, out=None):
+        orig = getattr(owner, name)
+
+        def wrapped(*a, **k):
+            calls.append((tag, tracing.span("probe") is not tracing.OFF))
+            got = orig(*a, **k)
+            if out is not None:
+                out.append(got)
+            return got
+        monkeypatch.setattr(owner, name, wrapped)
+
+    record(torch.profiler.profile, "start", "prof.start")
+    record(torch.profiler.profile, "stop", "prof.stop")
+    record(tracing, "enable", "enable")
+    record(tracing, "disable", "disable")
+    record(tracing, "collect", "collect", collected)
+    reduce = spans_lib.reduce_events
+
+    def reduce_recorded(*a, program_spans=None, **k):
+        reduced.append(program_spans)
+        return reduce(*a, program_spans=program_spans, **k)
+    monkeypatch.setattr(spans_lib, "reduce_events", reduce_recorded)
+
+    code, result = cli.run(["--workload", "phi3-l8.accum.s2048", "--seed", str(2**31 + 91),
+                            "--seconds", "1", "--trace", "1", "--device", "cpu", "--smoke"])
+    assert code == 0 and result["correct"], result and result["checks"]
+    # (call, tracing on as it was made)
+    assert calls == [("prof.start", False), ("enable", False), ("disable", True),
+                     ("prof.stop", False), ("collect", False)]
+    assert tracing.span("probe") is tracing.OFF
+    assert len(reduced) == 1 and reduced[0] is collected[0]
+    assert {"step", "step.forward", "step.backward", "step.accumulate"} <= {
+        s.name for s in reduced[0]}

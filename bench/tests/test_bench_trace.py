@@ -68,8 +68,22 @@ def test_readers():
     assert metric_reader("mfu")(v) == pytest.approx(100 * 6e9 * 8192 / 67e12)
     assert metric_reader("device_idle_pct")(v) == pytest.approx(15.0)
     assert metric_reader("collective_exposed_ms")(v) == pytest.approx(150e-9 / 2 * 1e3)
-    want = 100 * (2 * 28 * 1000 / 3.35e12) / 100e-9
+    # one launch in the trace: one launch's bytes
+    want = 100 * (1 * 28 * 1000 / 3.35e12) / 100e-9
     assert metric_reader("fused_adamw_stats_roofline")(v) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("name, kernel", [("fused_adamw_stats_roofline", "adamw_kernel"),
+                                          ("fused_stats_roofline", "stats_kernel")])
+def test_roofline_counts_launches_not_steps(name, kernel):
+    # three traced steps of one launch each, 100 ns a launch; a trace that
+    # lost one of the three launches reads the same share
+    whole = {"steps": 3, "kernels": {f"void {kernel}<float>": [3, 300e-9]}}
+    lost = {"steps": 3, "kernels": {f"void {kernel}<float>": [2, 200e-9]}}
+    read = metric_reader(name)
+    assert read(_view(lost)) == pytest.approx(read(_view(whole)))
+    assert read(_view(whole)) == pytest.approx(
+        100 * (28 if kernel == "adamw_kernel" else 8) * 1000 / 3.35e12 / 100e-9)
 
 
 def test_readers_find_nothing_without_a_trace_or_a_card():

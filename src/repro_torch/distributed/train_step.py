@@ -148,6 +148,9 @@ def _accumulate(loss_fn, params, batch, track_micro_sqnorm: bool, acc_g):
             acc_aux += w * metrics["aux"].detach()
             acc_w += w
             acc_m += (w > 0).float()
+        # the gradient is in the accumulator: free it before the next
+        # microbatch's backward, which would otherwise run beside it
+        del grads
     denom = torch.clamp(acc_w, min=1.0)
     with torch.no_grad():
         for a in acc_g:
@@ -536,6 +539,7 @@ def _accumulate_spanning(loss_fn, params, batch, grid, add):
             acc_aux += w * metrics["aux"].detach()
             acc_w += w_m
             acc_m += (w_m > 0).float()
+        del grads                     # as in `_accumulate`
     denom = torch.clamp(acc_w, min=1.0)
     with span("step.metrics"):
         loss, aux = psum(torch.stack([acc_loss, acc_aux]), grid.dg) / denom

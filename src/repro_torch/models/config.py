@@ -37,7 +37,7 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 @dataclass(frozen=True)
 class MoEConfig:
-    num_experts: int
+    num_experts: int              # routed experts held here
     top_k: int
     d_expert: int                 # ffn width of each routed expert
     num_shared_experts: int = 0
@@ -47,6 +47,28 @@ class MoEConfig:
     # Which layers are MoE: every layer by default; first_dense skips layer 0
     # (DeepSeek-V2 keeps layer 0 dense).
     first_dense: int = 0
+    # The router's width, the published expert count (0 => num_experts),
+    # and the first of them held here: experts [first_expert,
+    # first_expert + num_experts), one expert-parallel rank's share.
+    router_experts: int = 0
+    first_expert: int = 0
+    # Group-limited greedy routing (DeepSeek-V2): the experts fall into
+    # n_group equal groups; a token picks its top_k among the topk_group
+    # groups of highest maximum score.  n_group 1 is plain top-k.
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0  # multiplies every gate
+    norm_topk_prob: bool = True   # gates divided by their sum before scaling
+    # DeepSeek-V2's device- and communication-level balance losses over the
+    # n_group groups, a group standing for a device (arXiv:2405.04434
+    # §2.2.3; 0 => left out)
+    device_aux_coef: float = 0.0
+    comm_aux_coef: float = 0.0
+
+    @property
+    def num_routed(self) -> int:
+        """The router's width: every expert a token can be sent to."""
+        return self.router_experts or self.num_experts
 
 
 @dataclass(frozen=True)
@@ -237,7 +259,7 @@ class ModelConfig:
             m = self.moe
             n_routed = m.top_k if active_only else m.num_experts
             per_expert = 3 * d * m.d_expert if self.mlp_kind in ("swiglu", "geglu") else 2 * d * m.d_expert
-            n = n_routed * per_expert + d * m.num_experts  # router
+            n = n_routed * per_expert + d * m.num_routed  # router
             if m.num_shared_experts:
                 n += m.num_shared_experts * 3 * d * m.shared_d_expert
             return n

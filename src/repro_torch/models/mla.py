@@ -130,35 +130,37 @@ def mla_full(params, x, positions, m: MLAConfig, causal: bool = True,
     recomputed in the backward pass (the reference's checkpointed scan).
     With `return_latents` it returns (out, c_kv, k_rope) — the prefill
     cache.  `num_heads` is the config's: leaves with fewer heads are this
-    rank's shard (module docstring)."""
-    x = stream_gather(x)
-    b, t, _ = x.shape
-    tp = model_axis()
-    h = params["w_uk"].shape[1]
-    shard = (tp[1], h) if tp is not None and num_heads not in (None, h) else None
-    q_nope, q_rope = _queries(params, x, positions, m, shard)
-    c_kv, k_rope = cache = _latents(params, x, positions, m)
-    if shard is not None:
-        c_kv, k_rope = tp_enter(c_kv), tp_enter(k_rope)
-    k_nope = torch.einsum("btr,rhn->bthn", c_kv, params["w_uk"].to(x.dtype))
-    v = torch.einsum("btr,rhv->bthv", c_kv, params["w_uv"].to(x.dtype))
-    if t >= CHUNK_THRESHOLD and t % q_chunk == 0:
-        def body(qn, qr, k_nope, k_rope, v, c):
-            with span("model.attention"):
-                return _mla_attend(qn, qr, k_nope, k_rope, v, m, causal,
-                                   offset=c * q_chunk)
+    rank's shard (module docstring).  The whole call is the span
+    `model.mla`; each query chunk's attention, `model.attention`."""
+    with span("model.mla"):
+        x = stream_gather(x)
+        b, t, _ = x.shape
+        tp = model_axis()
+        h = params["w_uk"].shape[1]
+        shard = (tp[1], h) if tp is not None and num_heads not in (None, h) else None
+        q_nope, q_rope = _queries(params, x, positions, m, shard)
+        c_kv, k_rope = cache = _latents(params, x, positions, m)
+        if shard is not None:
+            c_kv, k_rope = tp_enter(c_kv), tp_enter(k_rope)
+        k_nope = torch.einsum("btr,rhn->bthn", c_kv, params["w_uk"].to(x.dtype))
+        v = torch.einsum("btr,rhv->bthv", c_kv, params["w_uv"].to(x.dtype))
+        if t >= CHUNK_THRESHOLD and t % q_chunk == 0:
+            def body(qn, qr, k_nope, k_rope, v, c):
+                with span("model.attention"):
+                    return _mla_attend(qn, qr, k_nope, k_rope, v, m, causal,
+                                       offset=c * q_chunk)
 
-        out = torch.cat([
-            checkpoint(body, q_nope[:, c * q_chunk:(c + 1) * q_chunk],
-                       q_rope[:, c * q_chunk:(c + 1) * q_chunk],
-                       k_nope, k_rope, v, c, use_reentrant=False)
-            for c in range(t // q_chunk)], dim=1)
-    else:
-        out = _mla_attend(q_nope, q_rope, k_nope, k_rope, v, m, causal)
-    out = torch.einsum("bthv,hvd->btd", out, params["w_o"].to(x.dtype))
-    out = (stream_scatter(out) if shard is None
-           else maybe_shard(out, "batch", "seq", "embed"))
-    return (out, *cache) if return_latents else out
+            out = torch.cat([
+                checkpoint(body, q_nope[:, c * q_chunk:(c + 1) * q_chunk],
+                           q_rope[:, c * q_chunk:(c + 1) * q_chunk],
+                           k_nope, k_rope, v, c, use_reentrant=False)
+                for c in range(t // q_chunk)], dim=1)
+        else:
+            out = _mla_attend(q_nope, q_rope, k_nope, k_rope, v, m, causal)
+        out = torch.einsum("bthv,hvd->btd", out, params["w_o"].to(x.dtype))
+        out = (stream_scatter(out) if shard is None
+               else maybe_shard(out, "batch", "seq", "embed"))
+        return (out, *cache) if return_latents else out
 
 
 def init_mla_cache(batch: int, cache_len: int, m: MLAConfig, dtype, device):

@@ -29,6 +29,16 @@ The names, which the benchmark's readers depend on:
 * `model.block` (the function `remat="full"` re-runs), `model.attention`
   and `model.xent` (a checkpointed chunk): inside `step.backward`, by
   interval, each is a recompute.
+* `model.mla` — one call of MLA's expanded form (`models/mla.py`), its
+  query chunks' `model.attention` inside it.
+* `model.moe.route` (router, softmax, top-k or group-limited choice, aux
+  loss, the capacity sort), `model.moe.dispatch` (the held experts' slot
+  gather), `model.moe.experts` (their batched SwiGLU; counters `rows`, the
+  slots run, E held × C × rows of x, and `d_model`, `d_expert`, all known
+  on the host), `model.moe.combine` (gates, each token's slots summed),
+  `model.moe.shared` (the shared experts) — one MoE layer
+  (`models/moe.py`).  Like every `model.*` span, each lies inside
+  `step.backward` when a checkpoint re-runs it.
 * `comm.all_gather`, `comm.all_reduce`, `comm.reduce_scatter` — one
   collective; counters `bytes` (the whole payload: an all-gather's output,
   a reduce-scatter's input) and `group` (the group's size).

@@ -17,6 +17,8 @@ E·C > n·k (capacity factor above 1): there it can overwrite a kept pair
 against a brute-force dispatch, and the reference against the port
 everywhere but that one slot."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -173,9 +175,10 @@ def _pair_grads(p, x, m, fn, **kw):
 def test_moe_apply_output_aux_and_grads_match_reference(shared, cf, normalize):
     jm, tm, p = _layer(seed=3, shared=shared)
     x = _x(4, 2, 20, shift=0.3)
-    kw = dict(capacity_factor=cf, normalize_gates=normalize)
-    jy, jaux, jg = _pair_grads(p, x, jm, "jax", **kw)
-    ty, taux, tg = _pair_grads(p, x, tm, "torch", **kw)
+    jy, jaux, jg = _pair_grads(p, x, jm, "jax", capacity_factor=cf,
+                               normalize_gates=normalize)
+    ty, taux, tg = _pair_grads(p, x, dataclasses.replace(tm, norm_topk_prob=normalize),
+                               "torch", capacity_factor=cf)
     close(ty, jy)
     close(taux, jaux)
     assert len(tg) == len(jg)
